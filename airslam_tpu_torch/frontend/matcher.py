@@ -1,0 +1,103 @@
+"""Point matcher: LightGlue with the fixed-shape mutual-argmax decode.
+
+Port of ``airslam_tpu/frontend/matcher.py`` for ``matcher: 0``: keypoint
+normalization (point_matcher.cc:39-49, scale 0.5), the network, mutual
+argmax with the exp-score gate 0.1, and optional fundamental-matrix RANSAC
+outlier rejection (OpenCV, imported only when asked for). SuperGlue
+(``matcher: 1``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from airslam_tpu_torch import resolve_device
+from airslam_tpu_torch.models import weights as wio
+from airslam_tpu_torch.models.lightglue import LightGlue, normalize_keypoints
+from airslam_tpu_torch.ops.match import Matches, mutual_match
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherConfig:
+    image_width: int = 752
+    image_height: int = 480
+    dtype: Any = torch.float32
+
+
+def _reject_outliers(p0, p1, i0, i1, sc):
+    """Fundamental-matrix RANSAC (20 px, 0.99), point_matcher.cc:105-119."""
+    import cv2
+
+    _, inl = cv2.findFundamentalMat(p0.astype(np.float32), p1.astype(np.float32),
+                                    cv2.FM_RANSAC, 20.0, 0.99)
+    if inl is None:
+        return i0, i1, sc
+    good = inl.ravel().astype(bool)
+    return i0[good], i1[good], sc[good]
+
+
+class PointMatcher:
+    """LightGlue (``matcher: 0``) with the shipped ``lightglue.npz``.
+    ``device``: ``cuda`` unless the caller passes another."""
+
+    threshold = 0.1  # exp-score gate (light_glue.cpp:214-266)
+    norm_scale = 0.5  # NormalizeKeypoints scale for LightGlue
+
+    def __init__(self, config: MatcherConfig = MatcherConfig(), device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = LightGlue(dtype=config.dtype)
+        self.model.load_state_dict(wio.lightglue_from_flax(
+            wio.load_npz(wio.checkpoint_path("lightglue.npz"))))
+        self.model.to(self.device).eval()
+
+    @torch.no_grad()
+    def match(self, kpts0, desc0, mask0, kpts1, desc1, mask1,
+              threshold: Optional[float] = None) -> Matches:
+        """Keypoints (N, 2) in pixels, descriptors (N, 256), masks (N,),
+        padded to a fixed token count. Returns fixed-shape Matches."""
+        cfg = self.config
+        thr = self.threshold if threshold is None else threshold
+
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(a, device=self.device).to(dtype)
+
+        nk0 = normalize_keypoints(t(kpts0), cfg.image_width, cfg.image_height,
+                                  self.norm_scale)
+        nk1 = normalize_keypoints(t(kpts1), cfg.image_width, cfg.image_height,
+                                  self.norm_scale)
+        m0, m1 = t(mask0, torch.bool), t(mask1, torch.bool)
+        with torch.profiler.record_function("lightglue"):
+            scores, _, _ = self.model(nk0, t(desc0), m0, nk1, t(desc1), m1)
+        with torch.profiler.record_function("match"):
+            return mutual_match(scores, m0, m1, thr)
+
+    def _pairs(self, m: Matches, f0, f1, outlier_rejection):
+        mask = m.mask.cpu().numpy()
+        i0 = np.nonzero(mask)[0]
+        i1 = m.idx1.cpu().numpy()[i0]
+        sc = m.score.cpu().numpy()[i0]
+        if outlier_rejection and len(i0) > 8:
+            p0 = np.asarray(torch.as_tensor(f0.keypoints).cpu())[i0]
+            p1 = np.asarray(torch.as_tensor(f1.keypoints).cpu())[i1]
+            i0, i1, sc = _reject_outliers(p0, p1, i0, i1, sc)
+        return np.stack([i0, i1], axis=-1).astype(np.int32), sc
+
+    def matching_points(self, feats0, feats1, outlier_rejection: bool = False,
+                        threshold: Optional[float] = None):
+        """(M, 2) int32 match index pairs + (M,) scores (``MatchingPoints``)."""
+        m = self.match(feats0.keypoints, feats0.kp_desc, feats0.kp_mask,
+                       feats1.keypoints, feats1.kp_desc, feats1.kp_mask,
+                       threshold=threshold)
+        return self._pairs(m, feats0, feats1, outlier_rejection)
+
+    def matching_points_batched(self, pairs, outlier_rejection: bool = False,
+                                threshold: Optional[float] = None):
+        """Match B (feats0, feats1) pairs; a list of what
+        :meth:`matching_points` returns for each."""
+        return [self.matching_points(a, b, outlier_rejection, threshold)
+                for a, b in pairs]

@@ -1,0 +1,205 @@
+"""PLNet: unified keypoint + line-segment CNN, and the stage-1 LOI head.
+
+Port of ``airslam_tpu/models/plnet.py``: ``PLNetBackbone``, ``LineHeadTrunk``,
+``PLNet``, ``LoiHeadS1`` and its samplers ``_onnx_bilerp`` /
+``_interior_feats``. Inside, convolutions run NCHW; the outputs keep the JAX
+layouts (NHWC maps) so the two packages compare like with like.
+
+Compute dtype follows the JAX program: convs and Dense layers run in
+``dtype`` (inputs and weights cast), the keypoint softmax, descriptor
+normalization and the sigmoid heads run in f32, and the LOI maps stay in
+``dtype`` into the samplers (kernels B and T on the card).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from airslam_tpu_torch.models.weights import BACKBONE_CONVS, TRUNK_HEADS
+from airslam_tpu_torch.ops.bilerp import bilerp_points, bilerp_points_t
+
+NUM_JUNCTIONS = 300  # top-k junctions, = JN in plnet.cpp:284
+NUM_PROPOSALS_PER_CELL = 3
+LOI_DIM = 128
+
+
+class PLNetBackbone(nn.Module):
+    """Space-to-depth stem + VGG trunk (plnet.py:77-138). Returns (feat at
+    stride 8, {"c3": stride 4, "c5": stride 16, "c6": stride 32}), NCHW."""
+
+    def __init__(self):
+        super().__init__()
+        widths = {"conv1a": (4, 64), "conv1b": (64, 64), "conv2a": (64, 128)}
+        for name in BACKBONE_CONVS:
+            cin, cout = widths.get(name, (128, 128))
+            setattr(self, name, nn.Conv2d(cin, cout, 3, padding=1))
+
+    def forward(self, x):
+        def conv(name, t):
+            return F.relu(getattr(self, name)(t))
+
+        # the identity 2×2 stride-2 stem: channel 2a+b of cell (i, j) is
+        # pixel (2i+a, 2j+b) — pixel_unshuffle's order for one channel
+        x = F.pixel_unshuffle(x, 2)
+        x = conv("conv1b", conv("conv1a", x))
+        x = F.max_pool2d(x, 2)
+        c3 = x = conv("conv2b", conv("conv2a", x))
+        x = F.max_pool2d(x, 2)
+        feat = conv("conv3b", conv("conv3a", x))
+        y = conv("conv4b", conv("conv4a", F.max_pool2d(feat, 2)))
+        z = conv("conv5b", conv("conv5a", F.max_pool2d(y, 2)))
+        return feat, {"c3": c3, "c5": y, "c6": z}
+
+
+class LineHeadTrunk(nn.Module):
+    """Stride-4 line trunk (plnet.py:141-172): ``fuse0`` (one 1×1 kernel over
+    the 512-wide pyramid concat) is split per level and applied at source
+    resolution, upsampled and summed; then a 3×3 ``fuse2``."""
+
+    def __init__(self):
+        super().__init__()
+        self.fuse0 = nn.Conv2d(512, 128, 1)
+        self.fuse2 = nn.Conv2d(128, 128, 3, padding=1)
+
+    def forward(self, parts):
+        h4, w4 = parts[0].shape[-2:]
+        acc = None
+        for i, t in enumerate(parts):
+            y = F.conv2d(t, self.fuse0.weight[:, 128 * i:128 * (i + 1)])
+            if y.shape[-2:] != (h4, w4):
+                y = F.interpolate(y, (h4, w4), mode="bilinear", align_corners=False)
+            acc = y if acc is None else acc + y
+        x = F.relu(acc + self.fuse0.bias[None, :, None, None])
+        return F.relu(self.fuse2(x))
+
+
+class PLNet(nn.Module):
+    """Stage 0: backbone + keypoint heads + line heads (plnet.py:175-259).
+
+    ``forward(image)``: (B, 1, 512, 512) in [0, 1]. Returns the JAX output
+    dict with NHWC layouts: ``scores`` (B, 512, 512), ``descriptors``
+    (B, 64, 64, 256), ``junc_heat`` (B, 128, 128), ``junc_offset``
+    (B, 128, 128, 2), ``line_pred`` (B, 128, 128, 3, 4), ``line_logit``
+    (B, 128, 128, 3), ``loi`` (B, 128, 128, 128), ``loi_thin``/``loi_aux``
+    (B, 128, 128, 4) — the LOI maps contiguous, in the compute dtype."""
+
+    offset_scale = 8.0
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.backbone = PLNetBackbone()
+        self.convPDa = nn.Conv2d(128, 512, 3, padding=1)  # convPa | convDa
+        self.convPb = nn.Conv2d(256, 65, 1)
+        self.convDb = nn.Conv2d(256, 256, 1)
+        self.line_trunk = LineHeadTrunk()
+        self.heads = nn.Conv2d(128, sum(f for _, f in TRUNK_HEADS), 3, padding=1)
+        self.to(dtype)
+
+    def forward(self, image):
+        feat, skips = self.backbone(image.to(self.dtype))
+        pd = F.relu(self.convPDa(feat))
+        logits = self.convPb(pd[:, :256]).float()
+        prob = torch.softmax(logits, dim=1)[:, :64]
+        scores = F.pixel_shuffle(prob, 8)[:, 0]  # channel 8r+s → pixel (8i+r, 8j+s)
+
+        desc = self.convDb(pd[:, 256:]).float()
+        desc = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=1, keepdim=True),
+                                  min=1e-12)
+
+        trunk = self.line_trunk([skips["c3"], feat, skips["c5"], skips["c6"]])
+        heads = self.heads(trunk).permute(0, 2, 3, 1)  # NHWC view
+        o, i0 = {}, 0
+        for n, f in TRUNK_HEADS:
+            o[n] = heads[..., i0:i0 + f]
+            i0 += f
+        b, h4, w4, _ = heads.shape
+
+        cy = torch.arange(h4, dtype=torch.float32, device=heads.device) + 0.5
+        cx = torch.arange(w4, dtype=torch.float32, device=heads.device) + 0.5
+        cyy, cxx = torch.meshgrid(cy, cx, indexing="ij")
+        center = torch.stack([cxx, cyy, cxx, cyy], dim=-1)  # (h4, w4, 4)
+        line_raw = o["line_pred"].float() * self.offset_scale
+        p = NUM_PROPOSALS_PER_CELL
+        line_pred = line_raw.reshape(b, h4, w4, p, 4) + center[None, :, :, None, :]
+
+        return {
+            "scores": scores,
+            "descriptors": desc.permute(0, 2, 3, 1),
+            "junc_heat": torch.sigmoid(o["junc_heat"].float())[..., 0],
+            "junc_offset": torch.sigmoid(o["junc_off"].float()),
+            "line_pred": line_pred,
+            "line_logit": o["line_logit"].float(),
+            "loi": o["loi"].contiguous(),
+            "loi_thin": o["loi_thin"].contiguous(),
+            "loi_aux": o["loi_aux"].contiguous(),
+        }
+
+
+class LoiHeadS1(nn.Module):
+    """Stage-1 LOI verification head, the architecture of the reference's
+    ``plnet_s1.onnx`` (plnet.py:314-410): endpoint LOI features (2 × 128),
+    30 thin samples along the junction line and 30 aux samples along the
+    representative proposal (4 channels each, channel-major), a 3-layer MLP
+    plus a residual branch, and a 2-way softmax score."""
+
+    n_interior = 30
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc2_0 = nn.Linear(2 * LOI_DIM + 240, 128)
+        self.fc2_2 = nn.Linear(128, 128)
+        self.fc2_4 = nn.Linear(128, 128)
+        self.fc2_res = nn.Linear(240, 128)
+        self.fc2_head = nn.Linear(128, 2)
+        self.to(dtype)
+        # the ONNX graph's f32 sampling ramps (bits set by the checkpoint)
+        n = self.n_interior
+        self.register_buffer("t_fwd", torch.arange(1, n + 1, dtype=torch.float32) / (n + 1))
+        self.register_buffer("t_rev", torch.arange(n, 0, -1, dtype=torch.float32) / (n + 1))
+
+    def forward(self, lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx):
+        """lines/prop_lines: (L, 4) (x1, y1, x2, y2) in 128-grid coords;
+        loi (128, 128, 128), loi_thin/aux (128, 128, 4) HWC; ``junc_xy``
+        (J, 2) the junctions and ``pair_idx`` (L, 2) each line's endpoint
+        junctions. The LOI map is sampled once per junction and gathered per
+        line (the JAX head's fast endpoint path, the one its detector runs).
+        Returns (scores (L,), lines)."""
+        f_junc = _onnx_bilerp(loi, junc_xy[:, 0] - 0.5, junc_xy[:, 1] - 0.5)
+        idx = pair_idx.clamp(0, junc_xy.shape[0] - 1)
+        f_ep1 = f_junc[idx[:, 0]]
+        f_ep2 = f_junc[idx[:, 1]]
+
+        def interior(seg):  # (L, 4) -> x (L, 30), y (L, 30)
+            x = seg[:, 0:1] * self.t_fwd[None, :] + seg[:, 2:3] * self.t_rev[None, :] - 0.5
+            y = seg[:, 1:2] * self.t_fwd[None, :] + seg[:, 3:4] * self.t_rev[None, :] - 0.5
+            return x, y
+
+        n_lines = lines.shape[0]
+        f_thin = _interior_feats(loi_thin, *interior(lines), n_lines)
+        f_aux = _interior_feats(loi_aux, *interior(prop_lines), n_lines)
+
+        feats = torch.cat([f_ep1, f_ep2, f_thin, f_aux], dim=-1).to(self.dtype)
+        res_in = torch.cat([f_thin, f_aux], dim=-1).to(self.dtype)
+        x = F.relu(self.fc2_0(feats))
+        x = F.relu(self.fc2_2(x))
+        x = self.fc2_4(x)
+        r = F.relu(self.fc2_res(res_in))
+        logits = self.fc2_head(x + r).float()
+        return torch.softmax(logits, dim=-1)[:, 1], lines
+
+
+def _interior_feats(fmap, xx, yy, n_lines: int):
+    """Channel-major interior sampling (L, C·T) for the thin/aux branches
+    (kernel T on the card)."""
+    out = bilerp_points_t(fmap, xx.contiguous(), yy.contiguous())  # (C, L, T)
+    return out.permute(1, 0, 2).reshape(n_lines, -1)
+
+
+def _onnx_bilerp(fmap, x, y):
+    """Bilinear sampling with the stage-1 graph's corner arithmetic
+    (kernel B on the card). fmap (H, W, C); x, y (...). Returns (..., C)."""
+    return bilerp_points(fmap, x.contiguous(), y.contiguous())

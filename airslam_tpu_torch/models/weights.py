@@ -1,0 +1,131 @@
+"""Checkpoint loading and flax → PyTorch parameter conversion.
+
+The in-repo checkpoints (``airslam_tpu/checkpoints/*.npz``) are ``/``-flattened
+flax parameter trees, all float32. They are read as plain npz files here,
+without flax, and converted to ``state_dict``s of the port's modules:
+
+- Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
+- Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW;
+- LayerNorm ``scale`` → ``weight``;
+- PLNet's fused convs are concatenated once here, at load time: convPa+convDa
+  (one 512-wide 3×3 conv) and the seven trunk heads (one 154-wide 3×3 conv),
+  in the channel order of ``airslam_tpu/models/plnet.py``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_CHECKPOINT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "..", "..", "airslam_tpu", "checkpoints")
+
+# trunk heads fused into one conv, in output-channel order (plnet.py:219-221)
+TRUNK_HEADS = (("junc_heat", 1), ("junc_off", 2), ("line_pred", 12),
+               ("line_logit", 3), ("loi", 128), ("loi_thin", 4),
+               ("loi_aux", 4))
+BACKBONE_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
+                  "conv4a", "conv4b", "conv5a", "conv5b")
+
+
+def checkpoint_path(name: str) -> str:
+    """Path of a shipped checkpoint (the JAX package's checkpoint folder)."""
+    return os.path.normpath(os.path.join(_CHECKPOINT_DIR, name))
+
+
+def load_npz(path: str) -> Dict[str, Any]:
+    """Load a ``/``-flattened npz into a nested dict of numpy arrays."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def _params(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))  # a writable, contiguous copy
+
+
+def _conv(kernel) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))  # HWIO → OIHW
+
+
+def _dense(node, prefix, out, bias=True):
+    out[prefix + ".weight"] = _t(np.asarray(node["kernel"]).T)
+    if bias:
+        out[prefix + ".bias"] = _t(node["bias"])
+
+
+def plnet_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``PLNet`` params → ``state_dict`` of :class:`models.plnet.PLNet`."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in BACKBONE_CONVS:
+        sd[f"backbone.{name}.weight"] = _conv(p["backbone"][name]["kernel"])
+        sd[f"backbone.{name}.bias"] = _t(p["backbone"][name]["bias"])
+    pd_k = np.concatenate([p["convPa"]["kernel"], p["convDa"]["kernel"]], -1)
+    sd["convPDa.weight"] = _conv(pd_k)
+    sd["convPDa.bias"] = _t(np.concatenate([p["convPa"]["bias"],
+                                            p["convDa"]["bias"]]))
+    for name in ("convPb", "convDb"):
+        sd[f"{name}.weight"] = _conv(p[name]["kernel"])
+        sd[f"{name}.bias"] = _t(p[name]["bias"])
+    trunk = p["line_trunk"]
+    for name in ("fuse0", "fuse2"):
+        sd[f"line_trunk.{name}.weight"] = _conv(trunk[name]["kernel"])
+        sd[f"line_trunk.{name}.bias"] = _t(trunk[name]["bias"])
+    sd["heads.weight"] = _conv(np.concatenate(
+        [p[n]["kernel"] for n, _ in TRUNK_HEADS], -1))
+    sd["heads.bias"] = _t(np.concatenate([p[n]["bias"] for n, _ in TRUNK_HEADS]))
+    return sd
+
+
+def loi_s1_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``LoiHeadS1`` params → ``state_dict`` of
+    :class:`models.plnet.LoiHeadS1`. ``t_fwd``/``t_rev`` are copied
+    bit-exactly (their LSBs are not those of ``arange/31``)."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("fc2_0", "fc2_2", "fc2_4", "fc2_res", "fc2_head"):
+        _dense(p[name], name, sd)
+    sd["t_fwd"] = _t(p["t_fwd"])
+    sd["t_rev"] = _t(p["t_rev"])
+    return sd
+
+
+def lightglue_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``LightGlue`` params → ``state_dict`` of
+    :class:`models.lightglue.LightGlue`."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(p["rotary"]["freqs"], "rotary.freqs", sd, bias=False)
+    for name in ("input_proj", "final_proj", "matchability"):
+        _dense(p[name], name, sd)
+
+    def update(node, prefix):
+        sd[prefix + ".ln.weight"] = _t(node["ln"]["scale"])
+        sd[prefix + ".ln.bias"] = _t(node["ln"]["bias"])
+        _dense(node["fc1"], prefix + ".fc1", sd)
+        _dense(node["fc2"], prefix + ".fc2", sd)
+
+    layers = sum(1 for k in p if k.startswith("self"))
+    for i in range(layers):
+        s, c = p[f"self{i}"], p[f"cross{i}"]
+        _dense(s["qkv"], f"self_blocks.{i}.qkv", sd)
+        _dense(s["proj"], f"self_blocks.{i}.proj", sd)
+        update(s["update"], f"self_blocks.{i}.update")
+        for name in ("to_qk", "to_v", "proj"):
+            _dense(c[name], f"cross_blocks.{i}.{name}", sd)
+        update(c["update"], f"cross_blocks.{i}.update")
+    return sd

@@ -1,0 +1,130 @@
+"""Where the time of the PyTorch port's frontend goes, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_frontend.py [--dtype bf16|f32]
+
+Runs ``FrontendStep.rectify`` (kernel R) → ``FrontendStep`` on the first
+stored oracle pair with the EuRoC grids, as ``chip_smoke.py``'s path phase
+does, and reports from ``torch.profiler`` over 20 frames:
+
+- per stage, the ``record_function`` ranges the port itself opens
+  (``rectify``, ``resize+plnet``, ``decode+loi``, ``lightglue``, ``match``):
+  the host time spent inside the range and the device (kernel) time of the
+  kernels launched inside it, per frame;
+- kernels launched per frame, summed device time per frame, the device's busy
+  share of the profiled wall time and of the unprofiled frame time, and the
+  kernels that take the most device time (the ctypes-launched kernels R, B
+  and T count in the totals but are not attributed to a range);
+- the per-frame wall time of the same frames without the profiler (CUDA
+  events).
+
+Writes the numbers to ``chiprun_out/profile_frontend_<dtype>.json`` as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+RANGES = ("rectify", "resize+plnet", "decode+loi", "lightglue", "match")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    args = ap.parse_args()
+    n_frames = 20
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from airslam_tpu_torch.entry import FrontendStep
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_frontend: needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    if args.dtype == "f32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    step = FrontendStep(dtype=dtype, device=dev)
+    frames, _ = chip_smoke.oracle_pairs()
+    raw = torch.as_tensor(frames[0], device=dev)
+    grids = torch.as_tensor(chip_smoke.euroc_grids(), device=dev)
+
+    def frame():
+        left, right = step.rectify(raw[0], raw[1], grids)
+        return step(torch.stack([left, right]))
+
+    for _ in range(3):
+        frame()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_frames):
+        frame()
+    end.record()
+    torch.cuda.synchronize()
+    frame_ms = start.elapsed_time(end) / n_frames
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_frames):
+            frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    events = prof.events()
+    stages = {}
+    for name in RANGES:
+        hits = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]
+        stages[name] = {"host_ms": sum(e.cpu_time_total for e in hits) / 1e3 / n_frames,
+                        "device_ms": sum(e.device_time_total for e in hits) / 1e3 / n_frames,
+                        "calls_per_frame": len(hits) / n_frames}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in RANGES]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_frames
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+
+    result = {
+        "device": smi, "dtype": args.dtype, "frames": n_frames,
+        "frame_ms_events": frame_ms, "stages": stages,
+        "profiled_wall_ms_per_frame": wall_ms,
+        "kernel_launches_per_frame": len(kernels) / n_frames,
+        "device_ms_per_frame": dev_ms,
+        "device_busy_share": dev_ms / wall_ms,
+        "device_busy_share_unprofiled": dev_ms / frame_ms,
+        "top_kernels": [{"name": n[:90], "calls_per_frame": c / n_frames,
+                         "ms_per_frame": t / n_frames} for n, (c, t) in top],
+    }
+    print(f"device: {smi}  dtype={args.dtype}")
+    print(f"frame (no profiler, CUDA events, {n_frames} frames): {frame_ms:.3f} ms")
+    print("stages per frame: " + " ".join(
+        f"{k}: host_ms={v['host_ms']:.3f} device_ms={v['device_ms']:.3f}"
+        for k, v in stages.items()))
+    print(f"profiled: wall_ms/frame={wall_ms:.3f} device_ms/frame={dev_ms:.3f} "
+          f"busy_share={result['device_busy_share']:.3f} "
+          f"(of the unprofiled frame: {result['device_busy_share_unprofiled']:.3f}) "
+          f"kernels/frame={result['kernel_launches_per_frame']:.0f}")
+    for k in result["top_kernels"]:
+        print(f"  {k['ms_per_frame']:.4f} ms/frame  x{k['calls_per_frame']:.0f}  {k['name']}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", f"profile_frontend_{args.dtype}.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

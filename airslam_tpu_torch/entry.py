@@ -1,10 +1,17 @@
-"""The stereo frontend step: rectify → PLNet + stage-1 LOI head → LightGlue
-→ mutual match, on one 752×480 pair.
+"""Entry points of the port.
 
-Port of ``__graft_entry__.py:entry``'s ``frontend_step`` (the JAX package's
-flagship program, ``use_superpoint=False``, ``loi_head="s1"``,
-``matcher=0``) plus the rectify step of ``MapBuilder.rectify``
-(``pipelines/map_builder.py:100-121``), which on the card is kernel R.
+:class:`FrontendStep` — the stereo frontend step: rectify → PLNet + stage-1
+LOI head → LightGlue → mutual match, on one 752×480 pair. Port of
+``__graft_entry__.py:entry``'s ``frontend_step`` (the JAX package's flagship
+program, ``use_superpoint=False``, ``loi_head="s1"``, ``matcher=0``) plus the
+rectify step of ``MapBuilder.rectify`` (``pipelines/map_builder.py:100-121``),
+which on the card is kernel R.
+
+:func:`vo_map_builder` — the visual-odometry ``MapBuilder`` as
+``configs/visual_odometry/vo_euroc.yaml`` sets it up (SuperPoint keypoints,
+PLNet lines and junctions, LightGlue). ``add_input`` initialises it on the
+first frame with enough stereo points; ``track_frame`` then runs the
+per-frame tracking path against that keyframe.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from airslam_tpu_torch import resolve_device
 from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
 from airslam_tpu_torch.frontend.matcher import MatcherConfig, PointMatcher
 from airslam_tpu_torch.ops.remap import remap
+from airslam_tpu_torch.pipelines.map_builder import MapBuilder
 
 
 class FrontendStep(nn.Module):
@@ -29,8 +37,9 @@ class FrontendStep(nn.Module):
     def __init__(self, dtype=torch.bfloat16, device=None):
         super().__init__()
         self.device = resolve_device(device)
-        self.detector = FeatureDetector(DetectorConfig(max_keypoints=400, dtype=dtype),
-                                        device=self.device)
+        self.detector = FeatureDetector(
+            DetectorConfig(max_keypoints=400, use_superpoint=False, dtype=dtype),
+            device=self.device)
         self.matcher = PointMatcher(MatcherConfig(dtype=dtype), device=self.device)
         # registered so .parameters() / .to() see the whole program
         self.plnet = self.detector.plnet
@@ -46,8 +55,8 @@ class FrontendStep(nn.Module):
         feats = self.detector.detect(pair)
         f0 = type(feats)(*(t[0] for t in feats))
         f1 = type(feats)(*(t[1] for t in feats))
-        m = self.matcher.match(f0.keypoints, f0.kp_desc, f0.kp_mask,
-                               f1.keypoints, f1.kp_desc, f1.kp_mask)
+        m = self.matcher.match(f0.keypoints, f0.kp_scores, f0.kp_desc, f0.kp_mask,
+                               f1.keypoints, f1.kp_scores, f1.kp_desc, f1.kp_mask)
         return (f0.keypoints, f1.keypoints, m.idx1, m.score, f0.lines,
                 f0.line_mask, f0.kp_desc, f0.kp_mask, feats.junctions,
                 feats.junc_desc, feats.junc_mask)
@@ -63,3 +72,16 @@ class FrontendStep(nn.Module):
         with torch.profiler.record_function("rectify"):
             out = remap(images.to(self.device, torch.float32).contiguous(), grids)
         return out[0], out[1]
+
+
+def vo_map_builder(camera, dtype=torch.bfloat16, device=None, **builder_args) -> MapBuilder:
+    """The tracking pipeline with the shipped checkpoints (``plnet_s0.npz``,
+    ``superpoint.npz``, ``lightglue.npz``): 400 SuperPoint keypoints, 512
+    lines, networks in ``dtype``, geometry in float32. ``camera``: a
+    :class:`core.camera.Camera`. ``device``: ``cuda`` unless the caller passes
+    another; raises without a card."""
+    device = resolve_device(device)
+    detector = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=True,
+                                              dtype=dtype), device=device)
+    matcher = PointMatcher(MatcherConfig(dtype=dtype), device=device)
+    return MapBuilder(camera, detector, matcher, device=device, **builder_args)

@@ -1,18 +1,20 @@
 """Feature detector: resize → PLNet → wireframe decode → stage-1 LOI head →
 keypoint decode → descriptor sampling.
 
-Port of ``airslam_tpu/frontend/detector.py`` in the configuration of
-``__graft_entry__.entry()``: ``use_superpoint=False`` (PLNet supplies points,
-lines and junctions), ``loi_head="s1"``, junctions always detected (every
-caller of the JAX ``detect`` on the pipelines asks for them). The JAX
-``vmap`` over the batch is a loop over the views of the decode. SuperPoint
-and the fast ``LoiHead`` are not ported yet.
+Port of ``airslam_tpu/frontend/detector.py`` with ``loi_head="s1"`` and
+junctions always detected (every caller of the JAX ``detect`` on the
+pipelines asks for them). With ``use_superpoint`` (the shipped VO
+configuration) keypoints and descriptors come from SuperPoint and PLNet
+supplies lines and junctions (feature_detector.cc:7-34); without it, as in
+``__graft_entry__.entry()``, PLNet supplies all three. The JAX ``vmap`` over
+the batch is a loop over the views of the decode. The fast ``LoiHead`` is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from airslam_tpu_torch import resolve_device
 from airslam_tpu_torch.models import weights as wio
 from airslam_tpu_torch.models.plnet import NUM_JUNCTIONS, PLNet, LoiHeadS1
+from airslam_tpu_torch.models.superpoint import SuperPoint
 from airslam_tpu_torch.ops import wireframe
 from airslam_tpu_torch.ops.detect import top_k, topk_keypoints
 from airslam_tpu_torch.ops.gather import take_rows, take_values
@@ -38,6 +41,7 @@ class DetectorConfig:
     remove_borders: int = 4
     line_threshold: float = 0.75
     line_length_threshold: float = 50.0
+    use_superpoint: bool = True
     max_lines: int = 512
     max_junctions: int = 256
     junction_match_threshold: float = 5.0  # stride-4 cells
@@ -73,11 +77,14 @@ def _prefilter(p, logit, k: int):
     return pw[torch.arange(pw.shape[0], device=pw.device), aw], logit
 
 
-def detect_single(plnet_out: dict, cfg: DetectorConfig, w_scale: float,
-                  h_scale: float, loi: LoiHeadS1) -> FrameFeatures:
-    """Decode one image's network outputs (detector.py:82-196)."""
-    heat = plnet_out["scores"]
-    desc_map = plnet_out["descriptors"]  # (64, 64, 256) NHWC
+def detect_single(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
+                  w_scale: float, h_scale: float, loi: LoiHeadS1) -> FrameFeatures:
+    """Decode one image's network outputs (detector.py:82-196). ``sp_out``:
+    SuperPoint's outputs, the source of the keypoint heatmap and descriptors
+    when given; else PLNet's."""
+    point_src = plnet_out if sp_out is None else sp_out
+    heat = point_src["scores"]
+    desc_map = point_src["descriptors"]  # (64, 64, 256) NHWC
     dev = heat.device
 
     # -- lines -------------------------------------------------------------
@@ -115,12 +122,16 @@ def detect_single(plnet_out: dict, cfg: DetectorConfig, w_scale: float,
         junc_desc=sample_descriptors(desc_chw, jkp.xy, stride=8), junc_mask=jkp.mask)
 
 
-def detect_batch(plnet_out: dict, cfg: DetectorConfig, w_scale: float,
-                 h_scale: float, loi: LoiHeadS1) -> FrameFeatures:
+def detect_batch(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
+                 w_scale: float, h_scale: float, loi: LoiHeadS1) -> FrameFeatures:
     """Decode every image of the batch; returns batched FrameFeatures."""
     b = plnet_out["scores"].shape[0]
-    views = [detect_single({k: v[i] for k, v in plnet_out.items()}, cfg, w_scale,
-                           h_scale, loi) for i in range(b)]
+
+    def view(out, i):
+        return None if out is None else {k: v[i] for k, v in out.items()}
+
+    views = [detect_single(view(plnet_out, i), view(sp_out, i), cfg, w_scale, h_scale, loi)
+             for i in range(b)]
     return FrameFeatures(*(torch.stack(f) for f in zip(*views)))
 
 
@@ -136,7 +147,8 @@ def resize_to_detect(images: torch.Tensor) -> torch.Tensor:
 
 class FeatureDetector:
     """Owns PLNet and the stage-1 LOI head, loaded from the shipped
-    ``plnet_s0.npz``. ``device``: ``cuda`` unless the caller passes another
+    ``plnet_s0.npz``, and with ``config.use_superpoint`` SuperPoint from
+    ``superpoint.npz``. ``device``: ``cuda`` unless the caller passes another
     (``"cpu"`` runs the plain versions of the kernels).
     """
 
@@ -150,6 +162,12 @@ class FeatureDetector:
         self.loi.load_state_dict(wio.loi_s1_from_flax(params["loi"]))
         self.plnet.to(self.device).eval()
         self.loi.to(self.device).eval()
+        self.superpoint = None
+        if config.use_superpoint:
+            self.superpoint = SuperPoint(dtype=config.dtype)
+            self.superpoint.load_state_dict(wio.superpoint_from_flax(
+                wio.load_npz(wio.checkpoint_path("superpoint.npz"))))
+            self.superpoint.to(self.device).eval()
 
     @torch.no_grad()
     def detect(self, images) -> FrameFeatures:
@@ -158,7 +176,12 @@ class FeatureDetector:
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         h, w = images.shape[-2:]
         with torch.profiler.record_function("resize+plnet"):
-            out = self.plnet(resize_to_detect(images))
+            x = resize_to_detect(images)
+            out = self.plnet(x)
+        sp_out = None
+        if self.superpoint is not None:
+            with torch.profiler.record_function("superpoint"):
+                sp_out = self.superpoint(x)
         with torch.profiler.record_function("decode+loi"):
-            return detect_batch(out, self.config, w / DETECT_SIZE, h / DETECT_SIZE,
+            return detect_batch(out, sp_out, self.config, w / DETECT_SIZE, h / DETECT_SIZE,
                                 self.loi)

@@ -56,10 +56,13 @@ class PointMatcher:
         self.model.to(self.device).eval()
 
     @torch.no_grad()
-    def match(self, kpts0, desc0, mask0, kpts1, desc1, mask1,
+    def match(self, kpts0, scores0, desc0, mask0, kpts1, scores1, desc1, mask1,
               threshold: Optional[float] = None) -> Matches:
-        """Keypoints (N, 2) in pixels, descriptors (N, 256), masks (N,),
-        padded to a fixed token count. Returns fixed-shape Matches."""
+        """Keypoints (…, N, 2) in pixels, descriptors (…, N, 256), masks
+        (…, N), padded to a fixed token count; any leading batch dimensions
+        go through the network as ONE forward pass. ``scores0``/``scores1``
+        are the keypoint scores SuperGlue reads; LightGlue ignores them.
+        Returns fixed-shape Matches."""
         cfg = self.config
         thr = self.threshold if threshold is None else threshold
 
@@ -76,11 +79,12 @@ class PointMatcher:
         with torch.profiler.record_function("match"):
             return mutual_match(scores, m0, m1, thr)
 
-    def _pairs(self, m: Matches, f0, f1, outlier_rejection):
-        mask = m.mask.cpu().numpy()
+    @staticmethod
+    def _pairs(mask, idx1, score, f0, f1, outlier_rejection):
+        """Host decode of one pair's Matches (numpy rows)."""
         i0 = np.nonzero(mask)[0]
-        i1 = m.idx1.cpu().numpy()[i0]
-        sc = m.score.cpu().numpy()[i0]
+        i1 = idx1[i0]
+        sc = score[i0]
         if outlier_rejection and len(i0) > 8:
             p0 = np.asarray(torch.as_tensor(f0.keypoints).cpu())[i0]
             p1 = np.asarray(torch.as_tensor(f1.keypoints).cpu())[i1]
@@ -90,14 +94,26 @@ class PointMatcher:
     def matching_points(self, feats0, feats1, outlier_rejection: bool = False,
                         threshold: Optional[float] = None):
         """(M, 2) int32 match index pairs + (M,) scores (``MatchingPoints``)."""
-        m = self.match(feats0.keypoints, feats0.kp_desc, feats0.kp_mask,
-                       feats1.keypoints, feats1.kp_desc, feats1.kp_mask,
-                       threshold=threshold)
-        return self._pairs(m, feats0, feats1, outlier_rejection)
+        return self.matching_points_batched([(feats0, feats1)], outlier_rejection,
+                                            threshold)[0]
 
     def matching_points_batched(self, pairs, outlier_rejection: bool = False,
                                 threshold: Optional[float] = None):
-        """Match B (feats0, feats1) pairs; a list of what
-        :meth:`matching_points` returns for each."""
-        return [self.matching_points(a, b, outlier_rejection, threshold)
-                for a, b in pairs]
+        """Match B (feats0, feats1) pairs in ONE batched forward pass over
+        (B, N, …) — a frame's stereo and temporal match together. Returns a
+        list of what :meth:`matching_points` returns for each pair."""
+        if not pairs:
+            return []
+
+        def stack(side, field):
+            return torch.stack([torch.as_tensor(getattr(p[side], field), device=self.device)
+                                for p in pairs])
+
+        # LightGlue reads no keypoint scores, so none are stacked
+        m = self.match(stack(0, "keypoints"), None, stack(0, "kp_desc"), stack(0, "kp_mask"),
+                       stack(1, "keypoints"), None, stack(1, "kp_desc"), stack(1, "kp_mask"),
+                       threshold=threshold)
+        # one host pull for the whole batch
+        mask, idx1, score = (a.cpu().numpy() for a in (m.mask, m.idx1, m.score))
+        return [self._pairs(mask[b], idx1[b], score[b], f0, f1, outlier_rejection)
+                for b, (f0, f1) in enumerate(pairs)]

@@ -4,7 +4,9 @@ Port of ``airslam_tpu/models/lightglue.py``: learnable-Fourier rotary
 encoding on self-attention, bidirectional cross-attention sharing one
 similarity matrix, gated token updates, and the final assignment combining
 matchability logits with a doubly-log-softmaxed similarity. Static 9 layers,
-masks for padded keypoints, no early exit.
+masks for padded keypoints, no early exit. Every function takes any number
+of leading batch dimensions (the JAX package batches pairs with ``vmap``):
+keypoints (…, N, 2), descriptors (…, N, dim), masks (…, N).
 
 Numerics follow the flax module: LayerNorm eps 1e-6 in f32, tanh-approximate
 GELU, rotary frequencies and matchability in f32, rotary cos/sin cast to the
@@ -32,16 +34,19 @@ def rotate_half_pairs(x):
 
 
 def apply_rotary(x, cos, sin):
-    """x: (H, N, D); cos/sin: (N, D) with values repeated per pair."""
-    return x * cos[None] + rotate_half_pairs(x) * sin[None]
+    """x: (…, H, N, D); cos/sin: (…, N, D) with values repeated per pair."""
+    return x * cos[..., None, :, :] + rotate_half_pairs(x) * sin[..., None, :, :]
 
 
 def _heads_first(t, h):
-    return t.reshape(t.shape[0], h, -1).transpose(0, 1)  # (H, N, D)
+    """(…, N, H·D) -> (…, H, N, D)."""
+    return t.reshape(*t.shape[:-1], h, -1).transpose(-3, -2)
 
 
 def _merge(t):
-    return t.transpose(0, 1).reshape(t.shape[1], -1)
+    """(…, H, N, D) -> (…, N, H·D)."""
+    t = t.transpose(-3, -2)
+    return t.reshape(*t.shape[:-2], -1)
 
 
 class FourierRotary(nn.Module):
@@ -49,7 +54,7 @@ class FourierRotary(nn.Module):
         super().__init__()
         self.freqs = nn.Linear(2, head_dim // 2, bias=False)
 
-    def forward(self, kpts):  # (N, 2) normalized coords, f32
+    def forward(self, kpts):  # (…, N, 2) normalized coords, f32
         emb = torch.repeat_interleave(self.freqs(kpts), 2, dim=-1)
         return torch.cos(emb), torch.sin(emb)
 
@@ -100,12 +105,12 @@ class CrossBlock(nn.Module):
         qk0, qk1 = _heads_first(self.to_qk(x0), h), _heads_first(self.to_qk(x1), h)
         v0, v1 = _heads_first(self.to_v(x0), h), _heads_first(self.to_v(x1), h)
         d = qk0.shape[-1]
-        sim = torch.einsum("hnd,hmd->hnm", qk0, qk1) * (1.0 / math.sqrt(d))
+        sim = torch.einsum("...hnd,...hmd->...hnm", qk0, qk1) * (1.0 / math.sqrt(d))
         neg = torch.full_like(sim, _NEG)
-        att01 = torch.softmax(torch.where(mask1[None, None, :], sim, neg), dim=-1)
-        att10 = torch.softmax(torch.where(mask0[None, :, None], sim, neg), dim=-2)
-        m0 = torch.einsum("hnm,hmd->hnd", att01, v1)
-        m1 = torch.einsum("hnm,hnd->hmd", att10, v0)
+        att01 = torch.softmax(torch.where(mask1[..., None, None, :], sim, neg), dim=-1)
+        att10 = torch.softmax(torch.where(mask0[..., None, :, None], sim, neg), dim=-2)
+        m0 = torch.einsum("...hnm,...hmd->...hnd", att01, v1)
+        m1 = torch.einsum("...hnm,...hnd->...hmd", att10, v0)
         x0 = self.update(x0, self.proj(_merge(m0)))
         x1 = self.update(x1, self.proj(_merge(m1)))
         return x0, x1
@@ -131,9 +136,9 @@ class LightGlue(nn.Module):
             blk.update.ln.float()
 
     def forward(self, kpts0, desc0, mask0, kpts1, desc1, mask1):
-        """kpts: (N, 2) normalized, desc: (N, dim) L2-normalized, mask: (N,)
-        bool. Returns the (N0, N1) log-assignment matrix and the two
-        matchability logits."""
+        """kpts: (…, N, 2) normalized, desc: (…, N, dim) L2-normalized, mask:
+        (…, N) bool. Returns the (…, N0, N1) log-assignment matrix and the
+        two matchability logits."""
         cos0, sin0 = (t.to(self.dtype) for t in self.rotary(kpts0.float()))
         cos1, sin1 = (t.to(self.dtype) for t in self.rotary(kpts1.float()))
         x0 = self.input_proj(desc0.to(self.dtype))
@@ -145,13 +150,13 @@ class LightGlue(nn.Module):
 
         md0 = self.final_proj(x0).float()
         md1 = self.final_proj(x1).float()
-        sim = md0 @ md1.T / math.sqrt(self.dim)
-        z0 = self.matchability(x0.float())[:, 0]
-        z1 = self.matchability(x1.float())[:, 0]
-        sim_m = torch.where(mask0[:, None] & mask1[None, :], sim,
+        sim = md0 @ md1.transpose(-1, -2) / math.sqrt(self.dim)
+        z0 = self.matchability(x0.float())[..., 0]
+        z1 = self.matchability(x1.float())[..., 0]
+        sim_m = torch.where(mask0[..., :, None] & mask1[..., None, :], sim,
                             torch.full_like(sim, _NEG))
-        scores = (F.log_softmax(sim_m, dim=1) + F.log_softmax(sim_m, dim=0)
-                  + F.logsigmoid(z0)[:, None] + F.logsigmoid(z1)[None, :])
+        scores = (F.log_softmax(sim_m, dim=-1) + F.log_softmax(sim_m, dim=-2)
+                  + F.logsigmoid(z0)[..., :, None] + F.logsigmoid(z1)[..., None, :])
         return scores, z0, z1
 
 

@@ -104,6 +104,21 @@ def loi_s1_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def superpoint_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``SuperPoint`` params (``superpoint.npz``: ``backbone/conv{1..4}{a,b}``,
+    ``convPa/Pb``, ``convDa/Db``) → ``state_dict`` of
+    :class:`models.superpoint.SuperPoint`."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in p["backbone"].items():
+        sd[f"backbone.{name}.weight"] = _conv(node["kernel"])
+        sd[f"backbone.{name}.bias"] = _t(node["bias"])
+    for name in ("convPa", "convPb", "convDa", "convDb"):
+        sd[f"{name}.weight"] = _conv(p[name]["kernel"])
+        sd[f"{name}.bias"] = _t(p[name]["bias"])
+    return sd
+
+
 def lightglue_from_flax(tree) -> Dict[str, torch.Tensor]:
     """JAX ``LightGlue`` params → ``state_dict`` of
     :class:`models.lightglue.LightGlue`."""

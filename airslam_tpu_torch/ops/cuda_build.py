@@ -25,8 +25,9 @@ SRC_DIR = os.path.normpath(os.path.join(_HERE, "..", "csrc"))
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 
 # per-source extra flags; remap keeps the plain version's unfused arithmetic
-# (bit-equal to gridsample.remap), bilerp accepts FMA contraction (≤1e-5)
-KERNELS = {"remap": ("-fmad=false",), "bilerp": ()}
+# (bit-equal to gridsample.remap), bilerp accepts FMA contraction (≤1e-5),
+# pose_gn keeps it on purpose (see the note in its source)
+KERNELS = {"remap": ("-fmad=false",), "bilerp": (), "pose_gn": ()}
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,0 +1,525 @@
+"""Visual odometry pipeline: the tracking half.
+
+Port of the per-frame tracking part of ``airslam_tpu/pipelines/map_builder.py``
+(which replaces ``src/map_builder.cc``). Same stages, same decision logic:
+
+1. input: rectify both views (``ops/remap.remap``; on the card kernel R)
+2. detect both views, then ONE batched matcher pass for the stereo pair and
+   the match against the last keyframe
+3. stereo gating + frame construction (frame.cc:139-199)
+4. track vs last keyframe: line matches from point matches
+   (map_builder.cc:230-283), initial pose by PnP-RANSAC / last pose
+   (map_builder.cc:285-315), pose-only optimization (on the card the
+   whole-solver kernel of ``backend/pose_gn.py``), inlier track-id propagation
+5. keyframe policy ``AddKeyframeCheck`` (map_builder.cc:429-466)
+6. keyframe insertion → Map: the first keyframe only. From the second on the
+   map runs the sliding-window local BA, which is not ported yet
+   (``Map.insert_keyframe`` raises).
+
+The bookkeeping (``Frame``, ``Mappoint``, track ids) is numpy on the host, as
+in the JAX package; the feature tree is pulled to the host once per frame.
+The IMU branches, the device-resident PnP, ``_publish`` and
+``PipelinedRunner`` are not ported yet and raise where the path would enter
+them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from airslam_tpu_torch import resolve_device
+from airslam_tpu_torch.backend import gn, windows
+from airslam_tpu_torch.frontend.lines import frame_relations, match_lines_by_points
+from airslam_tpu_torch.ops.remap import remap
+from airslam_tpu_torch.slam.frame import Frame
+from airslam_tpu_torch.slam.map import Map
+
+_IMU_SLICE = "belongs to the stereo-inertial slice (ROADMAP queue 3)"
+
+
+@dataclasses.dataclass
+class KeyframeConfig:
+    """configs/visual_odometry/*.yaml `keyframe` block."""
+
+    min_init_stereo_feature: int = 90
+    lost_num_match: int = 10
+    min_num_match: int = 30
+    max_num_match: int = 80
+    tracking_point_rate: float = 0.65
+    tracking_parallax_rate: float = 0.1
+
+
+# init pose convention of the reference (map_builder.cc:182-185): camera
+# z-forward mapped into a z-up world.
+INIT_TWC = np.array(
+    [[0.0, 0.0, 1.0, 0.0],
+     [-1.0, 0.0, 0.0, 0.0],
+     [0.0, -1.0, 0.0, 0.0],
+     [0.0, 0.0, 0.0, 1.0]]
+)
+
+
+class TrackResult(NamedTuple):
+    """What tracking one frame against the last keyframe gives."""
+
+    Twc: np.ndarray  # (4, 4) camera-in-world pose after the pose-only solve
+    num_inliers: int
+    inlier_flags: list  # [(keypoint index in the frame, inlier)] per matched mappoint
+    keyframe_decision: int  # 0 = this frame, 1 = the next frame, 2 = none
+    line_matches: np.ndarray  # (L,) index of the frame's line per keyframe line, −1 = none
+
+
+def _as_np_features(feats):
+    """FrameFeatures of numpy arrays from one of numpy arrays or tensors
+    (bfloat16 leaves, which numpy lacks, widen to float32)."""
+
+    def leaf(t):
+        if not torch.is_tensor(t):
+            return np.asarray(t)
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    return type(feats)(*(leaf(t) for t in feats))
+
+
+def _match_table(matches, k: int):
+    """(M, 2) index pairs -> per-keypoint (idx1 (k,) int32, matched (k,) bool)."""
+    idx1 = np.full(k, -1, np.int32)
+    msk = np.zeros(k, bool)
+    if len(matches):
+        m = np.asarray(matches)
+        idx1[m[:, 0]] = m[:, 1].astype(np.int32)
+        msk[m[:, 0]] = True
+    return idx1, msk
+
+
+class MapBuilder:
+    def __init__(self, camera, detector, matcher, kf_config: Optional[KeyframeConfig] = None,
+                 ba_config=None, match_threshold: Optional[float] = None, device=None,
+                 dtype=torch.float32):
+        """detector/matcher: FeatureDetector / PointMatcher (or test doubles
+        with the same interface). ``device``: where the builder's tensor work
+        (rectification, line relations, the pose-only problem) runs — ``cuda``
+        unless the caller passes another. ``dtype``: the float type of that
+        work; the tracking kernel on the card is float32."""
+        self.camera = camera
+        self.detector = detector
+        self.matcher = matcher
+        self.kf_config = kf_config or KeyframeConfig()
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.map = Map(camera, ba_config, device=self.device, dtype=dtype)
+        self.match_threshold = match_threshold
+
+        self.init = False
+        self.insert_next_keyframe = True
+        self.last_keyframe: Optional[Frame] = None
+        self.last_tracked_frame: Optional[Frame] = None
+        self.frame_counter = 0
+        self.track_id_counter = 0
+        self.line_track_id_counter = 0
+        self.preintegration = None  # core/imu.py Preintegration, not ported yet
+        # per-frame trajectory as (timestamp, ref_keyframe, T_ref_frame):
+        # composing against the reference keyframe's CURRENT pose keeps every
+        # entry consistent after map-wide corrections
+        self._trajectory: List[tuple] = []
+        self._pose_problem_tmpl = {}  # (P, f) -> BAProblem whose constant leaves stay on the device
+
+        self._maps = None
+        if hasattr(camera, "rectify_maps"):
+            ml, mr = camera.rectify_maps(self.device)
+            if ml is not None:
+                self._maps = torch.stack([ml, mr]).contiguous()
+
+    # ------------------------------------------------------------------
+
+    def rectify(self, image_left, image_right):
+        """Both views through one remap call (kernel R on the card). Returns
+        the (2, H, W) float32 pair on the builder's device; the input pair
+        unchanged in value when the camera is already rectified."""
+        pair = torch.stack([torch.as_tensor(image_left), torch.as_tensor(image_right)])
+        pair = pair.to(self.device, torch.float32).contiguous()
+        if self._maps is None:
+            return pair
+        with torch.profiler.record_function("rectify"):
+            return remap(pair, self._maps)
+
+    def add_input(self, timestamp: float, image_left, image_right, imu_batch=None):
+        """One stereo frame. Images: (H, W) grayscale in [0, 1]. Returns the
+        tracked Frame."""
+        feats_left, feats_right, pairs, temporal = self._frontend(image_left, image_right)
+        return self.track_features(timestamp, feats_left, feats_right, pairs, imu_batch,
+                                   temporal_matches=temporal)
+
+    def _frontend(self, image_left, image_right):
+        """rectify → detect → ONE host pull of the feature tree → the batched
+        stereo and temporal match. Returns (feats_left, feats_right,
+        stereo_pairs, temporal_pairs-or-None)."""
+        pair = self.rectify(image_left, image_right)
+        # junctions ride along: keyframes need them for the refiner's
+        # junction vocabulary and the relocalization re-rank
+        feats = _as_np_features(self.detector.detect(pair))
+        f0 = type(feats)(*(t[0] for t in feats))
+        f1 = type(feats)(*(t[1] for t in feats))
+        with torch.profiler.record_function("stereo+temporal match"):
+            pairs, temporal = self._stereo_and_temporal(f0, f1)
+        return f0, f1, pairs, temporal
+
+    def _stereo_and_temporal(self, f0, f1):
+        """ONE batched matcher pass per frame: the stereo pair and (once
+        tracking) the temporal match against the last keyframe. Returns
+        (stereo_pairs, temporal_pairs-or-None)."""
+        if (self.init and self.last_keyframe is not None
+                and hasattr(self.matcher, "matching_points_batched")):
+            res = self.matcher.matching_points_batched(
+                [(f0, f1), (self.last_keyframe, f0)], threshold=self.match_threshold)
+            return res[0][0], res[1][0]
+        pairs, _ = self.matcher.matching_points(f0, f1, threshold=self.match_threshold)
+        return pairs, None
+
+    # ------------------------------------------------------------------
+
+    def track_features(self, timestamp, feats_left, feats_right, stereo_pairs,
+                       imu_batch=None, temporal_matches=None):
+        """Core pipeline entry taking pre-computed features (also the test
+        surface). feats_*: FrameFeatures-like; stereo_pairs: (M, 2);
+        ``temporal_matches``: optional precomputed last-keyframe matches
+        (from the batched pass in :meth:`_stereo_and_temporal`)."""
+        frame = self._build_frame(timestamp, feats_left, feats_right, stereo_pairs)
+
+        if self.camera_uses_imu() and imu_batch is not None and self.last_keyframe is not None:
+            raise NotImplementedError("IMU preintegration between frames " + _IMU_SLICE)
+
+        if not self.init:
+            if frame.good_stereo_points >= self.kf_config.min_init_stereo_feature:
+                self._initialize(frame)
+            return frame
+
+        matches = (temporal_matches if temporal_matches is not None
+                   else self._match_frames(self.last_keyframe, frame))
+        num_inliers = self._track_frame(self.last_keyframe, frame, matches)
+
+        self._trajectory.append((
+            timestamp, self.last_keyframe,
+            np.linalg.inv(self.last_keyframe.Twc) @ frame.Twc,
+        ))
+
+        if num_inliers <= self.kf_config.lost_num_match:
+            self.last_tracked_frame = frame
+            self.insert_next_keyframe = True
+            return frame
+
+        decision = self._keyframe_check(self.last_keyframe, frame, matches)
+        if decision == 0 or self.insert_next_keyframe:
+            self._insert_keyframe(frame)
+            self.insert_next_keyframe = False
+        elif decision == 1:
+            self.insert_next_keyframe = True
+
+        self.last_tracked_frame = frame
+        return frame
+
+    def track_frame(self, timestamp, image_left, image_right) -> TrackResult:
+        """The tracking path of one frame against the last keyframe, up to
+        and including the keyframe decision: what :meth:`add_input` runs for a
+        frame after initialisation, without the keyframe insertion that
+        follows it (a second keyframe needs the window backend). The builder
+        keeps its keyframe, so any number of frames can be tracked against it."""
+        if not self.init:
+            raise RuntimeError("track_frame needs an initialised builder: "
+                               "feed add_input a frame with enough stereo points first")
+        f0, f1, pairs, temporal = self._frontend(image_left, image_right)
+        return self.track_frame_features(timestamp, f0, f1, pairs, temporal)
+
+    def track_frame_features(self, timestamp, feats_left, feats_right, stereo_pairs,
+                             temporal_matches=None) -> TrackResult:
+        """:meth:`track_frame` on pre-computed features and matches."""
+        ref = self.last_keyframe
+        frame = self._build_frame(timestamp, feats_left, feats_right, stereo_pairs)
+        matches = (temporal_matches if temporal_matches is not None
+                   else self._match_frames(ref, frame))
+        num_inliers, inlier_flags, line_matches = self._track(ref, frame, matches)
+        self.last_tracked_frame = frame
+        return TrackResult(frame.Twc.copy(), num_inliers, inlier_flags,
+                           self._keyframe_check(ref, frame, matches), line_matches)
+
+    # ------------------------------------------------------------------
+
+    def camera_uses_imu(self):
+        return bool(getattr(self.camera, "use_imu", False))
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
+
+    def _build_frame(self, timestamp, feats_left, feats_right, stereo_pairs):
+        with torch.profiler.record_function("build_frame"):
+            frame = Frame(self.frame_counter, timestamp, feats_left, self.camera)
+            self.frame_counter += 1
+            pairs = np.asarray(stereo_pairs).reshape(-1, 2)
+            fr = _as_np_features(feats_right)
+            frame.good_stereo_points = frame.add_right_features(fr, pairs, self.camera)
+
+            # left point-on-line relation + right relation + stereo line
+            # match in one call on the builder's device, one pull back
+            idx1, msk = _match_table(pairs, frame.keypoints.shape[0])
+            t, dev = self._tensor, self.device
+            rel, lm = frame_relations(
+                t(frame.lines), torch.as_tensor(frame.line_mask, device=dev),
+                t(frame.keypoints), torch.as_tensor(frame.kp_mask, device=dev),
+                t(fr.lines), torch.as_tensor(fr.line_mask, device=dev),
+                t(fr.keypoints), torch.as_tensor(fr.kp_mask, device=dev),
+                torch.as_tensor(idx1, device=dev), torch.as_tensor(msk, device=dev))
+            frame.points_on_lines = rel.cpu().numpy()
+            lm = lm.cpu().numpy()
+            sel = np.nonzero(lm >= 0)[0]
+            frame.lines_right[sel] = fr.lines[lm[sel]]
+            frame.lines_right_valid[sel] = True
+        return frame
+
+    def _initialize(self, frame: Frame):
+        """map_builder.cc:181-199: fixed init pose, assign track ids, insert."""
+        frame.set_pose(INIT_TWC)
+        self._assign_new_track_ids(frame)
+        frame.previous_frame = None
+        self.map.insert_keyframe(frame)
+        self.last_keyframe = frame
+        self.last_tracked_frame = frame
+        self.init = True
+        self._trajectory.append((frame.timestamp, frame, np.eye(4)))
+
+    def _assign_new_track_ids(self, frame: Frame):
+        for i in np.nonzero(frame.kp_mask)[0]:
+            if frame.track_ids[i] < 0:
+                frame.track_ids[i] = self.track_id_counter
+                self.track_id_counter += 1
+        for i in np.nonzero(frame.line_mask)[0]:
+            if frame.line_track_ids[i] < 0:
+                frame.line_track_ids[i] = self.line_track_id_counter
+                self.line_track_id_counter += 1
+
+    def _match_frames(self, ref: Frame, cur: Frame):
+        m = self.matcher.match(
+            ref.keypoints, ref.kp_scores, ref.kp_desc, ref.kp_mask,
+            cur.keypoints, cur.kp_scores, cur.kp_desc, cur.kp_mask,
+            threshold=self.match_threshold,
+        )
+        mask = m.mask.cpu().numpy()
+        i0 = np.nonzero(mask)[0]
+        i1 = m.idx1.cpu().numpy()[i0]
+        return (np.stack([i0, i1], axis=-1).astype(np.int32) if len(i0)
+                else np.zeros((0, 2), np.int32))
+
+    # -- tracking (map_builder.cc:230-426) ---------------------------------
+
+    def _track_frame(self, ref: Frame, cur: Frame, matches) -> int:
+        return self._track(ref, cur, matches)[0]
+
+    def _track(self, ref: Frame, cur: Frame, matches):
+        """Track ``cur`` against ``ref``: returns (num_inliers, inlier_flags,
+        line_matches (L,) into ``cur``'s lines, −1 = none)."""
+        idx1, msk = _match_table(matches, ref.keypoints.shape[0])
+        dev = self.device
+        line_matches = match_lines_by_points(
+            torch.as_tensor(ref.points_on_lines, device=dev),
+            torch.as_tensor(cur.points_on_lines, device=dev),
+            torch.as_tensor(idx1, device=dev), torch.as_tensor(msk, device=dev)).cpu().numpy()
+
+        # gather tracked mappoints for pose optimization
+        matched_mpt_idx = []  # (cur_idx, mappoint)
+        for i0, i1 in matches:
+            tid = int(ref.track_ids[i0])
+            mpt = self.map.mappoints.get(tid)
+            if mpt is not None and mpt.is_valid:
+                matched_mpt_idx.append((int(i1), mpt))
+
+        num_inliers, inlier_flags = self._frame_pose_optimization(ref, cur, matched_mpt_idx)
+
+        if num_inliers > self.kf_config.lost_num_match:
+            inlier_set = set(i for i, ok in inlier_flags if ok)
+            for i0, i1 in matches:
+                if ref.track_ids[i0] >= 0 and (int(i1) in inlier_set or
+                                               int(ref.track_ids[i0]) not in self.map.mappoints):
+                    cur.track_ids[i1] = ref.track_ids[i0]
+                    cur.mappoint_ids[i1] = ref.mappoint_ids[i0]
+            for i, j in enumerate(line_matches):
+                if j >= 0 and ref.line_track_ids[i] >= 0:
+                    cur.line_track_ids[j] = ref.line_track_ids[i]
+                    cur.mapline_ids[j] = ref.mapline_ids[i]
+        return num_inliers, inlier_flags, line_matches
+
+    def _frame_pose_optimization(self, ref: Frame, cur: Frame, matched):
+        """PnP initial pose + pose-only GN (map_builder.cc:285-426).
+        ``matched``: [(cur_idx, Mappoint)]."""
+        if self.map.imu_initialized and self.preintegration is not None:
+            raise NotImplementedError("the IMU pose prediction and the IMU factor of the "
+                                      "pose-only solve " + _IMU_SLICE)
+
+        with torch.profiler.record_function("pnp"):
+            Twc, n_pnp = self._solve_pnp(cur, matched)
+        if (
+            np.linalg.norm(Twc[:3, 3] - self.last_tracked_frame.Twc[:3, 3]) > 1.0
+            or n_pnp < self.kf_config.lost_num_match
+        ):
+            Twc = self.last_tracked_frame.Twc.copy()
+
+        cur.set_pose(Twc)
+
+        if not matched:
+            return 0, []
+        with torch.profiler.record_function("pose_only"):
+            return self._pose_only(cur, matched)
+
+    def _solve_pnp(self, cur: Frame, matched):
+        """PnP-RANSAC initial pose (g2o_optimization.cc:1085-1134: 100 iters,
+        20 px, 0.99) with OpenCV on the host."""
+        if len(matched) < 8:
+            return self.last_tracked_frame.Twc.copy(), 0
+        try:
+            import cv2
+        except ImportError:
+            return self._solve_pnp_jax(cur, matched)
+        obj = np.asarray([m.position for _, m in matched], np.float64)
+        img = np.asarray([cur.keypoints[i] for i, _ in matched], np.float64)
+        K = np.array(
+            [[self.camera.fx, 0, self.camera.cx], [0, self.camera.fy, self.camera.cy], [0, 0, 1]]
+        )
+        try:
+            ok, rvec, tvec, inl = cv2.solvePnPRansac(
+                obj, img, K, np.zeros(5), iterationsCount=100,
+                reprojectionError=20.0, confidence=0.99,
+            )
+        except cv2.error:
+            return self.last_tracked_frame.Twc.copy(), 0
+        if not ok:
+            return self.last_tracked_frame.Twc.copy(), 0
+        Rcw, _ = cv2.Rodrigues(rvec)
+        Twc = np.eye(4)
+        Twc[:3, :3] = Rcw.T
+        Twc[:3, 3] = -Rcw.T @ tvec[:, 0]
+        return Twc, 0 if inl is None else len(inl)
+
+    def _solve_pnp_jax(self, cur: Frame, matched):
+        raise NotImplementedError(
+            "the device-resident RANSAC PnP (backend/pnp.py) is not ported yet: it rides "
+            "with the window backend (ROADMAP queue 2); install OpenCV for the host PnP")
+
+    def _pose_only(self, cur: Frame, matched, imu_ref: Optional[Frame] = None):
+        """Pose-only GN (FrameOptimization equiv) on the builder's device:
+        the F=1 problem, points padded to a power of two, one masked dummy
+        line."""
+        if imu_ref is not None:
+            raise NotImplementedError("the pose-only solve with an IMU factor " + _IMU_SLICE)
+        f, cur_col = 1, 0
+        p = len(matched)
+        P = max(64, 1 << (p - 1).bit_length())
+        dt = np.float64 if self.dtype == torch.float64 else np.float32
+        points = np.zeros((P, 3), dt)
+        obs = np.zeros((P, f, 3), dt)
+        obs[..., 2] = -1.0
+        mask = np.zeros((P, f), bool)
+        for j, (i, mpt) in enumerate(matched):
+            points[j] = mpt.position
+            obs[j, cur_col] = cur.keypoint_position(i)
+            mask[j, cur_col] = True
+
+        Tcb = self.camera.Tcb
+        Twb = cur.Twc @ Tcb
+        t, dev = self._tensor, self.device
+        fstates = gn.FrameStates(
+            Rwb=t(Twb[None, :3, :3]), twb=t(Twb[None, :3, 3]), vel=t(cur.velocity[None]),
+            bg=t(cur.bg[None]), ba=t(cur.ba[None]))
+        # every leaf that does not change between frames is put on the device
+        # ONCE per (P, f) and reused via _replace: most of the problem's
+        # leaves are constants, and per-leaf transfers would dominate the
+        # host cost of this per-frame assembly
+        tmpl = self._pose_problem_tmpl.get((P, f))
+        if tmpl is None:
+            tmpl = gn.BAProblem(
+                frames=fstates,
+                pose_fixed=torch.zeros(f, dtype=torch.bool, device=dev),
+                vel_fixed=torch.ones(f, dtype=torch.bool, device=dev),
+                points=t(points),
+                point_fixed=torch.ones(P, dtype=torch.bool, device=dev),
+                point_obs=t(obs),
+                point_obs_mask=torch.as_tensor(mask, device=dev),
+                lines=t([[1.0, 0, 0, 0, 1.0, 0]]),
+                line_fixed=torch.ones(1, dtype=torch.bool, device=dev),
+                line_obs=torch.zeros((1, f, 8), dtype=self.dtype, device=dev),
+                line_obs_stereo=torch.zeros((1, f), dtype=torch.bool, device=dev),
+                line_obs_mask=torch.zeros((1, f), dtype=torch.bool, device=dev),
+                line_obs_sigma=torch.full((1, f), 0.5, dtype=self.dtype, device=dev),
+                Rwg=t(self.map.Rwg),
+                gravity_free=torch.zeros((), dtype=self.dtype, device=dev),
+                imu=None,
+                Rcb=t(Tcb[:3, :3]),
+                tcb=t(Tcb[:3, 3]),
+                g_value=self.map.g_value,
+            )
+            self._pose_problem_tmpl[(P, f)] = tmpl
+            problem = tmpl
+        else:
+            problem = tmpl._replace(
+                frames=fstates, points=t(points), point_obs=t(obs),
+                point_obs_mask=torch.as_tensor(mask, device=dev), Rwg=t(self.map.Rwg))
+        out, p_in, _, n_in = windows.pose_only_optimization(
+            problem, self.map._intr, self.map.ba_config)
+        n_in = int(n_in)  # the frame's one read of the solve back to the host
+        if n_in > self.kf_config.lost_num_match:
+            Twb_new = np.eye(4)
+            Twb_new[:3, :3] = out.frames.Rwb[cur_col].double().cpu().numpy()
+            Twb_new[:3, 3] = out.frames.twb[cur_col].double().cpu().numpy()
+            cur.Twc = Twb_new @ np.linalg.inv(Tcb)
+        p_in = p_in[:, cur_col].cpu().numpy()
+        flags = [(i, bool(p_in[j])) for j, (i, _) in enumerate(matched)]
+        return n_in, flags
+
+    # -- keyframe policy (map_builder.cc:429-466) ---------------------------
+
+    def _keyframe_check(self, ref: Frame, cur: Frame, matches) -> int:
+        """0 = this frame, 1 = next frame, 2 = none."""
+        match_num = len(matches)
+        if match_num < self.kf_config.min_num_match:
+            return 0
+        rate_thr = self.kf_config.tracking_point_rate
+        parallax_thr = self.kf_config.tracking_parallax_rate
+        if self.camera_uses_imu() and not self.map.imu_initialized:
+            rate_thr *= 1.1
+            parallax_thr *= 0.7
+
+        n_ref = max(ref.valid_keypoint_count(), 1)
+        n_cur = max(cur.valid_keypoint_count(), 1)
+        if (
+            match_num / n_ref < rate_thr
+            or match_num / n_cur < rate_thr
+            or match_num < self.kf_config.max_num_match
+        ):
+            return 1
+
+        d = ref.keypoints[matches[:, 0]] - cur.keypoints[matches[:, 1]]
+        avg_parallax = float((d * d).sum()) / match_num
+        image_size = self.camera.image_height * self.camera.image_width
+        if avg_parallax > image_size * parallax_thr * parallax_thr:
+            return 1
+        return 2
+
+    def _insert_keyframe(self, frame: Frame):
+        # this frame's own pose will keep being refined — make its trajectory
+        # entry self-referential so it tracks the keyframe, not the old ref
+        if self._trajectory and self._trajectory[-1][0] == frame.timestamp:
+            self._trajectory[-1] = (frame.timestamp, frame, np.eye(4))
+        self._assign_new_track_ids(frame)
+        frame.previous_frame = self.last_keyframe
+        self.map.insert_keyframe(frame)
+        self.last_keyframe = frame
+
+    # ------------------------------------------------------------------
+
+    @property
+    def trajectory(self):
+        """Full-rate (timestamp, Twc) list, composed against the reference
+        keyframes' current (post-correction) poses."""
+        return [(ts, ref.Twc @ rel) for ts, ref, rel in self._trajectory]

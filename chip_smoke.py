@@ -14,14 +14,28 @@ without a result line):
 3. ``kernel B`` / ``kernel T``: LOI point sampling at the frontend's shapes,
    f32 and bf16 maps, points on and beyond the borders, vs the plain version
    (f32 ≤1e-5 abs; bf16 ≤1e-5 relative to the map's max).
-4. ``slice``: ``FrontendStep`` in bf16, then f32 with TF32 off, over the 3
+4. ``kernel P``: the whole-solver tracking kernel vs its plain version on
+   synthetic problems made from a seed: the kernel's full size (512 points,
+   128 lines), the path's shape (256 points, one masked line), a fixed pose
+   (must come back unchanged) and a lines-only problem. Gates: translation
+   ≤2e-3, rotation ≤1e-3 (max abs), inlier agreement ≥0.98, inlier counts
+   within 2 %, and ‖t − t_true‖ < 5e-3.
+5. ``slice``: ``FrontendStep`` in bf16, then f32 with TF32 off, over the 3
    stereo pairs of ``tests/data/torch_frontend_oracle.npz`` (the JAX
    package's f32 CPU outputs), gated with ``scripts/verify_tpu.py``'s
    metrics and thresholds.
-5. ``path``: every launch count set to 0, then rectify (kernel R) →
+6. ``tracking slice``: the port's ``MapBuilder`` with SuperPoint keypoints,
+   bf16 and then f32, over the same pairs: pair 0 initialises the map through
+   ``add_input``; pairs 1 and 2 run the per-frame tracking path
+   (``MapBuilder.track_frame``: rectify → detect → batched stereo+temporal
+   match → frame → line matches → PnP → pose-only solve → keyframe check)
+   and are gated against ``tests/data/torch_tracking_oracle.npz`` (the JAX
+   ``MapBuilder`` on the CPU).
+7. ``path``: every launch count set to 0, then rectify (kernel R) →
    ``FrontendStep`` (kernels B, T) on one pair; each kernel must have run.
-   The same again for the f32 program. Then the per-frame time over 20
-   frames, bf16 and f32.
+   The same again for the f32 program. Then the same for one tracked frame,
+   which must launch R once, B twice, T four times and P once. Then the
+   per-frame times over 20 frames, bf16 and f32.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -42,6 +56,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(REPO, "tests", "data", "torch_frontend_oracle.npz")
+TRACKING_ORACLE = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -52,10 +67,22 @@ HEIGHT, WIDTH = 480, 752
 # H100 SXM data sheet (dense): HBM rate, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # tensor cores, dense
 BF16_GATES = {"kp_agree_1px": 0.90, "kp_top100_overlap": 0.85,
               "line_agree_3px": 0.80, "junc_agree_2px": 0.80, "match_agree": 0.90}
 F32_GATES = {"kp_agree_1px": 0.98, "kp_top100_overlap": 0.95,
              "line_agree_3px": 0.90, "junc_agree_2px": 0.90, "match_agree": 0.95}
+# kernel P against its plain version (both f32 on the card): the accept test
+# is a strict `<` on f32 sums taken in different orders, so the two are held
+# to the solver's accuracy, not to bits
+POSE_GATES = {"t": 2e-3, "R": 1e-3, "inlier_agree": 0.98, "count_rel": 0.02, "t_true": 5e-3}
+# the tracked frame against the JAX MapBuilder's (f64 solve of f32 features)
+TRACK_GATES = {"f32": {"t": 2e-3, "R": 1e-3, "inliers_rel": 0.05},
+               "bf16": {"t": 2e-2, "R": 5e-3, "inliers_min": 0.8}}
+# f32 operations one row costs, counted from csrc/pose_gn.cu: residuals +
+# six Jacobian columns + the 27 accumulators per LM iteration, and one robust
+# cost evaluation (the trial cost, a round's first cost, the relabel)
+POSE_FLOPS = {"point_iter": 400, "point_cost": 45, "line_iter": 1100, "line_cost": 110}
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +165,149 @@ def euroc_grids():
         K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
         out.append(undistort_rectify_map(K, dist, np.eye(3), K, (WIDTH, HEIGHT)))
     return np.stack(out)
+
+
+def camera_node(cam):
+    """The ``Camera(node=...)`` dictionary of a rectified pinhole stereo rig
+    whose body frame is the left camera. ``cam``: fx, fy, cx, cy, baseline,
+    depth_lower_thr, depth_upper_thr, max_y_diff, image_height, image_width."""
+    intr = [float(cam[k]) for k in ("fx", "fy", "cx", "cy")]
+    right = np.eye(4)
+    right[0, 3] = float(cam["baseline"])
+
+    def view(T):
+        return {"intrinsics": intr, "distortion_coeffs": [0.0] * 5, "T_type": 0,
+                "T": [float(v) for v in T.ravel()]}
+
+    return {"image_height": int(cam["image_height"]), "image_width": int(cam["image_width"]),
+            "depth_lower_thr": float(cam["depth_lower_thr"]),
+            "depth_upper_thr": float(cam["depth_upper_thr"]),
+            "max_y_diff": float(cam["max_y_diff"]), "distortion_type": 0, "use_imu": 0,
+            "cam0": view(np.eye(4)), "cam1": view(right)}
+
+
+def tracking_oracle():
+    """(camera values, init record, {pair index: record}) of the stored JAX
+    tracking run."""
+    z = np.load(TRACKING_ORACLE)
+    cam = {k[len("camera_"):]: float(z[k]) for k in z.files if k.startswith("camera_")}
+    init = {k[len("init_"):]: z[k] for k in z.files if k.startswith("init_")}
+    pairs = {}
+    for k in z.files:
+        if k[0] == "p" and k[1].isdigit():
+            i, name = k[1:].split("_", 1)
+            pairs.setdefault(int(i), {})[name] = z[k]
+    return cam, init, pairs
+
+
+def tracking_builder(cam, dtype, device, identity_rectify=False):
+    """The port's visual-odometry ``MapBuilder`` (SuperPoint keypoints, PLNet
+    lines, LightGlue, the shipped checkpoints, networks in ``dtype``) on the
+    camera the stored pairs were rendered with. ``identity_rectify``: give
+    the (already rectified) camera identity remap grids, so that a frame goes
+    through the rectification kernel as a distorted rig's would, with its
+    pixels unchanged."""
+    from airslam_tpu_torch.core.camera import Camera
+    from airslam_tpu_torch.entry import vo_map_builder
+
+    camera = Camera(node=camera_node(cam))
+    if identity_rectify:
+        v, u = np.mgrid[0:camera.image_height, 0:camera.image_width].astype(np.float32)
+        camera.map_left = camera.map_right = np.stack([u, v], axis=-1)
+    return vo_map_builder(camera, dtype=dtype, device=device)
+
+
+def _rodrigues(v):
+    theta = float(np.linalg.norm(v))
+    K = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]], np.float64)
+    if theta < 1e-12:
+        return np.eye(3) + K
+    return (np.eye(3) + np.sin(theta) / theta * K
+            + (1.0 - np.cos(theta)) / theta ** 2 * (K @ K))
+
+
+def tracking_problem(seed, n_points, n_lines, n_masked_points=0, mask_lines=False,
+                     outliers=True, device="cpu", dtype=None):
+    """A synthetic F=1 pose-only problem from a seed (numpy): ``n_points``
+    world points seen from a known pose (every second one stereo, a fifth
+    with 40 px outliers), then ``n_masked_points`` zero rows masked out as the
+    builder pads them, and ``n_lines`` Plücker lines with their endpoint
+    observations (every third one mono, two outliers). The initial pose is
+    the identity. Returns (problem, intrinsics, true twb)."""
+    import torch
+
+    from airslam_tpu_torch.backend import gn
+    from airslam_tpu_torch.core.camera import Intrinsics
+
+    dtype = dtype or torch.float32
+    rng = np.random.RandomState(seed)
+    fx, fy, cx, cy, bf = 450.0, 450.0, 376.0, 240.0, 45.0
+    K, M = n_points, n_lines
+    pts = rng.randn(K, 3) * 2 + [0, 0, 8]
+    xi = np.array([0.02, -0.03, 0.01, 0.05, -0.04, 0.06])
+    Rwb_t, twb_t = _rodrigues(xi[:3]), xi[3:]
+    Rcw, tcw = Rwb_t.T, -Rwb_t.T @ twb_t
+
+    def project(p):
+        pc = p @ Rcw.T + tcw
+        u = pc[:, 0] / pc[:, 2] * fx + cx
+        v = pc[:, 1] / pc[:, 2] * fy + cy
+        return u, v, u - bf / pc[:, 2]
+
+    u, v, ur = project(pts)
+    obs = np.stack([u, v, np.where(np.arange(K) % 2 == 0, ur, -1.0)], -1)
+    if outliers and K >= 5:
+        out_idx = rng.choice(K, K // 5, replace=False)
+        obs[out_idx, :2] += rng.randn(len(out_idx), 2) * 40
+    pad = n_masked_points
+    pts = np.concatenate([pts, np.zeros((pad, 3))])
+    obs = np.concatenate([obs, np.tile([0.0, 0.0, -1.0], (pad, 1))])
+    pmask = np.concatenate([np.ones(K, bool), np.zeros(pad, bool)])
+
+    q = rng.randn(M, 3) * 1.5 + [0, 0, 8]
+    d = rng.randn(M, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lines = np.concatenate([np.cross(q, d), d], axis=1)
+    obs8 = np.zeros((M, 8))
+    for i in range(M):
+        uu, vv, uur = project(np.stack([q[i] - 1.2 * d[i], q[i] + 1.2 * d[i]]))
+        obs8[i] = [uu[0], vv[0], uu[1], vv[1], uur[0], vv[0], uur[1], vv[1]]
+    if outliers and M >= 2:
+        obs8[rng.choice(M, 2, replace=False), :2] += 30.0
+    l_stereo = np.arange(M) % 3 != 0
+    lmask = np.zeros(M, bool) if mask_lines else np.ones(M, bool)
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device).to(dtype)
+
+    def b(a):
+        return torch.as_tensor(np.asarray(a, bool), device=device)
+
+    frames = gn.FrameStates(Rwb=f(np.eye(3)[None]), twb=f(np.zeros((1, 3))),
+                            vel=f(np.zeros((1, 3))), bg=f(np.zeros((1, 3))),
+                            ba=f(np.zeros((1, 3))))
+    problem = gn.BAProblem(
+        frames=frames, pose_fixed=b([False]), vel_fixed=b([True]),
+        points=f(pts), point_fixed=b(np.ones(K + pad)), point_obs=f(obs[:, None, :]),
+        point_obs_mask=b(pmask[:, None]),
+        lines=f(lines), line_fixed=b(np.ones(M)), line_obs=f(obs8[:, None, :]),
+        line_obs_stereo=b(l_stereo[:, None]), line_obs_mask=b(lmask[:, None]),
+        line_obs_sigma=f(np.full((M, 1), 0.8)),
+        Rwg=f(np.eye(3)), gravity_free=f(0.0), imu=None, Rcb=f(np.eye(3)), tcb=f(np.zeros(3)))
+    return problem, Intrinsics(fx=fx, fy=fy, cx=cx, cy=cy, bf=bf), twb_t
+
+
+def pose_agreement(got, want):
+    """How far two results of the pose-only solve (problem', point inliers,
+    line inliers, count) are apart: max abs of t and R, the share of equal
+    inlier flags, the relative gap of the counts."""
+    t = float((got[0].frames.twb - want[0].frames.twb).abs().max())
+    R = float((got[0].frames.Rwb - want[0].frames.Rwb).abs().max())
+    flags_g = np.concatenate([got[1].cpu().numpy().ravel(), got[2].cpu().numpy().ravel()])
+    flags_w = np.concatenate([want[1].cpu().numpy().ravel(), want[2].cpu().numpy().ravel()])
+    n_g, n_w = int(got[3]), int(want[3])
+    return {"t": t, "R": R, "inlier_agree": float((flags_g == flags_w).mean()),
+            "count_rel": abs(n_g - n_w) / max(n_w, 1), "num_inliers": n_g}
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +511,125 @@ def phase_kernel_bt(dev, which):
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
+def _pose_work(problem, rounds, iters):
+    """(bytes, f32 operations, dependent reductions) of one solve: every
+    operand read once and every result written once; the operations of the
+    rows the kernel walks (it skips none: masks are multiplied in); and the
+    length of the chain the bound ignores."""
+    n_p, n_l = problem.points.shape[0], problem.lines.shape[0]
+    n_bytes = (n_p * (12 + 12 + 1) + n_l * (24 + 32 + 1 + 1 + 4) + 4 * (9 + 3 + 9 + 3) + 1
+               + 48 + n_p + n_l + 4)
+    w = POSE_FLOPS
+    per_cost = n_p * w["point_cost"] + n_l * w["line_cost"]
+    per_iter = n_p * w["point_iter"] + n_l * w["line_iter"] + per_cost
+    n_flops = rounds * (iters * per_iter + 2 * per_cost)
+    return n_bytes, n_flops, rounds * (2 * iters + 1) + 1
+
+
+def phase_kernel_p(dev):
+    """Kernel P against its plain version, both float32 on the card."""
+    import torch
+
+    from airslam_tpu_torch.backend import gn, pose_gn
+
+    cfg = gn.BAConfig()
+    g = POSE_GATES
+
+    def both(problem, intr, rounds=3, iters=10):
+        got = pose_gn.pose_only_fast(problem, intr, cfg, rounds=rounds, iters=iters)
+        want = pose_gn.pose_only_fast_plain(problem, intr, cfg, rounds=rounds, iters=iters)
+        torch.cuda.synchronize()
+        return got, want, pose_agreement(got, want)
+
+    def gate(name, a, keys=("t", "R", "inlier_agree", "count_rel")):
+        bad = [k for k in keys
+               if (a[k] < g[k] if k == "inlier_agree" else a[k] > g[k])]
+        _require(not bad, f"kernel P ({name}) disagrees with its plain version: "
+                 + " ".join(f"{k}={a[k]:.3e}" for k in bad))
+
+    report, worst = [], 0.0
+    # (a) the kernel's full size, (b) the path's shape: 200 matched mappoints
+    # padded to 256, the builder's single masked dummy line
+    cases = {"full": tracking_problem(5, 512, 128, device=dev),
+             "path": tracking_problem(6, 200, 1, n_masked_points=56, mask_lines=True, device=dev)}
+    for name, (problem, intr, twb_true) in cases.items():
+        got, want, a = both(problem, intr)
+        gate(name, a)
+        t_true = float(np.linalg.norm(got[0].frames.twb[0].double().cpu().numpy() - twb_true))
+        _require(t_true < g["t_true"], f"kernel P ({name}) missed the true pose: {t_true:.3e}")
+        again = pose_gn.pose_only_fast(problem, intr, cfg)
+        _require(torch.equal(again[0].frames.twb, got[0].frames.twb)
+                 and torch.equal(again[0].frames.Rwb, got[0].frames.Rwb)
+                 and torch.equal(again[1], got[1]), f"kernel P ({name}): two runs differ")
+        worst = max(worst, a["t"], a["R"])
+        report.append(f"{name}: dt={a['t']:.2e} dR={a['R']:.2e} inlier_agree={a['inlier_agree']:.4f} "
+                      f"inliers={a['num_inliers']} t_true={t_true:.2e}")
+    # (c) a fixed pose comes back bit-unchanged
+    problem, intr, _ = tracking_problem(7, 96, 12, outliers=False, device=dev)
+    fixed = problem._replace(pose_fixed=torch.ones_like(problem.pose_fixed))
+    out = pose_gn.pose_only_fast(fixed, intr, cfg, rounds=1, iters=3)[0]
+    torch.cuda.synchronize()
+    _require(torch.equal(out.frames.Rwb, fixed.frames.Rwb)
+             and torch.equal(out.frames.twb, fixed.frames.twb),
+             "kernel P moved a fixed pose")
+    report.append("fixed: unchanged")
+    # (d) no active point, lines only
+    problem, intr, _ = tracking_problem(11, 1, 24, outliers=False, device=dev)
+    problem = problem._replace(point_obs_mask=torch.zeros_like(problem.point_obs_mask))
+    got, want, a = both(problem, intr, rounds=2, iters=8)
+    gate("lines only", a)
+    _require(a["num_inliers"] > 0, "kernel P (lines only) kept no line")
+    worst = max(worst, a["t"], a["R"])
+    report.append(f"lines-only: dt={a['t']:.2e} dR={a['R']:.2e} inliers={a['num_inliers']}")
+    print("kernel P: " + "; ".join(report) + f" (gates t<={g['t']} R<={g['R']} "
+          f"inlier_agree>={g['inlier_agree']} t_true<{g['t_true']})")
+
+    times = {}
+    for name, (problem, intr, _) in cases.items():
+        def kernel():
+            return pose_gn.pose_only_fast(problem, intr, cfg)
+
+        def plain():
+            return pose_gn.pose_only_fast_plain(problem, intr, cfg)
+
+        n_bytes, n_flops, chain = _pose_work(problem, 3, 10)
+        bound, by = _bound_ms(n_bytes, n_flops)
+        # the plain version is thousands of small launches with host work
+        # between them: timed eagerly, a graph of it would be no fairer
+        times[name] = dict(ms=_time_ms(kernel, iters=20), eager_ms=_eager_ms(kernel, iters=100),
+                           plain_ms=_eager_ms(plain, iters=3, warmup=1), bound_ms=bound,
+                           bound_by=by)
+        t = times[name]
+        print(f"kernel P {name}: points={problem.points.shape[0]} lines={problem.lines.shape[0]} "
+              f"ms={t['ms']:.5f} eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.3f}(eager) "
+              f"bound_ms={bound:.6f} ({by}; the bound by bytes and operations ignores the "
+              f"dependent chain of 3x10 iterations, {chain} block reductions one after "
+              f"another) library_ms=none")
+    rec = times["path"]  # the shape the main path gives the kernel
+    return {"name": "pose_only_fast", "route": "cuda",
+            "source": "airslam_tpu_torch/csrc/pose_gn.cu",
+            "replaces": "airslam_tpu/backend/pose_gn_pallas.py:331", "max_abs_err": worst,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None}
+
+
+def flash_attention_bound():
+    """Kernel F (``airslam_tpu/ops/attention.py:35``, not ported yet, off in
+    every shipped config): its bound at LightGlue's shapes, computed from
+    the code and not measured. Per call q/k/v (4, 400, 64) and a (400,) key
+    mask in, (4, 400, 64) out; QKᵀ and PV are 2·H·Nq·Nk·D operations each,
+    the masked softmax about 5 per logit; 9 layers × (2 self + 2 cross)
+    calls per match (``airslam_tpu/models/lightglue.py:92,122-124``)."""
+    h, n, d = 4, 400, 64
+    n_flops = 2 * (2 * h * n * n * d) + 5 * h * n * n
+    out = {"launches_per_match": 9 * (2 + 2)}
+    for label, size, peak in (("bf16", 2, BF16_FLOPS), ("f32", 4, F32_FLOPS)):
+        n_bytes = 4 * h * n * d * size + n
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / peak * 1e3
+        out[label] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def _outputs_np(out):
     """entry()-layout dict of numpy arrays (bf16 values widened to f32)."""
     import torch
@@ -369,14 +658,66 @@ def phase_slice(dev, frames, refs):
     return steps
 
 
-def phase_path(dev, steps, frames, grids_np):
+def _track_gap(res, want):
+    """Max abs gaps of a TrackResult to the oracle's record of that pair."""
+    return (float(np.abs(res.Twc[:3, 3] - want["Twc"][:3, 3]).max()),
+            float(np.abs(res.Twc[:3, :3] - want["Twc"][:3, :3]).max()))
+
+
+def phase_tracking(dev, frames):
+    """Initialise on pair 0, track pairs 1 and 2 against keyframe 0, gate
+    against the stored JAX run. Returns the builders by label."""
     import torch
 
+    cam, init, pairs = tracking_oracle()
+    builders = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        gates = TRACK_GATES[label]
+        with _no_tf32(label):
+            builder = tracking_builder(cam, dtype, dev, identity_rectify=True)
+            raw = torch.as_tensor(frames[0], device=dev)
+            _require(torch.equal(builder.rectify(raw[0], raw[1]), raw),
+                     "the identity rectification changed the pixels")
+            first = builder.add_input(0.0, frames[0][0], frames[0][1])
+            _require(builder.init and first.good_stereo_points >= 90,
+                     f"tracking {label}: pair 0 gave {first.good_stereo_points} stereo points, "
+                     "no initialisation")
+            lost = builder.kf_config.lost_num_match
+            notes = [f"init stereo_points={first.good_stereo_points}"
+                     f"(oracle {int(init['good_stereo_points'])})"]
+            for i in sorted(pairs):
+                want = pairs[i]
+                res = builder.track_frame(0.05 * i, frames[i][0], frames[i][1])
+                dt, dR = _track_gap(res, want)
+                n_ref = int(want["num_inliers"])
+                ok = dt <= gates["t"] and dR <= gates["R"] and res.num_inliers > lost
+                if label == "f32":
+                    ok = (ok and abs(res.num_inliers - n_ref) <= gates["inliers_rel"] * n_ref
+                          and res.keyframe_decision == int(want["keyframe_decision"]))
+                else:
+                    ok = ok and res.num_inliers >= gates["inliers_min"] * n_ref
+                notes.append(f"pair {i}: dt={dt:.2e}(<={gates['t']}) dR={dR:.2e}(<={gates['R']}) "
+                             f"inliers={res.num_inliers}(oracle {n_ref}) "
+                             f"decision={res.keyframe_decision}"
+                             f"(oracle {int(want['keyframe_decision'])}) "
+                             f"line_matches={int((res.line_matches >= 0).sum())}"
+                             f"(oracle {int((want['line_matches'] >= 0).sum())})")
+                _require(ok, f"tracking slice {label} gates failed: {notes[-1]}")
+        print(f"tracking slice {label}: " + "; ".join(notes))
+        builders[label] = builder
+    return builders
+
+
+def phase_path(dev, steps, builders, frames, grids_np):
+    import torch
+
+    from airslam_tpu_torch.backend import pose_gn
     from airslam_tpu_torch.ops import bilerp, remap as remap_mod
 
     grids = torch.as_tensor(grids_np, device=dev)
     raw = torch.as_tensor(frames[0], device=dev)
     counted = (remap_mod.remap, bilerp.bilerp_points, bilerp.bilerp_points_t)
+    tracked = counted + (pose_gn.pose_only_fast,)
 
     def frame(step):
         left, right = step.rectify(raw[0], raw[1], grids)
@@ -403,25 +744,51 @@ def phase_path(dev, steps, frames, grids_np):
         _require(int(out[7].sum()) > 0 and int(out[5].sum()) > 0 and int((out[2] >= 0).sum()) > 0,
                  f"{label} path found no keypoints, lines or matches")
 
-    times = {}
+    # one tracked frame: the main path of the system after initialisation
+    want = {"remap": 1, "bilerp_points": 2, "bilerp_points_t": 4, "pose_only_fast": 1}
+    lost = builders["bf16"].kf_config.lost_num_match
+    tracked_launches = {}
+    for label in ("bf16", "f32"):
+        for fn in tracked:
+            fn.launches = 0
+        with _no_tf32(label):
+            res = builders[label].track_frame(0.05, frames[1][0], frames[1][1])
+            torch.cuda.synchronize()
+        tracked_launches[label] = {fn.__name__: fn.launches for fn in tracked}
+        print(f"kernels tracked frame {label}:"
+              + "".join(f" {k}={v}" for k, v in tracked_launches[label].items()))
+        _require(tracked_launches[label] == want,
+                 f"the {label} tracked frame launched {tracked_launches[label]}, not {want}")
+        _require(res.Twc.shape == (4, 4) and bool(np.isfinite(res.Twc).all())
+                 and res.num_inliers > lost and res.line_matches.shape == (512,),
+                 f"the {label} tracked frame gave no usable pose")
+
+    def timed(run):
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(20):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 20
+        return start.elapsed_time(end) / 20, wall
+
+    times, times_tracked = {}, {}
     for label in ("bf16", "f32"):
         with _no_tf32(label):
-            for _ in range(3):
-                frame(steps[label])
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            for _ in range(20):
-                frame(steps[label])
-            end.record()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 20
-        times[label] = (start.elapsed_time(end) / 20, wall)
+            times[label] = timed(lambda: frame(steps[label]))
+            times_tracked[label] = timed(
+                lambda: builders[label].track_frame(0.05, frames[1][0], frames[1][1]))
     print("path per-frame (rectify + frontend, 20 frames): " + " ".join(
         f"{k}: events_ms={v[0]:.3f} wall_ms={v[1]:.3f}" for k, v in times.items()))
-    return launches["bf16"]
+    print("path per-frame (tracked frame, 20 frames): " + " ".join(
+        f"{k}: events_ms={v[0]:.3f} wall_ms={v[1]:.3f}" for k, v in times_tracked.items()))
+    return tracked_launches["bf16"]
 
 
 def main() -> int:
@@ -453,10 +820,15 @@ def main() -> int:
 
     grids_np = euroc_grids()
     kernels = [phase_kernel_r(dev, grids_np), phase_kernel_bt(dev, "B"),
-               phase_kernel_bt(dev, "T")]
+               phase_kernel_bt(dev, "T"), phase_kernel_p(dev)]
+    fb = flash_attention_bound()
+    print("kernel F (still to port; computed from the code, not measured): "
+          f"launches_per_match={fb['launches_per_match']} "
+          + " ".join(f"{k}: bound_ms={fb[k][0]:.6f} ({fb[k][1]})" for k in ("bf16", "f32")))
     frames, refs = oracle_pairs()
     steps = phase_slice(dev, frames, refs)
-    launches = phase_path(dev, steps, frames, grids_np)
+    builders = phase_tracking(dev, frames)
+    launches = phase_path(dev, steps, builders, frames, grids_np)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,4 +1,7 @@
-"""Write the JAX oracle that the PyTorch port's frontend is gated against.
+"""Write the JAX oracles that the PyTorch port is gated against.
+
+Frontend oracle
+---------------
 
 Renders the 3 textured stereo pairs that ``scripts/verify_tpu.py`` uses
 (``apps.benchmark_system.make_sequence(3, 480, 752, seed=3, texture=0.1)``),
@@ -7,9 +10,20 @@ the CPU over ``frames / 255``. Stores the frames and the entry() outputs the
 frontend metrics read (keypoints, kp mask, idx1, lines, line mask, junctions,
 junction mask) in ``tests/data/torch_frontend_oracle.npz``.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py
+Tracking oracle
+---------------
+The same frames through the JAX ``MapBuilder`` on the CPU with float32
+networks and ``use_superpoint=True`` (the shipped VO configuration) and the
+rectified pinhole camera the frames were rendered with: pair 0 initialises
+the map through ``add_input``; pairs 1 and 2 are tracked against keyframe 0
+(``_build_frame`` → ``_track_frame`` → ``_keyframe_check``). Per tracked pair
+``tests/data/torch_tracking_oracle.npz`` keeps the matched index pairs, the
+PnP pose fed to the pose-only solve, the pose after it, ``num_inliers``, the
+inlier flags, the keyframe decision and the line matches; no descriptors.
 
-``chip_smoke.py`` and ``tests/test_torch_slice.py`` read the file; the port
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking]
+
+``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
 """
 
@@ -24,6 +38,13 @@ sys.path.insert(0, REPO)
 import numpy as np
 
 OUT = os.path.join(REPO, "tests", "data", "torch_frontend_oracle.npz")
+OUT_TRACKING = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz")
+# the camera make_sequence renders with: tests/synthetic.py:17-23
+# (fx, fy, cx, cy) and its default baseline, apps/benchmark_system.py:50-51;
+# the depth and row gates are SynthCamera's (apps/benchmark_system.py:126-129)
+CAMERA = {"fx": 450.0, "fy": 450.0, "cx": 376.0, "cy": 240.0, "baseline": 0.11,
+          "depth_lower_thr": 0.5, "depth_upper_thr": 25.0, "max_y_diff": 2.0,
+          "image_height": 480, "image_width": 752}
 N_PAIRS = 3
 FRAME_SEED = 3
 # entry() tuple slots the metrics need: kp0, kp1, idx1, lines0, line_mask0,
@@ -31,11 +52,119 @@ FRAME_SEED = 3
 KEEP = (0, 1, 2, 4, 5, 7, 8, 10)
 
 
-def main():
-    import jax
+def jax_builder(dtype=None):
+    """The JAX ``MapBuilder`` with the shipped checkpoints, SuperPoint
+    keypoints and the frames' camera (float32 networks unless ``dtype``)."""
+    import jax.numpy as jnp
 
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
+    from airslam_tpu.core.camera import Camera
+    from airslam_tpu.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu.frontend.matcher import MatcherConfig, PointMatcher
+    from airslam_tpu.models import weights as wio
+    from airslam_tpu.pipelines.map_builder import MapBuilder
+
+    dtype = dtype or jnp.float32
+    det_params, mat_params = wio.load_default_frontend(use_superpoint=True)
+    detector = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=True,
+                                              dtype=dtype), params=det_params)
+    matcher = PointMatcher(MatcherConfig(matcher=0, max_keypoints=400, dtype=dtype),
+                           params=mat_params)
+    # the node builder is chip_smoke.py's, which reads CAMERA back from the file
+    from chip_smoke import camera_node
+
+    return MapBuilder(Camera(node=camera_node(CAMERA)), detector, matcher)
+
+
+def jax_frontend(builder, pair):
+    """What ``MapBuilder.add_input`` runs before ``track_features``: detect
+    both views, pull the tree to the host, match. Returns (f0, f1,
+    stereo_pairs, temporal_pairs-or-None)."""
+    import jax
+    import jax.tree_util as jtu
+
+    left, right = builder.rectify(pair[0], pair[1])
+    feats = jax.device_get(builder.detector.detect(np.stack([left, right]),
+                                                   detect_junctions=True))
+    f0 = jtu.tree_map(lambda t: t[0], feats)
+    f1 = jtu.tree_map(lambda t: t[1], feats)
+    return (f0, f1) + tuple(builder._stereo_and_temporal(f0, f1))
+
+
+def jax_track(builder, timestamp, f0, f1, stereo_pairs, matches, pnp=None):
+    """Track one frame against the builder's last keyframe through
+    ``_build_frame`` → ``_track_frame`` → ``_keyframe_check`` and report what
+    happened. ``pnp``: an optional (Twc, n_inliers) to use in place of
+    ``_solve_pnp`` (OpenCV's RANSAC draws differ between versions)."""
+    from airslam_tpu.frontend.lines import match_lines_by_points
+
+    seen = {}
+    solve_pnp, pose_only = builder._solve_pnp, builder._pose_only
+
+    def pose_only_spy(cur, matched, imu_ref=None):
+        seen["pnp_Twc"] = cur.Twc.copy()
+        n_in, flags = pose_only(cur, matched, imu_ref)
+        seen["flags"] = flags
+        return n_in, flags
+
+    def solve_pnp_spy(cur, matched):
+        seen["pnp_raw"] = (pnp if pnp is not None else solve_pnp(cur, matched))
+        return seen["pnp_raw"]
+
+    builder._pose_only, builder._solve_pnp = pose_only_spy, solve_pnp_spy
+    try:
+        ref = builder.last_keyframe
+        frame = builder._build_frame(timestamp, f0, f1, stereo_pairs)
+        num_inliers = builder._track_frame(ref, frame, matches)
+        decision = builder._keyframe_check(ref, frame, matches)
+    finally:
+        del builder._pose_only, builder._solve_pnp
+    builder.last_tracked_frame = frame
+    k = ref.keypoints.shape[0]
+    idx1 = np.full(k, -1, np.int32)
+    msk = np.zeros(k, bool)
+    m = np.asarray(matches)
+    idx1[m[:, 0]] = m[:, 1]
+    msk[m[:, 0]] = True
+    line_matches = np.asarray(match_lines_by_points(ref.points_on_lines, frame.points_on_lines,
+                                                    idx1, msk))
+    return {"matches": np.asarray(matches, np.int32),
+            "stereo_pairs": np.asarray(stereo_pairs, np.int32),
+            "good_stereo_points": np.int32(frame.good_stereo_points),
+            "pnp_Twc": seen["pnp_Twc"], "pnp_raw_Twc": np.asarray(seen["pnp_raw"][0]),
+            "pnp_inliers": np.int32(seen["pnp_raw"][1]), "Twc": frame.Twc.copy(),
+            "num_inliers": np.int32(num_inliers),
+            "inlier_flags": np.asarray(seen["flags"], np.int32).reshape(-1, 2),
+            "keyframe_decision": np.int32(decision),
+            "line_matches": line_matches.astype(np.int32)}
+
+
+def write_tracking_oracle():
+    z = np.load(OUT)
+    frames = z["frames_u8"].astype(np.float32) / np.float32(255.0)
+    builder = jax_builder()
+    blob = {"camera_" + k: np.float64(v) for k, v in CAMERA.items()}
+    first = builder.add_input(0.0, frames[0][0], frames[0][1])
+    assert builder.init, f"pair 0 gave {first.good_stereo_points} stereo points: no keyframe"
+    blob["init_good_stereo_points"] = np.int32(first.good_stereo_points)
+    blob["init_Twc"] = first.Twc.copy()
+    blob["init_mappoints"] = np.int32(sum(p.is_valid for p in builder.map.mappoints.values()))
+    blob["init_maplines"] = np.int32(sum(l.is_valid for l in builder.map.maplines.values()))
+    print(f"pair 0: good_stereo_points={first.good_stereo_points} "
+          f"mappoints={blob['init_mappoints']} maplines={blob['init_maplines']}")
+    for i in range(1, frames.shape[0]):
+        f0, f1, pairs, temporal = jax_frontend(builder, frames[i])
+        got = jax_track(builder, 0.05 * i, f0, f1, pairs, temporal)
+        for k, v in got.items():
+            blob[f"p{i}_{k}"] = v
+        print(f"pair {i}: matches={len(got['matches'])} pnp_inliers={got['pnp_inliers']} "
+              f"num_inliers={got['num_inliers']} decision={got['keyframe_decision']} "
+              f"line_matches={int((got['line_matches'] >= 0).sum())} t={got['Twc'][:3, 3]}")
+    np.savez_compressed(OUT_TRACKING, **blob)
+    print(f"oracle written: {OUT_TRACKING} ({os.path.getsize(OUT_TRACKING)} bytes)")
+
+
+def write_frontend_oracle():
+    import jax
     import jax.numpy as jnp
 
     from __graft_entry__ import entry
@@ -61,6 +190,18 @@ def main():
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **blob)
     print(f"oracle written: {OUT} ({os.path.getsize(OUT)} bytes)")
+
+
+def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which in ("all", "frontend"):
+        write_frontend_oracle()
+    if which in ("all", "tracking"):
+        write_tracking_oracle()
 
 
 if __name__ == "__main__":

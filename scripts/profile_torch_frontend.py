@@ -1,23 +1,30 @@
-"""Where the time of the PyTorch port's frontend goes, on one NVIDIA GPU.
+"""Where the time of the PyTorch port's frame goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_frontend.py [--dtype bf16|f32]
+    python3 scripts/profile_torch_frontend.py [--dtype bf16|f32] [--tracked]
 
-Runs ``FrontendStep.rectify`` (kernel R) → ``FrontendStep`` on the first
-stored oracle pair with the EuRoC grids, as ``chip_smoke.py``'s path phase
-does, and reports from ``torch.profiler`` over 20 frames:
+Without ``--tracked`` it runs ``FrontendStep.rectify`` (kernel R) →
+``FrontendStep`` on the first stored oracle pair with the EuRoC grids, as
+``chip_smoke.py``'s path phase does. With ``--tracked`` it initialises the
+port's ``MapBuilder`` (SuperPoint keypoints) on pair 0 and runs
+``MapBuilder.track_frame`` on pair 1 against that keyframe: the per-frame
+tracking path with kernels R, B, T and P. It reports from ``torch.profiler``
+over 20 frames:
 
 - per stage, the ``record_function`` ranges the port itself opens
-  (``rectify``, ``resize+plnet``, ``decode+loi``, ``lightglue``, ``match``):
-  the host time spent inside the range and the device (kernel) time of the
-  kernels launched inside it, per frame;
+  (``rectify``, ``resize+plnet``, ``superpoint``, ``decode+loi``,
+  ``stereo+temporal match`` with ``lightglue`` and ``match`` inside it,
+  ``build_frame``, ``pnp``, ``pose_only``): the host time spent inside the
+  range and the device (kernel) time of the kernels launched inside it, per
+  frame;
 - kernels launched per frame, summed device time per frame, the device's busy
   share of the profiled wall time and of the unprofiled frame time, and the
-  kernels that take the most device time (the ctypes-launched kernels R, B
-  and T count in the totals but are not attributed to a range);
+  kernels that take the most device time (the ctypes-launched kernels R, B,
+  T and P count in the totals but are not attributed to a range);
 - the per-frame wall time of the same frames without the profiler (CUDA
   events).
 
-Writes the numbers to ``chiprun_out/profile_frontend_<dtype>.json`` as well.
+Writes the numbers to ``chiprun_out/profile_frontend_<dtype>.json``
+(``profile_tracked_<dtype>.json`` with ``--tracked``) as well.
 """
 
 from __future__ import annotations
@@ -32,12 +39,15 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-RANGES = ("rectify", "resize+plnet", "decode+loi", "lightglue", "match")
+RANGES = ("rectify", "resize+plnet", "superpoint", "decode+loi", "stereo+temporal match",
+          "lightglue", "match", "build_frame", "pnp", "pose_only")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--tracked", action="store_true",
+                    help="profile one tracked frame of MapBuilder instead of the frontend step")
     args = ap.parse_args()
     n_frames = 20
 
@@ -57,14 +67,24 @@ def main():
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    step = FrontendStep(dtype=dtype, device=dev)
     frames, _ = chip_smoke.oracle_pairs()
-    raw = torch.as_tensor(frames[0], device=dev)
-    grids = torch.as_tensor(chip_smoke.euroc_grids(), device=dev)
+    if args.tracked:
+        builder = chip_smoke.tracking_builder(chip_smoke.tracking_oracle()[0], dtype, dev,
+                                              identity_rectify=True)
+        builder.add_input(0.0, frames[0][0], frames[0][1])
+        if not builder.init:
+            sys.exit("profile_torch_frontend: pair 0 did not initialise the map")
 
-    def frame():
-        left, right = step.rectify(raw[0], raw[1], grids)
-        return step(torch.stack([left, right]))
+        def frame():
+            return builder.track_frame(0.05, frames[1][0], frames[1][1])
+    else:
+        step = FrontendStep(dtype=dtype, device=dev)
+        raw = torch.as_tensor(frames[0], device=dev)
+        grids = torch.as_tensor(chip_smoke.euroc_grids(), device=dev)
+
+        def frame():
+            left, right = step.rectify(raw[0], raw[1], grids)
+            return step(torch.stack([left, right]))
 
     for _ in range(3):
         frame()
@@ -101,6 +121,7 @@ def main():
 
     result = {
         "device": smi, "dtype": args.dtype, "frames": n_frames,
+        "path": "tracked frame" if args.tracked else "frontend",
         "frame_ms_events": frame_ms, "stages": stages,
         "profiled_wall_ms_per_frame": wall_ms,
         "kernel_launches_per_frame": len(kernels) / n_frames,
@@ -110,11 +131,11 @@ def main():
         "top_kernels": [{"name": n[:90], "calls_per_frame": c / n_frames,
                          "ms_per_frame": t / n_frames} for n, (c, t) in top],
     }
-    print(f"device: {smi}  dtype={args.dtype}")
+    print(f"device: {smi}  dtype={args.dtype}  path={result['path']}")
     print(f"frame (no profiler, CUDA events, {n_frames} frames): {frame_ms:.3f} ms")
     print("stages per frame: " + " ".join(
         f"{k}: host_ms={v['host_ms']:.3f} device_ms={v['device_ms']:.3f}"
-        for k, v in stages.items()))
+        for k, v in stages.items() if v["calls_per_frame"]))
     print(f"profiled: wall_ms/frame={wall_ms:.3f} device_ms/frame={dev_ms:.3f} "
           f"busy_share={result['device_busy_share']:.3f} "
           f"(of the unprofiled frame: {result['device_busy_share_unprofiled']:.3f}) "
@@ -122,7 +143,8 @@ def main():
     for k in result["top_kernels"]:
         print(f"  {k['ms_per_frame']:.4f} ms/frame  x{k['calls_per_frame']:.0f}  {k['name']}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", f"profile_frontend_{args.dtype}.json"), "w") as f:
+    stem = "profile_tracked" if args.tracked else "profile_frontend"
+    with open(os.path.join(REPO, "chiprun_out", f"{stem}_{args.dtype}.json"), "w") as f:
         json.dump(result, f, indent=1)
 
 

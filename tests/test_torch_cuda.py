@@ -1,11 +1,11 @@
-"""The port's CUDA kernels (R, B, T) against their plain PyTorch versions.
+"""The port's CUDA kernels (R, B, T, P) against their plain PyTorch versions.
 
 The kernel tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 without one. Where JAX (which ``tests/conftest.py`` imports) is not
 installed, run them with ``python -m pytest --noconftest
 tests/test_torch_cuda.py -q``; ``chip_smoke.py`` runs the same comparisons
-at the frontend's shapes. The
-last test runs anywhere: a tensor that is neither on the CPU nor on a CUDA
+at the main path's shapes. The
+last tests run anywhere: a tensor that is neither on the CPU nor on a CUDA
 device is refused, never sent down the plain path."""
 
 import numpy as np
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from airslam_tpu_torch.backend import gn, pose_gn
 from airslam_tpu_torch.ops import bilerp, remap
 from airslam_tpu_torch.ops.gridsample import remap as remap_plain
 
@@ -61,6 +62,72 @@ def test_bilerp_kernels_equal_plain(dev, dtype, c, shape):
                                torch.movedim(want, -1, 0), rtol=0, atol=tol)
     with pytest.raises(ValueError):
         bilerp.bilerp_points(fmap.transpose(0, 1), x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "path", "odd", "lines_only"])
+def test_pose_kernel_vs_plain(dev, case):
+    """Kernel P against its plain version, both float32 on the card, at
+    chip_smoke.py's gates (t 2e-3, R 1e-3, inlier agreement 0.98, counts
+    within 2 %): f32 sums in another order can flip an accept at a near tie,
+    so the two are held to the solver's accuracy, not to bits."""
+    rounds, iters = 3, 10
+    if case == "full":
+        problem, intr, twb_true = chip_smoke.tracking_problem(5, 512, 128, device=dev)
+    elif case == "path":
+        problem, intr, twb_true = chip_smoke.tracking_problem(
+            6, 200, 1, n_masked_points=56, mask_lines=True, device=dev)
+    elif case == "odd":  # sizes that fill neither a warp nor the block evenly
+        problem, intr, twb_true = chip_smoke.tracking_problem(8, 301, 37, device=dev)
+    else:
+        problem, intr, twb_true = chip_smoke.tracking_problem(11, 1, 24, outliers=False,
+                                                              device=dev)
+        problem = problem._replace(point_obs_mask=torch.zeros_like(problem.point_obs_mask))
+        rounds, iters = 2, 8
+    before = pose_gn.pose_only_fast.launches
+    got = pose_gn.pose_only_fast(problem, intr, gn.BAConfig(), rounds=rounds, iters=iters)
+    assert pose_gn.pose_only_fast.launches == before + 1
+    want = pose_gn.pose_only_fast_plain(problem, intr, gn.BAConfig(), rounds=rounds, iters=iters)
+    a = chip_smoke.pose_agreement(got, want)
+    g = chip_smoke.POSE_GATES
+    assert a["t"] <= g["t"] and a["R"] <= g["R"], a
+    assert a["inlier_agree"] >= g["inlier_agree"] and a["count_rel"] <= g["count_rel"], a
+    assert int(got[3]) == int(got[1].sum()) + int(got[2].sum()) > 0
+    if case != "lines_only":
+        assert np.linalg.norm(got[0].frames.twb[0].double().cpu().numpy() - twb_true) < g["t_true"]
+    again = pose_gn.pose_only_fast(problem, intr, gn.BAConfig(), rounds=rounds, iters=iters)
+    assert torch.equal(again[0].frames.twb, got[0].frames.twb)  # fixed reduction order
+    assert torch.equal(again[0].frames.Rwb, got[0].frames.Rwb)
+
+
+@pytest.mark.cuda
+def test_pose_kernel_fixed_pose_and_f64_problem(dev):
+    """A fixed pose comes back bit-unchanged; a float64 problem is solved in
+    float32 and handed back in its own type."""
+    problem, intr, _ = chip_smoke.tracking_problem(7, 96, 12, outliers=False, device=dev)
+    fixed = problem._replace(pose_fixed=torch.ones_like(problem.pose_fixed))
+    out = pose_gn.pose_only_fast(fixed, intr, gn.BAConfig(), rounds=1, iters=3)[0]
+    assert torch.equal(out.frames.Rwb, fixed.frames.Rwb)
+    assert torch.equal(out.frames.twb, fixed.frames.twb)
+    p64, intr, _ = chip_smoke.tracking_problem(7, 96, 12, device=dev, dtype=torch.float64)
+    out64 = pose_gn.pose_only_fast(p64, intr, gn.BAConfig())
+    want = pose_gn.pose_only_fast_plain(p64, intr, gn.BAConfig())
+    assert out64[0].frames.twb.dtype == torch.float64
+    a = chip_smoke.pose_agreement(out64, want)
+    assert a["t"] <= 2e-3 and a["R"] <= 1e-3 and a["inlier_agree"] >= 0.98, a
+
+
+def test_pose_wrapper_refuses_non_cuda_devices():
+    """A problem that is neither on the CPU nor on one CUDA device raises."""
+    problem, intr, _ = chip_smoke.tracking_problem(7, 16, 2)
+    meta = problem._replace(
+        frames=gn.FrameStates(*(t.to("meta") for t in problem.frames)),
+        **{k: getattr(problem, k).to("meta") for k in gn.BAProblem._fields
+           if torch.is_tensor(getattr(problem, k))})
+    with pytest.raises(ValueError, match="CUDA"):
+        pose_gn.pose_only_fast(meta, intr)
+    with pytest.raises(ValueError, match="rounds"):
+        pose_gn.pose_only_fast(problem, intr, rounds=0)
 
 
 def test_wrappers_refuse_non_cuda_devices():

@@ -83,7 +83,8 @@ def test_point_matcher_vs_jax():
     from airslam_tpu_torch.frontend.detector import DetectorConfig
 
     frames, _ = chip_smoke.oracle_pairs()
-    feats = FeatureDetector(DetectorConfig(max_keypoints=400), device="cpu").detect(frames[0])
+    feats = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=False),
+                            device="cpu").detect(frames[0])
     f0, f1 = (type(feats)(*(t[i] for t in feats)) for i in range(2))
     ours = PointMatcher(device="cpu")
     ref = JaxPointMatcher(JaxMatcherConfig(max_keypoints=400),

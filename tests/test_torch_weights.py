@@ -13,6 +13,7 @@ from airslam_tpu.models import weights as jax_weights
 from airslam_tpu_torch.models import weights as wio
 from airslam_tpu_torch.models.lightglue import LightGlue
 from airslam_tpu_torch.models.plnet import PLNet, LoiHeadS1
+from airslam_tpu_torch.models.superpoint import SuperPoint
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,12 +82,27 @@ def _dense_back(sd):
     return {"params/" + k: v for k, v in out.items()}
 
 
-@pytest.mark.parametrize("which", ["plnet", "loi", "lightglue"])
+def _conv_back(sd):
+    """Invert the plain conv conversions of a state_dict (OIHW → HWIO)."""
+    out = {}
+    for k, v in sd.items():
+        path, leaf = k.rsplit(".", 1)
+        a = v.numpy()
+        out[path.replace(".", "/") + ("/kernel" if leaf == "weight" else "/bias")] = (
+            a.transpose(2, 3, 1, 0) if leaf == "weight" else a)
+    return {"params/" + k: v for k, v in out.items()}
+
+
+@pytest.mark.parametrize("which", ["plnet", "loi", "lightglue", "superpoint"])
 def test_round_trip_every_array(which):
-    """Every array of plnet_s0.npz / lightglue.npz survives the conversion
-    and loads into the port's module (exact: the conversions only transpose,
-    concatenate and rename)."""
-    if which == "lightglue":
+    """Every array of plnet_s0.npz / lightglue.npz / superpoint.npz survives
+    the conversion and loads into the port's module (exact: the conversions
+    only transpose, concatenate and rename)."""
+    if which == "superpoint":
+        tree = wio.load_npz(wio.checkpoint_path("superpoint.npz"))
+        sd, back, model = wio.superpoint_from_flax(tree), _conv_back, SuperPoint()
+        ref = _flat(tree)
+    elif which == "lightglue":
         tree = wio.load_npz(wio.checkpoint_path("lightglue.npz"))
         sd, back, model = wio.lightglue_from_flax(tree), _dense_back, LightGlue()
         ref = _flat(tree)
@@ -107,6 +123,7 @@ def test_round_trip_every_array(which):
 def test_checkpoint_counts():
     assert len(_flat(wio.load_npz(wio.checkpoint_path("plnet_s0.npz")))) == 58
     assert len(_flat(wio.load_npz(wio.checkpoint_path("lightglue.npz")))) == 205
+    assert len(_flat(wio.load_npz(wio.checkpoint_path("superpoint.npz")))) == 24
 
 
 def _imports(path):
@@ -123,10 +140,18 @@ def _imports(path):
 def test_port_imports_no_jax():
     """No file of the port, and not chip_smoke.py, imports jax, flax or the
     JAX package."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "profile_torch_frontend.py")]
     for root, _, names in os.walk(os.path.join(REPO, "airslam_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    walked = {os.path.relpath(f, os.path.join(REPO, "airslam_tpu_torch")) for f in files}
+    # every module of the tracking slice is among the walked files
+    for mod in ("core/lie.py", "backend/residuals.py", "backend/gn.py", "backend/windows.py",
+                "backend/pose_gn.py", "models/superpoint.py", "frontend/lines.py",
+                "slam/landmarks.py", "slam/frame.py", "slam/map.py",
+                "pipelines/map_builder.py", "entry.py"):
+        assert mod in walked, mod
+    assert len(files) > 30
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -1,21 +1,69 @@
-"""Problem containers and small solvers of the Gauss-Newton/LM backend.
+"""Batched Levenberg-Marquardt bundle adjustment with Schur-complement
+elimination, for vision-only problems.
 
-Port of the F=1 (per-frame tracking) part of ``airslam_tpu/backend/gn.py``:
-``FrameStates``, ``IMUFactors``, ``BAProblem``, ``BAConfig`` (:53-118) as
-``NamedTuple``s of tensors, ``_jac_with_value`` (:158-171, on
-``torch.func.jacfwd``), ``solve_spd_small`` (:360-398) and ``_huber_cost``
-(:401-403). The dense (landmark × frame) grids, ``_assemble_and_solve`` and
-``optimize`` belong to the window backend and are not ported yet.
+Port of ``airslam_tpu/backend/gn.py`` (which replaces g2o's sparse optimizer,
+``LocalmapOptimization``/``FrameOptimization`` in
+src/g2o_optimization/g2o_optimization.cc). The problem is a dense fixed-shape
+grid:
+
+- observations live on (landmark, frame) grids: a landmark is seen at most
+  once per frame, so a (P, F) mask describes the topology;
+- per-observation Jacobians come from ``vmap(jacfwd)`` over the grid
+  (``torch.func``), exact and batched;
+- landmark blocks (3×3 points, 4×4 lines) are inverted in closed form, and
+  the Schur complement is a handful of contractions;
+- the reduced camera system (F·6 dims for a sliding window) is solved dense,
+  by Cholesky;
+- fixed vertices are handled by masking their Jacobian columns and pinning
+  the diagonal, so one shape serves every fix pattern.
+
+LM damping/accept logic follows g2o's Levenberg strategy (λ ← λ/3 on accept,
+λ ← λ·ν, ν ← 2ν on reject). Robust weighting: Huber with δ² = the chi²
+threshold. The chi²-gating schedule (optimize(5) → drop outlier observations →
+optimize(15)) is driven by ``backend/windows.py``.
+
+The IMU branch of the assembly (15 dof per frame and the gravity border)
+belongs to the stereo-inertial slice and raises ``NotImplementedError``.
+Nothing in the LM loop reads a value back to the host: accept/reject are
+``torch.where`` on device scalars (only ``early_exit`` reads one flag per
+step). Matrix products run in full float32 (TF32 off, see :func:`full_f32`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from airslam_tpu_torch.backend import residuals as res
+from airslam_tpu_torch.core import lie
+
 POSE_DIM = 6
+# Smallest |det| admitted by the closed-form block inverses; far below any
+# legitimate damped-SPD determinant (λ floor ≥ 1e-5 ⇒ det ≥ 1e-15) yet keeps
+# 1/det finite in float32's subnormal range.
+_DET_FLOOR = 1e-30
+VEL_DIM = 3
+BIAS_DIM = 6
+FRAME_DIM = POSE_DIM + VEL_DIM + BIAS_DIM  # 15
+GRAV_DIM = 2
+
+_IMU_SLICE = "belongs to the stereo-inertial slice (ROADMAP queue 3)"
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 matrix products of the backend in full precision: TF32 is
+    switched OFF for the block and the caller's setting restored after it (a
+    TF32 product keeps ~3 decimal digits, too few for the normal equations)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 class FrameStates(NamedTuple):
@@ -158,3 +206,357 @@ def _huber_cost(chi2, delta2, active):
     lin = 2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2
     zero = torch.zeros_like(chi2)
     return torch.where(active, torch.where(chi2 <= delta2, chi2, lin), zero).sum()
+
+
+# ---------------------------------------------------------------------------
+# residual/jacobian evaluation over the dense grids
+# ---------------------------------------------------------------------------
+
+
+def _grid(one, landmarks, obs, Rwb, twb):
+    """``one(R, t, landmark, obs)`` over the (landmark, frame) grid: the outer
+    map runs over the landmarks and their observation rows, the inner over
+    the frames."""
+
+    def over_frames(landmark, obs_row):
+        return torch.func.vmap(lambda R, t, o: one(R, t, landmark, o))(Rwb, twb, obs_row)
+
+    return torch.func.vmap(over_frames)(landmarks, obs)
+
+
+def _point_grid_residuals(problem: BAProblem, intr, with_jac: bool):
+    """Returns r (P,F,3), row_mask (P,F,3), depth_ok (P,F) and, with
+    ``with_jac``, Jc (P,F,3,6), Jp (P,F,3,3) (else None, None)."""
+    fr = problem.frames
+    dtype, dev = problem.points.dtype, problem.points.device
+
+    def one(Rwb, twb, point, obs):
+        def f(delta):
+            R2, t2 = res.retract_pose(Rwb, twb, delta[0:6])
+            Rcw, tcw = res.pose_to_camera(R2, t2, problem.Rcb, problem.tcb)
+            return res.point_residual(Rcw, tcw, point + delta[6:9], obs, intr)
+
+        if with_jac:
+            J, (r, z) = _jac_with_value(f, 9, dtype, dev)
+            return r, z, J.to(dtype)
+        return f(torch.zeros(9, dtype=dtype, device=dev))
+
+    out = _grid(one, problem.points, problem.point_obs, fr.Rwb, fr.twb)
+    r, z = out[0], out[1]
+    Jc, Jp = (out[2][..., 0:6], out[2][..., 6:9]) if with_jac else (None, None)
+    m = problem.point_obs_mask
+    is_stereo = problem.point_obs[..., 2] >= 0
+    row_mask = torch.stack([m, m, m & is_stereo], dim=-1).to(r.dtype)
+    return r, row_mask, z > 0, Jc, Jp
+
+
+def _line_grid_residuals(problem: BAProblem, intr, with_jac: bool):
+    """Returns r (L,F,4), row_mask (L,F,4) and, with ``with_jac``,
+    Jc (L,F,4,6), Jl (L,F,4,4) (else None, None)."""
+    fr = problem.frames
+    dtype, dev = problem.lines.dtype, problem.lines.device
+
+    def one(Rwb, twb, line, obs):
+        def f(delta):
+            R2, t2 = res.retract_pose(Rwb, twb, delta[0:6])
+            Rcw, tcw = res.pose_to_camera(R2, t2, problem.Rcb, problem.tcb)
+            line2 = lie.line_orthonormal_oplus(line, delta[6:10])
+            r = res.line_residual(Rcw, tcw, line2, obs, intr)
+            return r, r
+
+        if with_jac:
+            J, (r, _) = _jac_with_value(f, 10, dtype, dev)
+            return r, J.to(dtype)
+        return (f(torch.zeros(10, dtype=dtype, device=dev))[0],)
+
+    out = _grid(one, problem.lines, problem.line_obs, fr.Rwb, fr.twb)
+    r = out[0]
+    Jc, Jl = (out[1][..., 0:6], out[1][..., 6:10]) if with_jac else (None, None)
+    m, st = problem.line_obs_mask, problem.line_obs_mask & problem.line_obs_stereo
+    row_mask = torch.stack([m, m, st, st], dim=-1).to(r.dtype)
+    return r, row_mask, Jc, Jl
+
+
+# ---------------------------------------------------------------------------
+# chi² and robust cost
+# ---------------------------------------------------------------------------
+
+
+def point_chi2(problem: BAProblem, intr):
+    """Per-observation chi² (P, F) + depth-positive flag, for gating/inliers
+    (mono: 2 rows, stereo: 3 — e->chi2() with identity information)."""
+    r, row_mask, depth_ok, _, _ = _point_grid_residuals(problem, intr, with_jac=False)
+    return (r * r * row_mask).sum(-1), depth_ok
+
+
+def line_chi2(problem: BAProblem, intr, sigma=None):
+    """Per-observation chi² with the per-observation information scale
+    (``sigma`` overrides; default = problem.line_obs_sigma)."""
+    r, row_mask, _, _ = _line_grid_residuals(problem, intr, with_jac=False)
+    s = problem.line_obs_sigma if sigma is None else sigma
+    return (r * r * row_mask).sum(-1) * s
+
+
+def _floor_det(det):
+    """|det| floored away from zero, sign kept (sign(0) → +): a near-singular
+    block under tiny LM damping would otherwise give inf/NaN in float32 and
+    poison the Schur complement."""
+    return torch.where(det >= 0, det.clamp(min=_DET_FLOOR), det.clamp(max=-_DET_FLOOR))
+
+
+def inv3_spd(A):
+    """Closed-form (adjugate) inverse of (..., 3, 3) SPD blocks: exact,
+    branch-free, elementwise. The blocks are SPD by construction (JᵀWJ + λI),
+    so there is no pivoting concern."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = e * i - f * h
+    c01 = c * h - b * i
+    c02 = b * f - c * e
+    c10 = f * g - d * i
+    c11 = a * i - c * g
+    c12 = c * d - a * f
+    c20 = d * h - e * g
+    c21 = b * g - a * h
+    c22 = a * e - b * d
+    det = _floor_det(a * c00 + b * c10 + c * c20)
+    inv = torch.stack([
+        torch.stack([c00, c01, c02], dim=-1),
+        torch.stack([c10, c11, c12], dim=-1),
+        torch.stack([c20, c21, c22], dim=-1),
+    ], dim=-2)
+    return inv / det[..., None, None]
+
+
+def _inv2(A):
+    det = _floor_det(A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0])
+    inv = torch.stack([
+        torch.stack([A[..., 1, 1], -A[..., 0, 1]], dim=-1),
+        torch.stack([-A[..., 1, 0], A[..., 0, 0]], dim=-1),
+    ], dim=-2)
+    return inv / det[..., None, None]
+
+
+def inv4_spd(A):
+    """(..., 4, 4) SPD inverse via 2×2 block inversion (Schur on the trailing
+    2×2) with closed-form 2×2 inverses."""
+    P = A[..., :2, :2]
+    Q = A[..., :2, 2:]
+    R = A[..., 2:, 2:]
+    Pi = _inv2(P)
+    PiQ = Pi @ Q
+    S = R - Q.mT @ PiQ
+    Si = _inv2(S)
+    TL = Pi + PiQ @ Si @ PiQ.mT
+    TR = -PiQ @ Si
+    top = torch.cat([TL, TR], dim=-1)
+    bot = torch.cat([TR.mT, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def solve_spd(H, b):
+    """Solve ``H x = b`` for a symmetric positive-definite ``H`` via Cholesky
+    and two triangular solves. ``cholesky_ex`` leaves its status on the
+    device (plain ``cholesky`` reads it back to the host on every call); a
+    factorization that failed gives NaN, which the LM cost gate rejects."""
+    L, info = torch.linalg.cholesky_ex((H + H.mT) * 0.5)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    return torch.where((info > 0)[..., None], torch.full_like(x, float("nan")), x)
+
+
+def _thresholds(flag, hi: float, lo: float, dtype):
+    """``hi`` where ``flag`` else ``lo``, as a tensor of ``dtype``."""
+    return torch.where(flag, torch.full((), hi, dtype=dtype, device=flag.device),
+                       torch.full((), lo, dtype=dtype, device=flag.device))
+
+
+def total_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
+    if problem.imu is not None:
+        raise NotImplementedError("the IMU terms of the window cost " + _IMU_SLICE)
+    pchi2, _ = point_chi2(problem, intr)
+    dtype = pchi2.dtype
+    is_stereo = problem.point_obs[..., 2] >= 0
+    pthr = _thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, dtype)
+    active_p = problem.point_obs_mask
+    lchi2 = line_chi2(problem, intr)
+    lthr = _thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
+    active_l = problem.line_obs_mask
+    if robust:
+        return _huber_cost(pchi2, pthr, active_p) + _huber_cost(lchi2, lthr, active_l)
+    return (torch.where(active_p, pchi2, torch.zeros_like(pchi2)).sum()
+            + torch.where(active_l, lchi2, torch.zeros_like(lchi2)).sum())
+
+
+# ---------------------------------------------------------------------------
+# normal equations assembly + Schur solve
+# ---------------------------------------------------------------------------
+
+
+def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bool):
+    """One damped LM solve. Returns (dx_frames (F,15), dRwg tangent (2,),
+    dpoints (P,3), dlines (L,4)).
+
+    Vision-only: velocity/bias rows are touched ONLY by IMU factors, so the
+    reduced system is the F·6 pose block (exact, the dropped rows carry no
+    coupling), and gravity has no gradient."""
+    if problem.imu is not None:
+        raise NotImplementedError("the IMU branch of the window assembly " + _IMU_SLICE)
+    f = problem.frames.Rwb.shape[0]
+    dtype, dev = problem.points.dtype, problem.points.device
+
+    # The landmark-family contractions are tiny (residual rows 3/4, dof
+    # 3/4/6) and batched over the grid: they are written as
+    # broadcast-multiply-reduce, as in the JAX package.
+
+    # -- points ------------------------------------------------------------
+    r, row_mask, _, Jc, Jp = _point_grid_residuals(problem, intr, True)
+    is_stereo = problem.point_obs[..., 2] >= 0
+    thr = _thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, dtype)
+    chi2 = (r * r * row_mask).sum(-1)
+    w = res.huber_weight(chi2, thr) if robust else torch.ones_like(chi2)
+    w = w * problem.point_obs_mask
+    # zero out fixed-pose columns / fixed-point columns
+    pose_free = (~problem.pose_fixed).to(dtype)  # (F,)
+    Jc = Jc * row_mask[..., None] * pose_free[None, :, None, None]
+    point_free = (~problem.point_fixed).to(dtype)
+    Jp = Jp * row_mask[..., None] * point_free[:, None, None, None]
+    rw = r * row_mask
+    wJc = Jc * w[..., None, None]  # (P, F, 3, 6)
+    wJp = Jp * w[..., None, None]  # (P, F, 3, 3)
+
+    Hcc_pt = (wJc[..., :, None] * Jc[..., None, :]).sum(dim=(0, 2))
+    bc_pt = -(wJc * rw[..., None]).sum(dim=(0, 2))
+    Hpp = (wJp[..., :, None] * Jp[..., None, :]).sum(dim=(1, 2))
+    bp = -(wJp * rw[..., None]).sum(dim=(1, 2))
+    Wcp = (wJc[..., :, None] * Jp[..., None, :]).sum(dim=2)  # (P,F,6,3)
+
+    # -- lines -------------------------------------------------------------
+    lr, lrow_mask, LJc, LJl = _line_grid_residuals(problem, intr, True)
+    lthr = _thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
+    lchi2 = (lr * lr * lrow_mask).sum(-1) * problem.line_obs_sigma
+    lw = res.huber_weight(lchi2, lthr) if robust else torch.ones_like(lchi2)
+    lw = lw * problem.line_obs_mask * problem.line_obs_sigma
+    LJc = LJc * lrow_mask[..., None] * pose_free[None, :, None, None]
+    line_free = (~problem.line_fixed).to(dtype)
+    LJl = LJl * lrow_mask[..., None] * line_free[:, None, None, None]
+    lrw = lr * lrow_mask
+    wLJc = LJc * lw[..., None, None]  # (L, F, 4, 6)
+    wLJl = LJl * lw[..., None, None]  # (L, F, 4, 4)
+
+    Hcc_ln = (wLJc[..., :, None] * LJc[..., None, :]).sum(dim=(0, 2))
+    bc_ln = -(wLJc * lrw[..., None]).sum(dim=(0, 2))
+    Hll = (wLJl[..., :, None] * LJl[..., None, :]).sum(dim=(1, 2))
+    bl = -(wLJl * lrw[..., None]).sum(dim=(1, 2))
+    Wcl = (wLJc[..., :, None] * LJl[..., None, :]).sum(dim=2)  # (L,F,6,4)
+
+    Hcc = Hcc_pt + Hcc_ln  # (F, 6, 6)
+    bc = bc_pt + bc_ln
+
+    # -- landmark-block damping + closed-form inverses ---------------------
+    def damped(Hb, k):
+        eye = torch.eye(k, dtype=dtype, device=dev)
+        unseen = (torch.einsum("nii->n", Hb) < 1e-10).to(dtype)  # pinned to identity
+        return Hb + lam * eye + eye * unseen[:, None, None]
+
+    Hpp_inv = inv3_spd(damped(Hpp, 3))
+    Hll_inv = inv4_spd(damped(Hll, 4))
+
+    # -- Schur complement onto the pose rows -------------------------------
+    # Y = W · Hinv per landmark, then ONE real contraction per family over
+    # (landmark, landmark-dof): the only matmul-shaped op of the assembly.
+    Y = (Wcp[..., :, None] * Hpp_inv[:, None, None, :, :]).sum(dim=3)
+    Yl = (Wcl[..., :, None] * Hll_inv[:, None, None, :, :]).sum(dim=3)
+    n = f * POSE_DIM
+    S_big6 = (torch.einsum("pfac,pgdc->fagd", Y, Wcp).reshape(n, n)
+              + torch.einsum("lfac,lgdc->fagd", Yl, Wcl).reshape(n, n))
+    bs = ((Y * bp[:, None, None, :]).sum(dim=(0, 3))
+          + (Yl * bl[:, None, None, :]).sum(dim=(0, 3)))  # (F, 6)
+
+    Htop = _blockdiag(Hcc) - S_big6
+    Htop = Htop + torch.diag(lam * torch.ones(n, dtype=dtype, device=dev))
+    diag = torch.diagonal(Htop)
+    Htop = Htop + torch.diag((diag < 1e-10).to(dtype))
+    dxc = solve_spd(Htop, (bc - bs).reshape(-1)).reshape(f, POSE_DIM)
+    dx_frames = torch.cat(
+        [dxc, torch.zeros((f, FRAME_DIM - POSE_DIM), dtype=dtype, device=dev)], dim=1)
+    dg = torch.zeros(GRAV_DIM, dtype=dtype, device=dev)
+
+    # -- back-substitute landmarks ----------------------------------------
+    gp = bp - (Wcp * dxc[None, :, :, None]).sum(dim=(1, 2))  # (P, 3)
+    gl = bl - (Wcl * dxc[None, :, :, None]).sum(dim=(1, 2))  # (L, 4)
+    dp = (Hpp_inv * gp[:, None, :]).sum(dim=2)
+    dl = (Hll_inv * gl[:, None, :]).sum(dim=2)
+    return dx_frames, dg, dp, dl
+
+
+def _blockdiag(blocks):
+    """(F, k, k) -> (F*k, F*k) block-diagonal."""
+    f, k, _ = blocks.shape
+    eye = torch.eye(f, dtype=blocks.dtype, device=blocks.device)
+    return torch.einsum("fg,fij->figj", eye, blocks).reshape(f * k, f * k)
+
+
+def apply_update(problem: BAProblem, dx_frames, dg, dp, dl) -> BAProblem:
+    fr = problem.frames
+    Rwb, twb = torch.func.vmap(res.retract_pose)(fr.Rwb, fr.twb, dx_frames[:, 0:6])
+    new_frames = FrameStates(
+        Rwb=Rwb,
+        twb=twb,
+        vel=fr.vel + dx_frames[:, 6:9],
+        bg=fr.bg + dx_frames[:, 9:12],
+        ba=fr.ba + dx_frames[:, 12:15],
+    )
+    dg_eff = dg * problem.gravity_free
+    Rwg = problem.Rwg @ lie.so3_exp(torch.cat([dg_eff, dg_eff.new_zeros(1)]))
+    new_lines = torch.func.vmap(lie.line_orthonormal_oplus)(problem.lines, dl)
+    return problem._replace(frames=new_frames, points=problem.points + dp,
+                            lines=new_lines, Rwg=Rwg)
+
+
+# ---------------------------------------------------------------------------
+# LM loop
+# ---------------------------------------------------------------------------
+
+
+def optimize(problem: BAProblem, intr, cfg: BAConfig, iterations: int, robust: bool = True,
+             tau: float = 1e-5, early_exit: float = 0.0) -> BAProblem:
+    """Run ``iterations`` LM steps (g2o Levenberg strategy) and return the
+    updated problem. Accept/reject and the damping schedule stay on the
+    device.
+
+    ``early_exit`` (opt-in — deviates from g2o's fixed schedule): when > 0,
+    stop once an accepted step improves the cost by less than ``early_exit``
+    relative; this reads one flag per step back to the host. 0.0 keeps the
+    reference's iteration counts."""
+    with full_f32():
+        cost = total_cost(problem, intr, cfg, robust)
+        # g2o: tau * max(diag(H)); diag ~O(1e2) for pixel terms
+        lam = torch.full((), tau * 100.0, dtype=cost.dtype, device=cost.device)
+        nu = torch.full((), 2.0, dtype=cost.dtype, device=cost.device)
+        two = torch.full_like(nu, 2.0)
+
+        for _ in range(iterations):
+            dxf, dg, dp, dl = _assemble_and_solve(problem, intr, cfg, lam, robust)
+            cand = apply_update(problem, dxf, dg, dp, dl)
+            new_cost = total_cost(cand, intr, cfg, robust)
+            accept = new_cost < cost  # False for a NaN candidate
+
+            def pick(a, b):
+                return torch.where(accept, a, b)
+
+            if early_exit > 0.0:
+                converged = accept & (cost - new_cost < early_exit * cost.clamp(min=1e-12))
+            problem = problem._replace(
+                frames=FrameStates(*(pick(a, b) for a, b in zip(cand.frames, problem.frames))),
+                points=pick(cand.points, problem.points),
+                lines=pick(cand.lines, problem.lines),
+                Rwg=pick(cand.Rwg, problem.Rwg))
+            # g2o-style damping adaptation (simplified gain ratio)
+            lam = pick(lam / 3.0, lam * nu)
+            nu = pick(two, nu * 2.0)
+            cost = pick(new_cost, cost)
+            if early_exit > 0.0 and bool(converged):
+                break
+    return problem

@@ -10,8 +10,9 @@ which on the card is kernel R.
 :func:`vo_map_builder` — the visual-odometry ``MapBuilder`` as
 ``configs/visual_odometry/vo_euroc.yaml`` sets it up (SuperPoint keypoints,
 PLNet lines and junctions, LightGlue). ``add_input`` initialises it on the
-first frame with enough stereo points; ``track_frame`` then runs the
-per-frame tracking path against that keyframe.
+first frame with enough stereo points and from then on tracks every frame,
+inserts keyframes and runs the local BA; ``track_frame`` runs the per-frame
+tracking path alone against the last keyframe.
 """
 
 from __future__ import annotations
@@ -74,14 +75,16 @@ class FrontendStep(nn.Module):
         return out[0], out[1]
 
 
-def vo_map_builder(camera, dtype=torch.bfloat16, device=None, **builder_args) -> MapBuilder:
+def vo_map_builder(camera, dtype=torch.bfloat16, device=None, use_flash: bool = False,
+                   **builder_args) -> MapBuilder:
     """The tracking pipeline with the shipped checkpoints (``plnet_s0.npz``,
     ``superpoint.npz``, ``lightglue.npz``): 400 SuperPoint keypoints, 512
     lines, networks in ``dtype``, geometry in float32. ``camera``: a
-    :class:`core.camera.Camera`. ``device``: ``cuda`` unless the caller passes
+    :class:`core.camera.Camera`. ``use_flash``: LightGlue's attention through
+    the fused kernel (``MatcherConfig.use_flash``). ``device``: ``cuda`` unless the caller passes
     another; raises without a card."""
     device = resolve_device(device)
     detector = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=True,
                                               dtype=dtype), device=device)
-    matcher = PointMatcher(MatcherConfig(dtype=dtype), device=device)
+    matcher = PointMatcher(MatcherConfig(dtype=dtype, use_flash=use_flash), device=device)
     return MapBuilder(camera, detector, matcher, device=device, **builder_args)

@@ -23,8 +23,14 @@ from airslam_tpu_torch.ops.match import Matches, mutual_match
 
 @dataclasses.dataclass(frozen=True)
 class MatcherConfig:
+    matcher: int = 0  # 0 lightglue, 1 superglue (vo_euroc.yaml:10); only 0 is ported
     image_width: int = 752
     image_height: int = 480
+    max_keypoints: int = 512  # static token budget (engine profile ≤1024)
+    sinkhorn_iterations: int = 0  # SuperGlue OT (reference ships it disabled)
+    # LightGlue's attention through the fused kernel (ops/attention.flash_mha,
+    # kernel F on the card) instead of plain tensor ops: 36 launches per pass
+    use_flash: bool = False
     dtype: Any = torch.float32
 
 
@@ -48,9 +54,13 @@ class PointMatcher:
     norm_scale = 0.5  # NormalizeKeypoints scale for LightGlue
 
     def __init__(self, config: MatcherConfig = MatcherConfig(), device=None):
+        if config.matcher != 0:
+            raise NotImplementedError(
+                "matcher: 1 (SuperGlue) is not ported yet: it rides with relocalization "
+                "(ROADMAP queue 5)")
         self.config = config
         self.device = resolve_device(device)
-        self.model = LightGlue(dtype=config.dtype)
+        self.model = LightGlue(dtype=config.dtype, use_flash=config.use_flash)
         self.model.load_state_dict(wio.lightglue_from_flax(
             wio.load_npz(wio.checkpoint_path("lightglue.npz"))))
         self.model.to(self.device).eval()

@@ -2,7 +2,9 @@
 
 Port of ``airslam_tpu/models/lightglue.py``: learnable-Fourier rotary
 encoding on self-attention, bidirectional cross-attention sharing one
-similarity matrix, gated token updates, and the final assignment combining
+similarity matrix (with ``use_flash`` two fused attention calls over the
+same projections instead, and the self-attention through the same kernel:
+``ops/attention.flash_mha``, kernel F on the card), gated token updates, and the final assignment combining
 matchability logits with a doubly-log-softmaxed similarity. Static 9 layers,
 masks for padded keypoints, no early exit. Every function takes any number
 of leading batch dimensions (the JAX package batches pairs with ``vmap``):
@@ -21,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from airslam_tpu_torch.ops.attention import mha
+from airslam_tpu_torch.ops.attention import flash_mha, mha
 
 _NEG = -1e9
 
@@ -76,9 +78,10 @@ class TokenUpdate(nn.Module):
 
 
 class SelfBlock(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, use_flash: bool = False):
         super().__init__()
         self.heads = heads
+        self.use_flash = use_flash
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.update = TokenUpdate(dim)
@@ -87,14 +90,20 @@ class SelfBlock(nn.Module):
         q, k, v = (_heads_first(t, self.heads) for t in self.qkv(x).chunk(3, dim=-1))
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-        out = mha(q, k, v, kv_mask=mask)
+        attn = flash_mha if self.use_flash else mha
+        out = attn(q, k, v, kv_mask=mask)
         return self.update(x, self.proj(_merge(out)))
 
 
 class CrossBlock(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    """Bidirectional cross-attention sharing one similarity matrix; with
+    ``use_flash`` the two directions run as two fused attention calls over
+    the same projections, and no (N0, N1) matrix reaches device memory."""
+
+    def __init__(self, dim: int, heads: int, use_flash: bool = False):
         super().__init__()
         self.heads = heads
+        self.use_flash = use_flash
         self.to_qk = nn.Linear(dim, dim)
         self.to_v = nn.Linear(dim, dim)
         self.proj = nn.Linear(dim, dim)
@@ -104,13 +113,17 @@ class CrossBlock(nn.Module):
         h = self.heads
         qk0, qk1 = _heads_first(self.to_qk(x0), h), _heads_first(self.to_qk(x1), h)
         v0, v1 = _heads_first(self.to_v(x0), h), _heads_first(self.to_v(x1), h)
-        d = qk0.shape[-1]
-        sim = torch.einsum("...hnd,...hmd->...hnm", qk0, qk1) * (1.0 / math.sqrt(d))
-        neg = torch.full_like(sim, _NEG)
-        att01 = torch.softmax(torch.where(mask1[..., None, None, :], sim, neg), dim=-1)
-        att10 = torch.softmax(torch.where(mask0[..., None, :, None], sim, neg), dim=-2)
-        m0 = torch.einsum("...hnm,...hmd->...hnd", att01, v1)
-        m1 = torch.einsum("...hnm,...hnd->...hmd", att10, v0)
+        if self.use_flash:
+            m0 = flash_mha(qk0, qk1, v1, kv_mask=mask1)
+            m1 = flash_mha(qk1, qk0, v0, kv_mask=mask0)
+        else:
+            d = qk0.shape[-1]
+            sim = torch.einsum("...hnd,...hmd->...hnm", qk0, qk1) * (1.0 / math.sqrt(d))
+            neg = torch.full_like(sim, _NEG)
+            att01 = torch.softmax(torch.where(mask1[..., None, None, :], sim, neg), dim=-1)
+            att10 = torch.softmax(torch.where(mask0[..., None, :, None], sim, neg), dim=-2)
+            m0 = torch.einsum("...hnm,...hmd->...hnd", att01, v1)
+            m1 = torch.einsum("...hnm,...hnd->...hmd", att10, v0)
         x0 = self.update(x0, self.proj(_merge(m0)))
         x1 = self.update(x1, self.proj(_merge(m1)))
         return x0, x1
@@ -118,14 +131,17 @@ class CrossBlock(nn.Module):
 
 class LightGlue(nn.Module):
     def __init__(self, dim: int = 256, heads: int = 4, layers: int = 9,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_flash: bool = False):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
+        self.use_flash = use_flash
         self.rotary = FourierRotary(dim // heads)
         self.input_proj = nn.Linear(dim, dim)
-        self.self_blocks = nn.ModuleList(SelfBlock(dim, heads) for _ in range(layers))
-        self.cross_blocks = nn.ModuleList(CrossBlock(dim, heads) for _ in range(layers))
+        self.self_blocks = nn.ModuleList(SelfBlock(dim, heads, use_flash)
+                                         for _ in range(layers))
+        self.cross_blocks = nn.ModuleList(CrossBlock(dim, heads, use_flash)
+                                          for _ in range(layers))
         self.final_proj = nn.Linear(dim, dim)
         self.matchability = nn.Linear(dim, 1)
         # compute dtype everywhere except where the flax module pins f32

@@ -26,8 +26,9 @@ BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 
 # per-source extra flags; remap keeps the plain version's unfused arithmetic
 # (bit-equal to gridsample.remap), bilerp accepts FMA contraction (≤1e-5),
-# pose_gn keeps it on purpose (see the note in its source)
-KERNELS = {"remap": ("-fmad=false",), "bilerp": (), "pose_gn": ()}
+# pose_gn keeps it on purpose (see the note in its source), attention writes
+# its fused multiply-adds out
+KERNELS = {"remap": ("-fmad=false",), "bilerp": (), "pose_gn": (), "attention": ()}
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

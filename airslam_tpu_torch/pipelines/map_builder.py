@@ -1,6 +1,6 @@
-"""Visual odometry pipeline: the tracking half.
+"""Visual odometry pipeline.
 
-Port of the per-frame tracking part of ``airslam_tpu/pipelines/map_builder.py``
+Port of the vision-only part of ``airslam_tpu/pipelines/map_builder.py``
 (which replaces ``src/map_builder.cc``). Same stages, same decision logic:
 
 1. input: rectify both views (``ops/remap.remap``; on the card kernel R)
@@ -12,14 +12,14 @@ Port of the per-frame tracking part of ``airslam_tpu/pipelines/map_builder.py``
    (map_builder.cc:285-315), pose-only optimization (on the card the
    whole-solver kernel of ``backend/pose_gn.py``), inlier track-id propagation
 5. keyframe policy ``AddKeyframeCheck`` (map_builder.cc:429-466)
-6. keyframe insertion → Map: the first keyframe only. From the second on the
-   map runs the sliding-window local BA, which is not ported yet
-   (``Map.insert_keyframe`` raises).
+6. keyframe insertion → Map (landmark creation, triangulation, local BA)
 
 The bookkeeping (``Frame``, ``Mappoint``, track ids) is numpy on the host, as
 in the JAX package; the feature tree is pulled to the host once per frame.
-The IMU branches, the device-resident PnP, ``_publish`` and
-``PipelinedRunner`` are not ported yet and raise where the path would enter
+The host loop is sequential by default; :class:`PipelinedRunner` queues frame
+t+1's rectification and detection on the device before frame t's features are
+pulled, so the device works while the host tracks. The IMU branches and the
+device-resident PnP are not ported yet and raise where the path would enter
 them.
 """
 
@@ -99,10 +99,12 @@ def _match_table(matches, k: int):
 
 class MapBuilder:
     def __init__(self, camera, detector, matcher, kf_config: Optional[KeyframeConfig] = None,
-                 ba_config=None, match_threshold: Optional[float] = None, device=None,
-                 dtype=torch.float32):
+                 ba_config=None, match_threshold: Optional[float] = None, publisher=None,
+                 device=None, dtype=torch.float32):
         """detector/matcher: FeatureDetector / PointMatcher (or test doubles
-        with the same interface). ``device``: where the builder's tensor work
+        with the same interface). ``publisher``: optional io.publisher.Publisher
+        receiving frame-pose / keyframe / map messages (the RosPublisher role,
+        map_builder.cc:497-548). ``device``: where the pipeline's tensor work
         (rectification, line relations, the pose-only problem) runs — ``cuda``
         unless the caller passes another. ``dtype``: the float type of that
         work; the tracking kernel on the card is float32."""
@@ -114,6 +116,7 @@ class MapBuilder:
         self.dtype = dtype
         self.map = Map(camera, ba_config, device=self.device, dtype=dtype)
         self.match_threshold = match_threshold
+        self.publisher = publisher
 
         self.init = False
         self.insert_next_keyframe = True
@@ -155,19 +158,26 @@ class MapBuilder:
         return self.track_features(timestamp, feats_left, feats_right, pairs, imu_batch,
                                    temporal_matches=temporal)
 
-    def _frontend(self, image_left, image_right):
-        """rectify → detect → ONE host pull of the feature tree → the batched
-        stereo and temporal match. Returns (feats_left, feats_right,
-        stereo_pairs, temporal_pairs-or-None)."""
-        pair = self.rectify(image_left, image_right)
+    def _detect(self, image_left, image_right):
+        """rectify → detect, queued on the device; nothing is read back.
+        Returns the FrameFeatures of the (left, right) pair as tensors."""
         # junctions ride along: keyframes need them for the refiner's
         # junction vocabulary and the relocalization re-rank
-        feats = _as_np_features(self.detector.detect(pair))
+        return self.detector.detect(self.rectify(image_left, image_right))
+
+    def _match_detected(self, feats_dev):
+        """ONE host pull of the feature tree → the batched stereo and temporal
+        match. Returns (feats_left, feats_right, stereo_pairs,
+        temporal_pairs-or-None)."""
+        feats = _as_np_features(feats_dev)
         f0 = type(feats)(*(t[0] for t in feats))
         f1 = type(feats)(*(t[1] for t in feats))
         with torch.profiler.record_function("stereo+temporal match"):
             pairs, temporal = self._stereo_and_temporal(f0, f1)
         return f0, f1, pairs, temporal
+
+    def _frontend(self, image_left, image_right):
+        return self._match_detected(self._detect(image_left, image_right))
 
     def _stereo_and_temporal(self, f0, f1):
         """ONE batched matcher pass per frame: the stereo pair and (once
@@ -221,14 +231,33 @@ class MapBuilder:
             self.insert_next_keyframe = True
 
         self.last_tracked_frame = frame
+        self._publish(frame)
         return frame
+
+    def _publish(self, frame: Frame):
+        if self.publisher is None:
+            return
+        from airslam_tpu_torch.io import publisher as pub
+
+        self.publisher.publish_frame_pose(
+            pub.FramePoseMessage(time=frame.timestamp, pose=frame.Twc.copy()))
+        m = self.map
+        self.publisher.publish_keyframes(pub.KeyframeMessage(
+            time=frame.timestamp, ids=list(m.keyframe_ids),
+            poses=[m.keyframes[f].Twc.copy() for f in m.keyframe_ids]))
+        pts = np.asarray([p.position for p in m.mappoints.values() if p.is_valid])
+        self.publisher.publish_map(pub.MapMessage(time=frame.timestamp, points=pts))
+        ends = np.asarray([l.endpoints for l in m.maplines.values()
+                           if l.is_valid and l.endpoints_valid])
+        self.publisher.publish_maplines(
+            pub.MaplineMessage(time=frame.timestamp, endpoints=ends))
 
     def track_frame(self, timestamp, image_left, image_right) -> TrackResult:
         """The tracking path of one frame against the last keyframe, up to
         and including the keyframe decision: what :meth:`add_input` runs for a
-        frame after initialisation, without the keyframe insertion that
-        follows it (a second keyframe needs the window backend). The builder
-        keeps its keyframe, so any number of frames can be tracked against it."""
+        frame after initialisation, without the keyframe insertion that may
+        follow it. The last keyframe stays, so any number of frames
+        can be tracked against it."""
         if not self.init:
             raise RuntimeError("track_frame needs an initialised builder: "
                                "feed add_input a frame with enough stereo points first")
@@ -405,7 +434,7 @@ class MapBuilder:
     def _solve_pnp_jax(self, cur: Frame, matched):
         raise NotImplementedError(
             "the device-resident RANSAC PnP (backend/pnp.py) is not ported yet: it rides "
-            "with the window backend (ROADMAP queue 2); install OpenCV for the host PnP")
+            "with relocalization (ROADMAP queue 5); install OpenCV for the host PnP")
 
     def _pose_only(self, cur: Frame, matched, imu_ref: Optional[Frame] = None):
         """Pose-only GN (FrameOptimization equiv) on the builder's device:
@@ -523,3 +552,53 @@ class MapBuilder:
         """Full-rate (timestamp, Twc) list, composed against the reference
         keyframes' current (post-correction) poses."""
         return [(ts, ref.Twc @ rel) for ts, ref, rel in self._trajectory]
+
+    def save_trajectory(self, path: str):
+        from airslam_tpu_torch.io.trajectory import save_tum
+
+        save_tum(path, self.trajectory)
+
+    def save_keyframe_trajectory(self, path: str):
+        from airslam_tpu_torch.io.trajectory import save_tum
+
+        save_tum(path, self.map.keyframe_trajectory())
+
+
+class PipelinedRunner:
+    """Double-buffered sequence runner — the counterpart of the reference's
+    2-thread pipeline with bounded queues (map_builder.cc:33-49, feature
+    thread ∥ tracking thread).
+
+    Kernel launches are asynchronous: rectification and detection of frame
+    t+1 are queued on the stream *before* frame t's features are pulled to the
+    host, so the device computes detection t+1 while the host runs matching
+    bookkeeping, tracking and map maintenance for frame t. One frame of
+    latency, same results as the sequential loop.
+    """
+
+    def __init__(self, builder: MapBuilder):
+        self.builder = builder
+
+    def run(self, dataset, max_frames: int = 0, progress=None):
+        b = self.builder
+        n = len(dataset) if max_frames <= 0 else min(len(dataset), max_frames)
+        pending = None
+        for i in range(n):
+            ts, left_raw, right_raw, imu = dataset.get(i)
+            feats_dev = b._detect(left_raw, right_raw)  # queued, not read
+            if pending is not None:
+                self._consume(pending)
+                if progress is not None:
+                    progress(i - 1)
+            pending = (ts, feats_dev, imu)
+        if pending is not None:
+            self._consume(pending)
+            if progress is not None:
+                progress(n - 1)
+        return n
+
+    def _consume(self, item):
+        ts, feats_dev, imu = item
+        b = self.builder
+        f0, f1, pairs, temporal = b._match_detected(feats_dev)
+        b.track_features(ts, f0, f1, pairs, imu, temporal_matches=temporal)

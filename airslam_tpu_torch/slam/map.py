@@ -1,13 +1,22 @@
-"""Map: keyframe/landmark registries.
+"""Map: keyframe/landmark registries and optimization orchestration.
 
-Port of what the FIRST keyframe needs of ``airslam_tpu/slam/map.py`` (which
-replaces ``src/map.cc``): ``Map.__init__`` (:63-85), the intrinsics,
-``triangulate_stereo_lines_frame`` (:48-60), ``insert_keyframe`` (:90-163)
-and the covisibility update. From the second keyframe on, insertion runs the
-sliding-window local BA; that, the multi-view point triangulation and the
-mapline fit from mappoints belong to the window backend and raise
-``NotImplementedError`` here. The registries are host-side (numpy), as in the
-JAX package; only the stereo line triangulation runs on the map's device.
+Port of the vision-only VO part of ``airslam_tpu/slam/map.py`` (which replaces
+``src/map.cc``): keyframe insertion creates/extends landmarks and triangulates
+(map.cc:30-120), sliding-window local BA over the last 5 keyframes plus their
+fixed observers (map.cc:556-849), landmark lifecycle and outlier write-back
+(map.cc:859-943), mapline endpoint maintenance (map.cc:192-340), the
+covisibility graph (map.cc:1385-1425) and the keyframe trajectory
+(map.cc:1000-1008).
+
+The window optimization is built as a dense (landmark × frame) ``BAProblem``
+padded to shape buckets, so every local BA runs the same few shapes. The
+registries are host-side (numpy), as in the JAX package; the triangulations
+and the BA run on the map's device in its dtype, and each pulls its result
+to the host once.
+
+Global BA, ``apply_pose_corrections``, ``search_by_projection``,
+``delete_keyframe``, ``export_text`` (map refinement and relocalization) and
+the IMU initialization (stereo-inertial) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,11 +27,27 @@ import numpy as np
 import torch
 
 from airslam_tpu_torch import resolve_device
-from airslam_tpu_torch.backend import gn
+from airslam_tpu_torch.backend import gn, triangulate, windows
+from airslam_tpu_torch.frontend.lines import endpoint_trim_rows_np
 from airslam_tpu_torch.slam.frame import Frame
 from airslam_tpu_torch.slam.landmarks import LandmarkType, Mapline, Mappoint
 
-_NEXT_SLICE = "belongs to the window backend and map slice (ROADMAP queue 2)"
+WINDOW_SIZE = 5  # map.cc:576 MaxFrameNumber
+MAX_FIXED_FRAMES = 10  # static cap on fixed observer frames (ref: unbounded)
+
+_IMU_SLICE = "belongs to the stereo-inertial slice (ROADMAP queue 3)"
+
+
+def _bucket(n: int, step: int = 64) -> int:
+    return max(step, ((n + step - 1) // step) * step)
+
+
+def _pow2_bucket(n: int, lo: int = 8) -> int:
+    """Power-of-two pad: bounds the number of distinct shapes to log2(max)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
 
 
 def triangulate_stereo_lines_frame(frame, intr, min_x_diff, max_x_diff,
@@ -56,9 +81,13 @@ class Map:
         self.maplines: Dict[int, Mapline] = {}
         self.covisibility: Dict[int, Dict[int, int]] = {}
         self.ba_config = ba_config or gn.BAConfig()
+        # opt-in early-exit LM for local BA (YAML optimization.early_exit;
+        # 0.0 = reference-parity fixed iteration schedule)
+        self.ba_early_exit = 0.0
         self.imu_initialized = False
         self.Rwg = np.eye(3)
         self._imu_init_frame: Optional[Frame] = None
+        self.on_local_ba = None  # optional callback(frame) for observability
 
         self.g_value = float(getattr(camera, "g_value", 9.81))
         self._intr = camera.intrinsics() if hasattr(camera, "intrinsics") else camera
@@ -68,11 +97,11 @@ class Map:
     # ------------------------------------------------------------------
 
     def insert_keyframe(self, frame: Frame):
-        if self.keyframes:
+        if self.keyframes and getattr(self.camera, "use_imu", False):
             # checked before anything is registered, so the map stays as it was
             raise NotImplementedError(
-                "inserting a second keyframe runs Map.local_map_optimization, which "
-                + _NEXT_SLICE)
+                "Map.initialize_imu, which a keyframe after the first runs with an "
+                "IMU camera, " + _IMU_SLICE)
         fid = frame.frame_id
         self.keyframes[fid] = frame
         self.keyframe_ids.append(fid)
@@ -133,21 +162,379 @@ class Map:
             self.triangulate_maplines_by_mappoints_batch(need_line_triangulation)
 
         self._update_covisibility(frame)
-        self._imu_init_frame = frame
+
+        if len(self.keyframes) < 2:
+            self._imu_init_frame = frame
+        else:
+            self.local_map_optimization(frame)
 
     # ------------------------------------------------------------------
-    # the next slice's entry points
+    # triangulation
     # ------------------------------------------------------------------
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
 
     def triangulate_mappoints_batch(self, mpts, max_obs: int = 8) -> int:
-        raise NotImplementedError("multi-view mappoint triangulation " + _NEXT_SLICE)
+        """Triangulate many mappoints in ONE call: observations padded to
+        (B_bucket, max_obs) grids, batched midpoint solve (a per-landmark call,
+        the naive port of Map::TriangulateMappoint, costs a device round trip
+        each). Returns #successfully triangulated."""
+        cands = []
+        for mpt in mpts:
+            obs = [(f, i) for f, i in mpt.observers.items() if f in self.keyframes]
+            if len(obs) >= 2:
+                cands.append((mpt, obs[:max_obs]))
+        if not cands:
+            return 0
+        B = _bucket(len(cands), 32)
+        Rcw = np.zeros((B, max_obs, 3, 3))
+        Rcw[:] = np.eye(3)
+        tcw = np.zeros((B, max_obs, 3))
+        uv = np.zeros((B, max_obs, 2))
+        mask = np.zeros((B, max_obs), bool)
+        for b, (mpt, obs) in enumerate(cands):
+            for k, (fid, idx) in enumerate(obs):
+                kf = self.keyframes[fid]
+                Rwc = kf.Twc[:3, :3]
+                Rcw[b, k] = Rwc.T
+                tcw[b, k] = -Rwc.T @ kf.Twc[:3, 3]
+                uv[b, k] = kf.keypoints[idx]
+                mask[b, k] = True
+        t = self._tensor
+        xs, oks = triangulate.triangulate_points_batch(
+            t(Rcw), t(tcw), t(uv), torch.as_tensor(mask, device=self.device), self._intr)
+        xs = xs.double().cpu().numpy()
+        oks = oks.cpu().numpy()
+        good = 0
+        for b, (mpt, _) in enumerate(cands):
+            if oks[b]:
+                mpt.set_position(xs[b])
+                good += 1
+        return good
 
     def triangulate_maplines_by_mappoints_batch(self, mpls, max_pts: int = 64) -> int:
-        raise NotImplementedError("the mapline fit from mappoints " + _NEXT_SLICE)
+        """Fit many maplines from their supporting mappoints in ONE batched
+        call (map.cc:416-504 runs per line). The point gather stays in numpy;
+        the (B, max_pts, 3) grid is power-of-two bucketed, and a line keeps at
+        most its first ``max_pts`` supporting points. Returns #successfully
+        fit."""
+        cands = []
+        for mpl in mpls:
+            pts = []
+            for fid, lidx in mpl.observers.items():
+                kf = self.keyframes.get(fid)
+                if kf is None:
+                    continue
+                for pidx in np.nonzero(kf.points_on_lines[lidx])[0]:
+                    tid = int(kf.track_ids[pidx])
+                    mpt = self.mappoints.get(tid)
+                    if mpt is not None and mpt.is_valid:
+                        pts.append(mpt.position)
+            if len(pts) >= 2:
+                cands.append((mpl, pts[:max_pts]))
+        if not cands:
+            return 0
+        B = _pow2_bucket(len(cands))
+        buf = np.zeros((B, max_pts, 3))
+        mask = np.zeros((B, max_pts), bool)
+        for b, (_, pts) in enumerate(cands):
+            buf[b, : len(pts)] = pts
+            mask[b, : len(pts)] = True
+        ends, oks = triangulate.fit_lines_batch(
+            self._tensor(buf), torch.as_tensor(mask, device=self.device))
+        ends, oks = ends.double().cpu().numpy(), oks.cpu().numpy()
+        good = 0
+        for b, (mpl, _) in enumerate(cands):
+            if oks[b]:
+                mpl.set_endpoints(ends[b])
+                good += 1
+        return good
 
-    def local_map_optimization(self, frame: Frame):
-        raise NotImplementedError("Map.local_map_optimization " + _NEXT_SLICE)
+    def update_maplines_endpoints_batch(self, mpls):
+        """Endpoint maintenance after BA moved the infinite lines
+        (map.cc:192-340), for MANY maplines in one vectorized numpy pass on
+        the host: each observation's 2D endpoints are projected onto its 3D
+        line (one flattened (line, observer) row batch) and the extreme pair
+        per line is kept (segment min/max)."""
+        rows_obs, rows_Twc, rows_seg = [], [], []
+        live = []
+        for mpl in mpls:
+            if mpl.type != LandmarkType.GOOD:
+                continue
+            s = len(live)
+            any_obs = False
+            for fid, lidx in mpl.observers.items():
+                kf = self.keyframes.get(fid)
+                if kf is None:
+                    continue
+                rows_obs.append(kf.lines[lidx])
+                rows_Twc.append(kf.Twc)
+                rows_seg.append(s)
+                any_obs = True
+            if any_obs:
+                live.append(mpl)
+            # else: segment s unused; the next live line reuses it
+        if not live:
+            return
+        seg = np.asarray(rows_seg)
+        Twc = np.asarray(rows_Twc, np.float64)  # (M, 4, 4)
+        Rcw = np.swapaxes(Twc[:, :3, :3], -1, -2)
+        tcw = -np.einsum("nij,nj->ni", Rcw, Twc[:, :3, 3])
 
+        lines = np.asarray([m.line3d for m in live], np.float64)  # (S, 6)
+        w3, d3 = lines[:, 0:3], lines[:, 3:6]
+        nd = np.clip(np.linalg.norm(d3, axis=-1, keepdims=True), 1e-12, None)
+        dvec = d3 / nd
+        p0 = np.cross(dvec, w3 / nd)  # (S, 3)
+
+        ends = endpoint_trim_rows_np(
+            p0[seg], dvec[seg], np.asarray(rows_obs, np.float64), Rcw, tcw,
+            float(self.camera.fx), float(self.camera.fy),
+            float(self.camera.cx), float(self.camera.cy),
+        )  # (M, 6)
+        pts = np.concatenate([ends[:, 0:3], ends[:, 3:6]], axis=0)  # (2M, 3)
+        seg2 = np.concatenate([seg, seg])
+        t = np.einsum("ni,ni->n", pts - p0[seg2], dvec[seg2])
+        S = len(live)
+        t_min = np.full(S, np.inf)
+        t_max = np.full(S, -np.inf)
+        np.minimum.at(t_min, seg2, t)
+        np.maximum.at(t_max, seg2, t)
+        for s, mpl in enumerate(live):
+            mpl.endpoints = np.concatenate(
+                [p0[s] + t_min[s] * dvec[s], p0[s] + t_max[s] * dvec[s]])
+            mpl.endpoints_valid = True
+            mpl.to_update_endpoints = False
+
+    # ------------------------------------------------------------------
+    # local BA (map.cc:556-849)
+    # ------------------------------------------------------------------
+
+    def _window_frames(self, new_frame: Frame):
+        frames = [new_frame]
+        f = new_frame
+        while len(frames) < min(WINDOW_SIZE, len(self.keyframes)):
+            f = f.previous_frame
+            if f is None:
+                break
+            frames.append(f)
+        return frames
+
+    def local_map_optimization(self, new_frame: Frame):
+        window = self._window_frames(new_frame)
+        window_ids = {f.frame_id for f in window}
+        first_kf_id = self.keyframe_ids[0]
+
+        # landmarks observed by the window
+        mpts: List[Mappoint] = []
+        mpls: List[Mapline] = []
+        fixed_votes: Dict[int, int] = {}
+        seen_p, seen_l = set(), set()
+        for f in window:
+            for tid in f.mappoint_ids[f.mappoint_ids >= 0]:
+                mpt = self.mappoints.get(int(tid))
+                if mpt is None or not mpt.is_valid or int(tid) in seen_p:
+                    continue
+                seen_p.add(int(tid))
+                mpts.append(mpt)
+                for ofid in mpt.observers:
+                    if ofid not in window_ids and ofid in self.keyframes:
+                        fixed_votes[ofid] = fixed_votes.get(ofid, 0) + 1
+            for ltid in f.mapline_ids[f.mapline_ids >= 0]:
+                mpl = self.maplines.get(int(ltid))
+                if mpl is None or not mpl.is_valid or int(ltid) in seen_l:
+                    continue
+                seen_l.add(int(ltid))
+                mpls.append(mpl)
+                for ofid in mpl.observers:
+                    if ofid not in window_ids and ofid in self.keyframes:
+                        fixed_votes[ofid] = fixed_votes.get(ofid, 0) + 1
+
+        fixed_ids = [fid for fid, _ in sorted(fixed_votes.items(), key=lambda kv: -kv[1])]
+        fixed_ids = fixed_ids[:MAX_FIXED_FRAMES]
+        all_frames = window + [self.keyframes[fid] for fid in fixed_ids]
+
+        pose_fixed = np.zeros(len(all_frames), bool)
+        for k, f in enumerate(all_frames):
+            # oldest window frame + first keyframe + observers are fixed
+            if k >= len(window) or f.frame_id == first_kf_id or k == len(window) - 1:
+                pose_fixed[k] = True
+
+        problem, layout = self._build_problem(
+            all_frames, pose_fixed, mpts, mpls,
+            pad_frames=WINDOW_SIZE + MAX_FIXED_FRAMES,
+        )
+        if problem is None:
+            return
+        with torch.profiler.record_function("local_ba"):
+            out, p_in, l_in = windows.local_ba(problem, self._intr, self.ba_config,
+                                               early_exit=self.ba_early_exit)
+        self._write_back(out, p_in, l_in, all_frames, pose_fixed, mpts, mpls, layout)
+        if self.on_local_ba is not None:
+            self.on_local_ba(new_frame)
+
+    def _build_problem(self, frames, pose_fixed, mpts, mpls, pad_frames: int = 0):
+        """Build the dense BAProblem on the map's device. ``pad_frames``: pad
+        the frame dimension to this static size (identity dummy frames, fixed)
+        so every local BA has ONE shape regardless of window/observer counts."""
+        if self.imu_initialized:
+            raise NotImplementedError("the window's IMU factors " + _IMU_SLICE)
+        f_real = len(frames)
+        f = max(pad_frames, f_real)
+        p_real, l_real = len(mpts), len(mpls)
+        if p_real == 0 and l_real == 0:
+            return None, None
+        P = _bucket(max(p_real, 1))
+        L = _bucket(max(l_real, 1), 32)
+        frame_index = {fr.frame_id: k for k, fr in enumerate(frames)}
+        if f > f_real:
+            pose_fixed = np.concatenate([pose_fixed, np.ones(f - f_real, bool)])
+
+        # observation grids filled per FRAME with vectorized gathers
+        point_obs = np.zeros((P, f, 3))
+        point_obs[..., 2] = -1.0
+        point_mask = np.zeros((P, f), bool)
+        points = np.zeros((P, 3))
+        row_of_tid = {mpt.id: j for j, mpt in enumerate(mpts)}
+        for j, mpt in enumerate(mpts):
+            points[j] = mpt.position
+        for k, fr in enumerate(frames):
+            ids = fr.mappoint_ids
+            sel = np.nonzero(ids >= 0)[0]
+            if len(sel) == 0:
+                continue
+            rows = np.asarray([row_of_tid.get(int(t), -1) for t in ids[sel]])
+            ok = rows >= 0
+            sel, rows = sel[ok], rows[ok]
+            point_obs[rows, k, 0:2] = fr.keypoints[sel]
+            point_obs[rows, k, 2] = fr.u_right[sel]
+            point_mask[rows, k] = True
+
+        line_obs = np.zeros((L, f, 8))
+        line_mask = np.zeros((L, f), bool)
+        line_stereo = np.zeros((L, f), bool)
+        line_sigma = np.full((L, f), 0.001)
+        lines = np.tile(np.array([1.0, 0, 0, 0, 1.0, 0]), (L, 1))
+        lrow_of_tid = {mpl.id: j for j, mpl in enumerate(mpls)}
+        for j, mpl in enumerate(mpls):
+            lines[j] = mpl.line3d
+            # pixel_sigma = 0.1 for well-observed lines, 0.001 otherwise
+            # (map.cc:724)
+            line_sigma[j] = 0.1 if len(mpl.observers) > 3 else 0.001
+        for k, fr in enumerate(frames):
+            ids = fr.mapline_ids
+            sel = np.nonzero(ids >= 0)[0]
+            if len(sel) == 0:
+                continue
+            rows = np.asarray([lrow_of_tid.get(int(t), -1) for t in ids[sel]])
+            ok = rows >= 0
+            sel, rows = sel[ok], rows[ok]
+            line_obs[rows, k, 0:4] = fr.lines[sel]
+            stereo = fr.lines_right_valid[sel]
+            line_obs[rows[stereo], k, 4:8] = fr.lines_right[sel[stereo]]
+            line_stereo[rows[stereo], k] = True
+            line_mask[rows, k] = True
+
+        Tcb = self.camera.Tcb if hasattr(self.camera, "Tcb") else np.eye(4)
+        Rwb = np.tile(np.eye(3), (f, 1, 1))  # identity for padded frames
+        twb = np.zeros((f, 3))
+        vel = np.zeros((f, 3))
+        bg = np.zeros((f, 3))
+        ba = np.zeros((f, 3))
+        for k, fr in enumerate(frames):
+            Twb = fr.Twc @ Tcb  # Twb = Twc · Tcb
+            Rwb[k] = Twb[:3, :3]
+            twb[k] = Twb[:3, 3]
+            vel[k] = fr.velocity
+            bg[k] = fr.bg
+            ba[k] = fr.ba
+
+        point_fixed = np.zeros(P, bool)
+        point_fixed[p_real:] = True
+        line_fixed = np.zeros(L, bool)
+        line_fixed[l_real:] = True
+
+        t, dev = self._tensor, self.device
+
+        def flag(a):
+            return torch.as_tensor(a, device=dev)
+
+        problem = gn.BAProblem(
+            frames=gn.FrameStates(Rwb=t(Rwb), twb=t(twb), vel=t(vel), bg=t(bg), ba=t(ba)),
+            pose_fixed=flag(pose_fixed),
+            vel_fixed=torch.ones(f, dtype=torch.bool, device=dev),
+            points=t(points),
+            point_fixed=flag(point_fixed),
+            point_obs=t(point_obs),
+            point_obs_mask=flag(point_mask),
+            lines=t(lines),
+            line_fixed=flag(line_fixed),
+            line_obs=t(line_obs),
+            line_obs_stereo=flag(line_stereo),
+            line_obs_mask=flag(line_mask),
+            line_obs_sigma=t(line_sigma),
+            Rwg=t(self.Rwg),
+            gravity_free=torch.zeros((), dtype=self.dtype, device=dev),
+            imu=None,
+            Rcb=t(Tcb[:3, :3]),
+            tcb=t(Tcb[:3, 3]),
+            g_value=self.g_value,
+        )
+        return problem, (frame_index, p_real, l_real)
+
+    def _write_back(self, out, p_in, l_in, frames, pose_fixed, mpts, mpls, layout):
+        frame_index, p_real, l_real = layout
+        Tcb = self.camera.Tcb if hasattr(self.camera, "Tcb") else np.eye(4)
+        Tbc = np.linalg.inv(Tcb)
+        # the whole state is pulled once: per-frame indexing of a device
+        # tensor costs a transfer each
+        Rwb, twb, pts, lns = (a.double().cpu().numpy() for a in
+                              (out.frames.Rwb, out.frames.twb, out.points, out.lines))
+        p_in, l_in = p_in.cpu().numpy(), l_in.cpu().numpy()
+        for k, fr in enumerate(frames):
+            if pose_fixed[k]:
+                continue
+            Twb = np.eye(4)
+            Twb[:3, :3] = Rwb[k]
+            Twb[:3, 3] = twb[k]
+            fr.Twc = Twb @ Tbc
+
+        for j, mpt in enumerate(mpts):
+            mpt.set_position(pts[j])
+            # outlier observation removal (map.cc:859-943)
+            for fid in list(mpt.observers):
+                k = frame_index.get(fid)
+                if k is not None and not p_in[j, k]:
+                    kf = self.keyframes.get(fid)
+                    if kf is not None:
+                        idx = mpt.observers[fid]
+                        kf.mappoint_ids[idx] = -1
+                        kf.track_ids[idx] = -1
+                    mpt.remove_observer(fid)
+            if len(mpt.observers) == 0:
+                mpt.set_bad()
+
+        refresh = []
+        for j, mpl in enumerate(mpls):
+            mpl.set_line3d(lns[j])
+            for fid in list(mpl.observers):
+                k = frame_index.get(fid)
+                if k is not None and not l_in[j, k]:
+                    kf = self.keyframes.get(fid)
+                    if kf is not None:
+                        idx = mpl.observers[fid]
+                        kf.mapline_ids[idx] = -1
+                        kf.line_track_ids[idx] = -1
+                    mpl.remove_observer(fid)
+            if len(mpl.observers) == 0:
+                mpl.set_bad()
+            else:
+                refresh.append(mpl)
+        self.update_maplines_endpoints_batch(refresh)
+
+    # ------------------------------------------------------------------
+    # covisibility (map.cc:1385-1425)
     # ------------------------------------------------------------------
 
     def _update_covisibility(self, frame: Frame):
@@ -166,3 +553,23 @@ class Map:
     def covisible_frames(self, frame_id: int, min_shared: int = 1):
         return [fid for fid, c in self.covisibility.get(frame_id, {}).items()
                 if c >= min_shared]
+
+    # ------------------------------------------------------------------
+    # export (map.cc:1000-1008)
+    # ------------------------------------------------------------------
+
+    def keyframe_trajectory(self):
+        """[(timestamp, Twc)] in keyframe order."""
+        return [(self.keyframes[fid].timestamp, self.keyframes[fid].Twc)
+                for fid in self.keyframe_ids]
+
+    def check_map(self):
+        """Consistency assertions (Map::CheckMap, map.cc:1448-1485)."""
+        for tid, mpt in self.mappoints.items():
+            for fid, idx in mpt.observers.items():
+                kf = self.keyframes.get(fid)
+                assert kf is not None, f"mappoint {tid} observes missing kf {fid}"
+                assert kf.mappoint_ids[idx] == tid or kf.mappoint_ids[idx] == -1
+        for ltid, mpl in self.maplines.items():
+            for fid, idx in mpl.observers.items():
+                assert fid in self.keyframes

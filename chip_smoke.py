@@ -1,8 +1,11 @@
 """Smoke run of the PyTorch port (``airslam_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases f,vo]
 
-Phases, one line each (any failure raises and the script exits non-zero
+``--phases`` runs only the named phases (r, b, t, p, f, slice, tracking,
+path, vo; ``path`` needs ``slice`` and ``tracking``) and then prints no
+result line: it is for a short first run of a new kernel. Without it every
+phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), then the
@@ -31,7 +34,22 @@ without a result line):
    match → frame → line matches → PnP → pose-only solve → keyframe check)
    and are gated against ``tests/data/torch_tracking_oracle.npz`` (the JAX
    ``MapBuilder`` on the CPU).
-7. ``path``: every launch count set to 0, then rectify (kernel R) →
+7. ``kernel F``: the fused attention kernel vs its plain version at the
+   path's two shapes ((1, 4, 400, 64) and (2, 4, 400, 64), strided views as
+   LightGlue hands them over), (4, 1024, 64) unbatched, an odd size, padded
+   keys masked, one batch entry with every key masked, bf16, f32 and mixed.
+   Gates: f32 ≤1e-5 abs, bf16 ≤2e-2 of the output's max, two runs bit-equal.
+   Times of the kernel, its plain version, ``scaled_dot_product_attention``
+   and ``mha``.
+8. ``VO``: ``MapBuilder.add_input`` with ``use_flash=True`` over the 8 stored
+   frames of ``tests/data/torch_vo_oracle.npz`` (the JAX ``MapBuilder`` on the
+   CPU), bf16 then f32: initialisation, tracking, four keyframe insertions
+   with the sliding-window local BA, then ``save_trajectory``, ``save_map``
+   and ``load_map``. f32 gates: the oracle's keyframe ids, every pose within
+   0.02 m / 5e-3, landmark counts within 5 %; bf16: every pose within 0.05 m.
+   The launch counts are set to 0 before the run and read after it: a tracked
+   frame must launch R 1, B 2, T 4, P 1, F 36.
+9. ``path``: every launch count set to 0, then rectify (kernel R) →
    ``FrontendStep`` (kernels B, T) on one pair; each kernel must have run.
    The same again for the f32 program. Then the same for one tracked frame,
    which must launch R once, B twice, T four times and P once. Then the
@@ -57,6 +75,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(REPO, "tests", "data", "torch_frontend_oracle.npz")
 TRACKING_ORACLE = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz")
+VO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -79,6 +98,13 @@ POSE_GATES = {"t": 2e-3, "R": 1e-3, "inlier_agree": 0.98, "count_rel": 0.02, "t_
 # the tracked frame against the JAX MapBuilder's (f64 solve of f32 features)
 TRACK_GATES = {"f32": {"t": 2e-3, "R": 1e-3, "inliers_rel": 0.05},
                "bf16": {"t": 2e-2, "R": 5e-3, "inliers_min": 0.8}}
+# kernel F against its plain version on the card
+FLASH_GATES = {"f32": 1e-5, "bf16_rel": 2e-2}
+# the VO run against the JAX MapBuilder's (f32 features, f64 geometry)
+VO_GATES = {"f32": {"t": 0.02, "R": 5e-3, "count_rel": 0.05}, "bf16": {"t": 0.05}}
+# launches of one tracked frame (no keyframe) of the VO path with use_flash
+FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 2, "bilerp_points_t": 4, "pose_only_fast": 1,
+                  "flash_mha": 36}
 # f32 operations one row costs, counted from csrc/pose_gn.cu: residuals +
 # six Jacobian columns + the 27 accumulators per LM iteration, and one robust
 # cost evaluation (the trial cost, a round's first cost, the relabel)
@@ -200,7 +226,7 @@ def tracking_oracle():
     return cam, init, pairs
 
 
-def tracking_builder(cam, dtype, device, identity_rectify=False):
+def tracking_builder(cam, dtype, device, identity_rectify=False, use_flash=False):
     """The port's visual-odometry ``MapBuilder`` (SuperPoint keypoints, PLNet
     lines, LightGlue, the shipped checkpoints, networks in ``dtype``) on the
     camera the stored pairs were rendered with. ``identity_rectify``: give
@@ -214,7 +240,16 @@ def tracking_builder(cam, dtype, device, identity_rectify=False):
     if identity_rectify:
         v, u = np.mgrid[0:camera.image_height, 0:camera.image_width].astype(np.float32)
         camera.map_left = camera.map_right = np.stack([u, v], axis=-1)
-    return vo_map_builder(camera, dtype=dtype, device=device)
+    return vo_map_builder(camera, dtype=dtype, device=device, use_flash=use_flash)
+
+
+def vo_oracle():
+    """The stored JAX VO run: (camera values, frames (N, 2, H, W) float32 in
+    [0, 1], record of arrays)."""
+    z = np.load(VO_ORACLE)
+    cam = {k[len("camera_"):]: float(z[k]) for k in z.files if k.startswith("camera_")}
+    rec = {k: z[k] for k in z.files if not k.startswith("camera_") and k != "frames_u8"}
+    return cam, z["frames_u8"].astype(np.float32) / np.float32(255.0), rec
 
 
 def _rodrigues(v):
@@ -613,21 +648,271 @@ def phase_kernel_p(dev):
             "bound_by": rec["bound_by"], "library_ms": None}
 
 
-def flash_attention_bound():
-    """Kernel F (``airslam_tpu/ops/attention.py:35``, not ported yet, off in
-    every shipped config): its bound at LightGlue's shapes, computed from
-    the code and not measured. Per call q/k/v (4, 400, 64) and a (400,) key
-    mask in, (4, 400, 64) out; QKᵀ and PV are 2·H·Nq·Nk·D operations each,
-    the masked softmax about 5 per logit; 9 layers × (2 self + 2 cross)
-    calls per match (``airslam_tpu/models/lightglue.py:92,122-124``)."""
-    h, n, d = 4, 400, 64
-    n_flops = 2 * (2 * h * n * n * d) + 5 * h * n * n
-    out = {"launches_per_match": 9 * (2 + 2)}
-    for label, size, peak in (("bf16", 2, BF16_FLOPS), ("f32", 4, F32_FLOPS)):
-        n_bytes = 4 * h * n * d * size + n
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / peak * 1e3
-        out[label] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    return out
+def flash_attention_bound(batch, heads, nq, nk, d, size):
+    """Bound of one fused attention call: q, k, v and the key mask read once,
+    the output written once; QKᵀ and PV are 2·B·H·Nq·Nk·D operations each, the
+    masked softmax about 5 per logit. ``size``: bytes per operand element
+    (2: tensor-core bf16 rate, 4: the f32 rate outside the tensor cores)."""
+    n_flops = batch * heads * nq * nk * (4 * d + 5)
+    n_bytes = batch * heads * d * size * (2 * nq + 2 * nk) + batch * nk
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / (BF16_FLOPS if size == 2 else F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _attention_inputs(rng, lead, heads, nq, nk, d, qk_dtype, v_dtype, dev, n_valid=None,
+                      all_masked=None):
+    """q, k, v as LightGlue hands them over — transposed views of
+    (…, N, H·D) projections — and a key mask with the keys from ``n_valid`` on
+    masked (every key of batch entry ``all_masked``)."""
+    import torch
+
+    def proj(n, dtype):
+        x = torch.as_tensor(rng.randn(*lead, n, heads * d).astype(np.float32), device=dev)
+        x = x.to(dtype)
+        return x.reshape(*lead, n, heads, d).transpose(-3, -2)
+
+    q, k, v = proj(nq, qk_dtype), proj(nk, qk_dtype), proj(nk, v_dtype)
+    mask = None
+    if n_valid is not None:
+        mask = torch.zeros(*lead, nk, dtype=torch.bool, device=dev)
+        mask[..., :n_valid] = True
+        if all_masked is not None:
+            mask[all_masked] = False
+    return q, k, v, mask
+
+
+def phase_kernel_f(dev):
+    """Kernel F against its plain version on the card, then its times."""
+    import torch
+    import torch.nn.functional as F
+
+    from airslam_tpu_torch.ops.attention import flash_mha, flash_mha_plain, mha
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rng = np.random.RandomState(0)
+    # (label, lead, H, Nq, Nk, D, q/k type, v type, valid keys, all-masked entry)
+    cases = [("stereo f32", (1,), 4, 400, 400, 64, f32, f32, 371, None),
+             ("stereo bf16", (1,), 4, 400, 400, 64, bf, bf, 371, None),
+             ("path f32", (2,), 4, 400, 400, 64, f32, f32, 388, None),
+             ("path bf16", (2,), 4, 400, 400, 64, bf, bf, 388, None),
+             ("unbatched 1024 f32", (), 4, 1024, 1024, 64, f32, f32, None, None),
+             ("unbatched 1024 bf16", (), 4, 1024, 1024, 64, bf, bf, 1000, None),
+             ("odd f32", (3,), 2, 77, 300, 32, f32, f32, 290, None),
+             ("odd bf16", (3,), 2, 77, 300, 64, bf, bf, 290, None),
+             ("all masked f32", (2,), 4, 400, 400, 64, f32, f32, 388, 1),
+             ("all masked bf16", (2,), 4, 400, 400, 64, bf, bf, 388, 1),
+             ("mixed f32 q/k, bf16 v", (2,), 4, 400, 400, 64, f32, bf, 388, None)]
+    worst = {"f32": 0.0, "bf16": 0.0}
+    notes = []
+    for label, lead, h, nq, nk, d, tq, tv, n_valid, dead in cases:
+        q, k, v, mask = _attention_inputs(rng, lead, h, nq, nk, d, tq, tv, dev, n_valid, dead)
+        got = flash_mha(q, k, v, mask)
+        again = flash_mha(q, k, v, mask)
+        want = flash_mha_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        _require(got.shape == want.shape and got.dtype == q.dtype,
+                 f"kernel F ({label}): output {tuple(got.shape)} {got.dtype}")
+        _require(torch.equal(got, again), f"kernel F ({label}): two runs differ")
+        _require(bool(torch.isfinite(got.float()).all()), f"kernel F ({label}): not finite")
+        err = float((got.float() - want.float()).abs().max())
+        # bf16 anywhere in the call: p is rounded to v's type against the
+        # running maximum, and a bf16 output rounds once more
+        kind = "f32" if (tq, tv) == (f32, f32) else "bf16"
+        tol = (FLASH_GATES["f32"] if kind == "f32"
+               else FLASH_GATES["bf16_rel"] * float(want.float().abs().max()))
+        _require(err <= tol, f"kernel F ({label}) disagrees with its plain version: "
+                             f"{err:.3e} > {tol:.3e}")
+        if dead is not None:  # every key masked: the plain mean of v
+            mean_v = v[dead].float().mean(dim=-2, keepdim=True).expand_as(got[dead])
+            gap = float((got[dead].float() - mean_v).abs().max())
+            _require(gap <= (1e-5 if kind == "f32" else 2e-2),
+                     f"kernel F ({label}): an all-masked row is not the mean of v: {gap:.3e}")
+        worst[kind] = max(worst[kind], err)
+        notes.append(f"{label}: {err:.2e}")
+    print("kernel F: " + "; ".join(notes)
+          + f" (gates f32<={FLASH_GATES['f32']} bf16<={FLASH_GATES['bf16_rel']} of max; "
+          "two runs bit-equal)")
+
+    rec = {}
+    for label, dtype, size in (("bf16", bf, 2), ("f32", f32, 4)):
+        for batch in (1, 2):
+            q, k, v, mask = _attention_inputs(rng, (batch,), 4, 400, 400, 64, dtype, dtype, dev, 388)
+            bias = mask[:, None, None, :]
+            t = dict(
+                ms=_time_ms(lambda: flash_mha(q, k, v, mask)),
+                eager_ms=_eager_ms(lambda: flash_mha(q, k, v, mask)),
+                plain_ms=_time_ms(lambda: flash_mha_plain(q, k, v, mask)),
+                mha_ms=_time_ms(lambda: mha(q, k, v, mask)),
+                mha_eager_ms=_eager_ms(lambda: mha(q, k, v, mask)),
+                library_ms=_time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)))
+            t["bound_ms"], t["bound_by"] = flash_attention_bound(batch, 4, 400, 400, 64, size)
+            rec[(label, batch)] = t
+            print(f"kernel F {label} q/k/v ({batch}, 4, 400, 64): ms={t['ms']:.5f} "
+                  f"eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+                  f"mha_ms={t['mha_ms']:.5f} mha_eager_ms={t['mha_eager_ms']:.5f} "
+                  f"sdpa_ms={t['library_ms']:.5f} bound_ms={t['bound_ms']:.6f} ({t['bound_by']})")
+    t = rec[("bf16", 2)]  # what a tracked frame of the bf16 path launches
+    return {"name": "flash_mha", "route": "cuda",
+            "source": "airslam_tpu_torch/csrc/attention.cu",
+            "replaces": "airslam_tpu/ops/attention.py:35", "max_abs_err": worst["f32"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+
+def _counted():
+    """The five kernel wrappers, by the name their record carries."""
+    from airslam_tpu_torch.backend import pose_gn
+    from airslam_tpu_torch.ops import attention, bilerp, remap as remap_mod
+
+    return {fn.__name__: fn for fn in (remap_mod.remap, bilerp.bilerp_points,
+                                       bilerp.bilerp_points_t, pose_gn.pose_only_fast,
+                                       attention.flash_mha)}
+
+
+def _run_vo(builder, frames, rec, timed_ba=None):
+    """``add_input`` over the stored sequence. Returns per frame (wall ms,
+    launch counts, became a keyframe) and the frames."""
+    import torch
+
+    from airslam_tpu_torch.backend import windows
+
+    counted = _counted()
+    local_ba = windows.local_ba
+    if timed_ba is not None:
+        def local_ba_timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = local_ba(*args, **kw)
+            torch.cuda.synchronize()
+            timed_ba.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        windows.local_ba = local_ba_timed
+    rows, out = [], []
+    try:
+        for i in range(len(frames)):
+            before = {k: fn.launches for k, fn in counted.items()}
+            n_kf = len(builder.map.keyframe_ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(builder.add_input(float(rec["timestamps"][i]), frames[i][0], frames[i][1]))
+            torch.cuda.synchronize()
+            rows.append(((time.perf_counter() - t0) * 1e3,
+                         {k: fn.launches - before[k] for k, fn in counted.items()},
+                         len(builder.map.keyframe_ids) > n_kf))
+    finally:
+        windows.local_ba = local_ba
+    return rows, out
+
+
+def phase_vo(dev):
+    """The VO main path over the stored sequence with ``use_flash=True``,
+    gated against the stored JAX run. Returns the launch counts of a tracked
+    frame of the bf16 run."""
+    import tempfile
+
+    import torch
+
+    from airslam_tpu_torch.io.serialization import load_map, save_map
+    from airslam_tpu_torch.io.trajectory import ate_rmse, load_tum
+
+    cam, frames, rec = vo_oracle()
+    n = len(frames)
+    gt = list(zip(rec["timestamps"], rec["gt_Twc"]))
+    counted = _counted()
+    frame_launches = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        gates = VO_GATES[label]
+        with _no_tf32(label):
+            builder = tracking_builder(cam, dtype, dev, identity_rectify=True, use_flash=True)
+            ba_frames, ba_ms = [], []
+            builder.map.on_local_ba = lambda f: ba_frames.append(f.frame_id)
+            for fn in counted.values():
+                fn.launches = 0
+            rows, out = _run_vo(builder, frames, rec, timed_ba=ba_ms)
+            totals = {k: fn.launches for k, fn in counted.items()}
+        m = builder.map
+        poses = np.stack([f.Twc for f in out])
+        dt = np.abs(poses[:, :3, 3] - rec["Twc"][:, :3, 3]).max(axis=1)
+        dR = np.abs(poses[:, :3, :3] - rec["Twc"][:, :3, :3]).reshape(n, -1).max(axis=1)
+        _require(builder.init and len(builder.trajectory) == n and bool(np.isfinite(poses).all()),
+                 f"VO {label}: {len(builder.trajectory)} of {n} frames tracked")
+        _require(float(dt.max()) <= gates["t"], f"VO {label}: a pose is {dt.max():.3e} m off")
+        n_pts = sum(p.is_valid for p in m.mappoints.values())
+        n_lns = sum(l.is_valid for l in m.maplines.values())
+        kf_Twc = np.stack([m.keyframes[f].Twc for f in m.keyframe_ids])
+        note = (f"keyframes={m.keyframe_ids}(oracle {rec['keyframe_ids'].tolist()}) "
+                f"max dt={dt.max():.2e}(<={gates['t']}) max dR={dR.max():.2e} "
+                f"mappoints={n_pts}(oracle {int(rec['n_mappoints'])}) "
+                f"maplines={n_lns}(oracle {int(rec['n_maplines'])})")
+        if label == "f32":
+            same_kf = m.keyframe_ids == rec["keyframe_ids"].tolist()
+            _require(same_kf, f"VO f32: {note}")
+            kdt = float(np.abs(kf_Twc[:, :3, 3] - rec["keyframe_Twc"][:, :3, 3]).max())
+            kdR = float(np.abs(kf_Twc[:, :3, :3] - rec["keyframe_Twc"][:, :3, :3]).max())
+            note += f" keyframes after the last BA: dt={kdt:.2e} dR={kdR:.2e}"
+            ok = (float(dR.max()) <= gates["R"] and kdt <= gates["t"] and kdR <= gates["R"]
+                  and abs(n_pts - int(rec["n_mappoints"])) <= gates["count_rel"] * rec["n_mappoints"]
+                  and abs(n_lns - int(rec["n_maplines"])) <= gates["count_rel"] * rec["n_maplines"])
+            _require(ok, f"VO f32 gates failed: {note}")
+        _require(ba_frames == m.keyframe_ids[1:] and len(ba_ms) == len(ba_frames),
+                 f"VO {label}: local BA ran for {ba_frames}, keyframes {m.keyframe_ids}")
+        # launches: a tracked frame, and the whole run (the first frame has no
+        # pose-only solve; every frame is one LightGlue pass of 36 calls)
+        plain_rows = [r for r in rows[1:] if not r[2]]
+        _require(all(r[1] == FRAME_LAUNCHES for r in rows[1:]),
+                 f"VO {label}: a tracked frame launched {[r[1] for r in rows[1:]]}, "
+                 f"not {FRAME_LAUNCHES}")
+        want_totals = {k: v * n for k, v in FRAME_LAUNCHES.items()}
+        want_totals["pose_only_fast"] = n - 1
+        _require(totals == want_totals, f"VO {label}: the run launched {totals}")
+        frame_launches[label] = plain_rows[0][1]
+
+        with tempfile.TemporaryDirectory() as tmp:
+            traj_path = os.path.join(tmp, "trajectory_v0.txt")
+            builder.save_trajectory(traj_path)
+            builder.save_keyframe_trajectory(os.path.join(tmp, "keyframes.txt"))
+            m.check_map()
+            save_map(m, os.path.join(tmp, "AirSLAM_mapv0.bin"))
+            back, _ = load_map(os.path.join(tmp, "AirSLAM_mapv0.bin"), device=dev)
+            traj = load_tum(traj_path)
+        _require(back.keyframe_ids == m.keyframe_ids and len(back.mappoints) == len(m.mappoints)
+                 and np.array_equal(back.keyframes[m.keyframe_ids[-1]].Twc, kf_Twc[-1])
+                 and len(traj) == n
+                 and float(np.abs(traj[-1][1] - builder.trajectory[-1][1]).max()) < 1e-6,
+                 f"VO {label}: the saved map or trajectory did not read back")
+        kf_rows = [r[0] for r in rows[2:] if r[2]]  # frame 1 carries the first-use costs
+        print(f"VO {label} (use_flash): {note}; ATE={ate_rmse(builder.trajectory, gt):.4e} m; "
+              f"tracked frame ms={np.median([r[0] for r in plain_rows]):.3f} "
+              f"keyframe frame ms={np.median(kf_rows):.3f} "
+              f"local_ba ms={[round(t, 1) for t in ba_ms]}; "
+              f"frame launches={frame_launches[label]} run launches={totals}")
+
+    # the frame with and without the fused attention, in turns inside one
+    # call (the first run of each builder warms it up and is not counted)
+    with _no_tf32("bf16"):
+        per = {True: [], False: []}
+        for use_flash in (False, True, True, False):
+            builder = tracking_builder(cam, torch.bfloat16, dev, identity_rectify=True,
+                                       use_flash=use_flash)
+            _run_vo(builder, frames[:3], rec)
+            for _ in range(2):  # five frames: two tracked without an insertion
+                rows, _ = _run_vo(tracking_builder_like(builder), frames[:5], rec)
+                per[use_flash] += [r[0] for r in rows[1:] if not r[2]]
+    print("VO bf16 tracked frame, wall ms, median of "
+          f"{len(per[True])} frames each: use_flash={np.median(per[True]):.3f} "
+          f"mha={np.median(per[False]):.3f}")
+    return frame_launches["bf16"]
+
+
+def tracking_builder_like(builder):
+    """A fresh ``MapBuilder`` on ``builder``'s camera, detector and matcher
+    (the networks stay loaded and warm)."""
+    from airslam_tpu_torch.pipelines.map_builder import MapBuilder
+
+    return MapBuilder(builder.camera, builder.detector, builder.matcher, device=builder.device)
 
 
 def _outputs_np(out):
@@ -792,7 +1077,13 @@ def phase_path(dev, steps, builders, frames, grids_np):
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="", help="comma-separated subset, for a short run")
+    only = set(filter(None, ap.parse_args().phases.split(",")))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -819,16 +1110,31 @@ def main() -> int:
                 print(f"  ptxas {name}: {ln.strip()}")
 
     grids_np = euroc_grids()
+    if only:
+        frames, refs = oracle_pairs()
+        short = {"r": lambda: phase_kernel_r(dev, grids_np), "b": lambda: phase_kernel_bt(dev, "B"),
+                 "t": lambda: phase_kernel_bt(dev, "T"), "p": lambda: phase_kernel_p(dev),
+                 "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev)}
+        for name in short:
+            if name in only:
+                short[name]()
+        if "path" in only:
+            phase_path(dev, phase_slice(dev, frames, refs), phase_tracking(dev, frames),
+                       frames, grids_np)
+        else:
+            if "slice" in only:
+                phase_slice(dev, frames, refs)
+            if "tracking" in only:
+                phase_tracking(dev, frames)
+        print(f"chip_smoke: phases {sorted(only)} ran; no result line for a partial run")
+        return 3
     kernels = [phase_kernel_r(dev, grids_np), phase_kernel_bt(dev, "B"),
-               phase_kernel_bt(dev, "T"), phase_kernel_p(dev)]
-    fb = flash_attention_bound()
-    print("kernel F (still to port; computed from the code, not measured): "
-          f"launches_per_match={fb['launches_per_match']} "
-          + " ".join(f"{k}: bound_ms={fb[k][0]:.6f} ({fb[k][1]})" for k in ("bf16", "f32")))
+               phase_kernel_bt(dev, "T"), phase_kernel_p(dev), phase_kernel_f(dev)]
     frames, refs = oracle_pairs()
     steps = phase_slice(dev, frames, refs)
     builders = phase_tracking(dev, frames)
-    launches = phase_path(dev, steps, builders, frames, grids_np)
+    phase_path(dev, steps, builders, frames, grids_np)
+    launches = phase_vo(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

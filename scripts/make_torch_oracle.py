@@ -21,7 +21,19 @@ the map through ``add_input``; pairs 1 and 2 are tracked against keyframe 0
 PnP pose fed to the pose-only solve, the pose after it, ``num_inliers``, the
 inlier flags, the keyframe decision and the line matches; no descriptors.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking]
+VO oracle
+---------
+``N_VO`` frames of the same rendered sequence (the first three are the pairs
+above) through the JAX ``MapBuilder.add_input`` on the CPU: float32 networks,
+float64 geometry, ``use_flash=False``. Initialisation, per-frame tracking,
+keyframe insertions with triangulation and the sliding-window local BA.
+``tests/data/torch_vo_oracle.npz`` keeps the frames as uint8, the ground-truth
+poses, per frame the pose at the time the frame was tracked, the PnP result,
+the inlier count and whether the frame became a keyframe, then the final
+trajectory, the keyframe ids and poses after the last BA, and the counts of
+valid mappoints and maplines.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -45,7 +57,9 @@ OUT_TRACKING = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz")
 CAMERA = {"fx": 450.0, "fy": 450.0, "cx": 376.0, "cy": 240.0, "baseline": 0.11,
           "depth_lower_thr": 0.5, "depth_upper_thr": 25.0, "max_y_diff": 2.0,
           "image_height": 480, "image_width": 752}
+OUT_VO = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 N_PAIRS = 3
+N_VO = 8  # frames of the VO sequence: at least three keyframes after the first
 FRAME_SEED = 3
 # entry() tuple slots the metrics need: kp0, kp1, idx1, lines0, line_mask0,
 # kp_mask0, junctions (both views), junction mask (both views)
@@ -163,6 +177,55 @@ def write_tracking_oracle():
     print(f"oracle written: {OUT_TRACKING} ({os.path.getsize(OUT_TRACKING)} bytes)")
 
 
+def write_vo_oracle():
+    from apps.benchmark_system import make_sequence
+
+    ts, L, R, gt = make_sequence(N_VO, 480, 752, seed=FRAME_SEED, texture=0.1)
+    frames_u8 = np.clip(np.rint(np.stack([L, R], axis=1) * 255.0), 0, 255).astype(np.uint8)
+    frames = frames_u8.astype(np.float32) / np.float32(255.0)
+    builder = jax_builder()
+    seen = {}
+    solve_pnp, pose_only = builder._solve_pnp, builder._pose_only
+
+    def solve_pnp_spy(cur, matched):
+        seen["pnp"] = solve_pnp(cur, matched)
+        return seen["pnp"]
+
+    def pose_only_spy(cur, matched, imu_ref=None):
+        seen["n_in"] = pose_only(cur, matched, imu_ref)
+        return seen["n_in"]
+
+    builder._solve_pnp, builder._pose_only = solve_pnp_spy, pose_only_spy
+    blob = {"camera_" + k: np.float64(v) for k, v in CAMERA.items()}
+    blob.update(frames_u8=frames_u8, timestamps=np.asarray(ts, np.float64),
+                gt_Twc=np.stack(gt))
+    Twc, inliers, pnp_Twc, pnp_inliers, is_kf = [], [], [], [], []
+    for i in range(N_VO):
+        seen.clear()
+        n_kf = len(builder.map.keyframe_ids)
+        frame = builder.add_input(float(ts[i]), frames[i][0], frames[i][1])
+        Twc.append(frame.Twc.copy())
+        inliers.append(seen["n_in"][0] if "n_in" in seen else -1)
+        pnp_Twc.append(np.asarray(seen["pnp"][0]) if "pnp" in seen else np.eye(4))
+        pnp_inliers.append(seen["pnp"][1] if "pnp" in seen else -1)
+        is_kf.append(len(builder.map.keyframe_ids) > n_kf)
+        print(f"frame {i}: inliers={inliers[-1]} keyframe={is_kf[-1]} t={frame.Twc[:3, 3]}")
+    m = builder.map
+    blob.update(
+        Twc=np.stack(Twc), num_inliers=np.asarray(inliers, np.int32),
+        pnp_Twc=np.stack(pnp_Twc), pnp_inliers=np.asarray(pnp_inliers, np.int32),
+        is_keyframe=np.asarray(is_kf), trajectory=np.stack([T for _, T in builder.trajectory]),
+        keyframe_ids=np.asarray(m.keyframe_ids, np.int32),
+        keyframe_Twc=np.stack([m.keyframes[f].Twc for f in m.keyframe_ids]),
+        n_mappoints=np.int32(sum(p.is_valid for p in m.mappoints.values())),
+        n_maplines=np.int32(sum(l.is_valid for l in m.maplines.values())))
+    print(f"keyframes={m.keyframe_ids} mappoints={blob['n_mappoints']} "
+          f"maplines={blob['n_maplines']}")
+    assert len(m.keyframe_ids) >= 4, "fewer than three keyframes after the first"
+    np.savez_compressed(OUT_VO, **blob)
+    print(f"oracle written: {OUT_VO} ({os.path.getsize(OUT_VO)} bytes)")
+
+
 def write_frontend_oracle():
     import jax
     import jax.numpy as jnp
@@ -202,6 +265,8 @@ def main():
         write_frontend_oracle()
     if which in ("all", "tracking"):
         write_tracking_oracle()
+    if which in ("all", "vo"):
+        write_vo_oracle()
 
 
 if __name__ == "__main__":

@@ -377,8 +377,9 @@ def test_plain_lines_only_vs_jax():
 
 
 def test_pose_only_optimization_dispatch():
-    """A CPU problem runs the kernel's plain version; what the slice leaves
-    out raises and names where it belongs."""
+    """A CPU problem with one frame runs the kernel's plain version and one
+    with two frames the general dense solver; what the port leaves out raises
+    and names where it belongs."""
     _, _, ours, intr, _ = _both(5)
     launches = pose_gn.pose_only_fast.launches
     got = windows.pose_only_optimization(ours, intr, gn.BAConfig())
@@ -388,8 +389,17 @@ def test_pose_only_optimization_dispatch():
     assert pose_gn.pose_only_fast.launches == launches  # no kernel launch on the CPU
 
     two = ours._replace(frames=gn.FrameStates(*(torch.cat([a, a]) for a in ours.frames)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        windows.pose_only_optimization(two, intr)
+    def pad(t):  # a second frame that observes nothing
+        return torch.cat([t, torch.zeros_like(t)], dim=1)
+
+    out2 = windows.pose_only_optimization(two._replace(
+        pose_fixed=torch.tensor([False, True]), vel_fixed=torch.ones(2, dtype=torch.bool),
+        point_obs=pad(ours.point_obs), point_obs_mask=pad(ours.point_obs_mask),
+        line_obs=pad(ours.line_obs), line_obs_stereo=pad(ours.line_obs_stereo),
+        line_obs_mask=pad(ours.line_obs_mask),
+        line_obs_sigma=torch.cat([ours.line_obs_sigma] * 2, dim=1)), intr)
+    assert out2[1].shape == (ours.points.shape[0], 2) and int(out2[3]) == int(want[3])
+    assert float((out2[0].frames.twb[0] - want[0].frames.twb[0]).abs().max()) < 1e-6
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         windows.pose_only_optimization(ours._replace(imu=object()), intr)
     with pytest.raises(ValueError, match="F=1"):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (R, B, T, P) against their plain PyTorch versions.
+"""The port's CUDA kernels (R, B, T, P, F) against their plain PyTorch versions.
 
 The kernel tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 without one. Where JAX (which ``tests/conftest.py`` imports) is not
@@ -14,7 +14,7 @@ import torch
 
 import chip_smoke
 from airslam_tpu_torch.backend import gn, pose_gn
-from airslam_tpu_torch.ops import bilerp, remap
+from airslam_tpu_torch.ops import attention, bilerp, remap
 from airslam_tpu_torch.ops.gridsample import remap as remap_plain
 
 torch.set_num_threads(2)
@@ -140,3 +140,56 @@ def test_wrappers_refuse_non_cuda_devices():
             fn(fmap, pts, pts)
     with pytest.raises(ValueError, match="CUDA"):
         remap.remap(torch.empty((8, 8), device="meta"), torch.empty((8, 8, 2), device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,h,nq,nk,d,n_valid,dead", [
+    ((2,), 4, 400, 400, 64, 388, None),   # the path's shape
+    ((), 4, 1024, 1024, 64, 1000, None),  # the engine's limit, unbatched
+    ((3,), 2, 77, 300, 32, 290, None),    # odd sizes, the other head dimension
+    ((2,), 4, 130, 65, 64, 60, 1),        # one batch entry with every key masked
+], ids=["path", "1024", "odd", "all-masked"])
+@pytest.mark.parametrize("types", ["f32", "bf16", "mixed"])
+def test_flash_kernel_equals_plain(dev, lead, h, nq, nk, d, n_valid, dead, types):
+    """f32 ≤ 1e-5 abs (sum orders); with bf16 anywhere ≤ 2e-2 of the output's
+    max (p is rounded against the running maximum); two runs bit-equal; the
+    inputs are the strided views LightGlue hands over."""
+    tq, tv = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+              "mixed": (torch.float32, torch.bfloat16)}[types]
+    rng = np.random.RandomState(0)
+    q, k, v, mask = chip_smoke._attention_inputs(rng, lead, h, nq, nk, d, tq, tv, dev,
+                                                 n_valid, dead)
+    assert not q.is_contiguous()
+    before = attention.flash_mha.launches
+    got = attention.flash_mha(q, k, v, mask)
+    assert attention.flash_mha.launches == before + 1
+    again = attention.flash_mha(q, k, v, mask)
+    want = attention.flash_mha_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == want.shape and torch.equal(got, again)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-5 if types == "f32" else 2e-2 * float(want.float().abs().max())
+    assert err <= tol
+    if dead is not None:
+        mean_v = v[dead].float().mean(dim=-2, keepdim=True).expand_as(got[dead])
+        assert float((got[dead].float() - mean_v).abs().max()) <= (1e-5 if types == "f32" else 2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_without_mask_and_with_a_contiguous_copy(dev):
+    rng = np.random.RandomState(1)
+    q, k, v, _ = chip_smoke._attention_inputs(rng, (2,), 4, 200, 210, 64, torch.float32,
+                                              torch.float32, dev)
+    got = attention.flash_mha(q, k, v)
+    same = attention.flash_mha(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    assert float((got - attention.mha(q, k, v)).abs().max()) <= 1e-5
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    """Runs anywhere: a tensor on neither the CPU nor a CUDA device raises
+    before any build, and never goes down the plain path."""
+    q = torch.zeros(2, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        attention.flash_mha(q, q, q)

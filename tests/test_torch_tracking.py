@@ -401,20 +401,27 @@ def test_tracking_slice_vs_jax_real_pnp(jax_side, port_initialised, frames):
 
 
 def test_track_features_stops_at_the_second_keyframe(jax_side, port_initialised):
-    """``track_features`` runs the whole per-frame logic; the second frame
-    becomes a keyframe, whose insertion needs the window backend: it raises
-    and names the slice, and the map keeps its one keyframe."""
+    """``track_features`` runs the whole per-frame logic and no longer stops:
+    the second frame becomes the second keyframe, its insertion runs the
+    local BA, and the pose lands on the stored JAX VO run's (1e-3 m: f32
+    against f64 geometry). What still waits raises and names its queue."""
     builder = port_initialised(torch.float32)
     f0, f1, stereo, temporal = jax_side[3][1]
     n_before = len(builder._trajectory)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        builder.track_features(0.05, f0, f1, stereo, temporal_matches=temporal)
-    assert len(builder.map.keyframes) == 1 and len(builder._trajectory) == n_before + 1
+    ran = []
+    builder.map.on_local_ba = lambda f: ran.append(f.frame_id)
+    frame = builder.track_features(0.05, f0, f1, stereo, temporal_matches=temporal)
+    assert builder.map.keyframe_ids == [0, frame.frame_id] and ran == [frame.frame_id]
+    assert builder.last_keyframe is frame and frame.previous_frame.frame_id == 0
+    assert len(builder._trajectory) == n_before + 1
     ts, Twc = builder.trajectory[-1]
-    assert ts == 0.05 and np.isfinite(Twc).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        builder.map.local_map_optimization(builder.last_keyframe)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    assert ts == 0.05 and np.array_equal(Twc, frame.Twc)
+    vo = np.load(chip_smoke.VO_ORACLE)
+    assert bool(vo["is_keyframe"][1])
+    np.testing.assert_allclose(frame.Twc[:3, 3], vo["Twc"][1][:3, 3], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(frame.Twc[:3, :3], vo["Twc"][1][:3, :3], rtol=0, atol=1e-3)
+    builder.map.check_map()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
         builder._solve_pnp_jax(None, [])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         builder._pose_only(builder.last_keyframe, [], imu_ref=builder.last_keyframe)

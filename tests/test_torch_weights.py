@@ -138,20 +138,23 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No file of the port, and not chip_smoke.py, imports jax, flax or the
-    JAX package."""
+    """No file of the port, and not chip_smoke.py nor the port's CLI, imports
+    jax, flax or the JAX package."""
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "profile_torch_frontend.py")]
+             os.path.join(REPO, "scripts", "profile_torch_frontend.py"),
+             os.path.join(REPO, "apps", "visual_odometry_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "airslam_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     walked = {os.path.relpath(f, os.path.join(REPO, "airslam_tpu_torch")) for f in files}
-    # every module of the tracking slice is among the walked files
-    for mod in ("core/lie.py", "backend/residuals.py", "backend/gn.py", "backend/windows.py",
+    # every module of the tracking and VO slices is among the walked files
+    for mod in ("ops/attention.py", "backend/triangulate.py", "io/config.py", "io/dataset.py",
+                "io/publisher.py", "io/serialization.py", "io/trajectory.py",
+                "core/lie.py", "backend/residuals.py", "backend/gn.py", "backend/windows.py",
                 "backend/pose_gn.py", "models/superpoint.py", "frontend/lines.py",
                 "slam/landmarks.py", "slam/frame.py", "slam/map.py",
                 "pipelines/map_builder.py", "entry.py"):
         assert mod in walked, mod
-    assert len(files) > 30
+    assert len(files) > 37
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -230,10 +230,24 @@ def _fns():
     fn, smem = lib.airslam_pose_gn, lib.airslam_pose_gn_smem_bytes
     ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     fn.argtypes = ([ptr] * 3 + [i32] + [ptr] * 5 + [i32] + [ptr] * 5 + [f32] * 11
-                   + [i32] * 3 + [ptr] * 5)
+                   + [i32] * 3 + [ptr] * 4 + [i32, ptr])
     fn.restype = i32
     smem.argtypes, smem.restype = [i32, i32], i32
     return fn, smem
+
+
+def kernel_attributes(threads: int = 0, npts: int = 256, nlns: int = 1) -> dict:
+    """What the compiler gave the kernel's instantiation for a block of
+    ``threads`` (0: the default), with the dynamic shared memory of a
+    problem of ``npts`` points and ``nlns`` lines (``cudaFuncGetAttributes``)."""
+    fn = cuda_build.library("pose_gn").airslam_pose_gn_attributes
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(threads, npts, nlns, out)
+    if err:
+        raise RuntimeError(f"pose_only_fast attributes: CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "threads"), out))
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -244,13 +258,57 @@ def _flag(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.bool and t.is_contiguous() else t.bool().contiguous()
 
 
+def _operands(problem: gn.BAProblem) -> list:
+    """The kernel's 13 operands in its order and types: no-ops for a float32
+    problem (the builder's template), so every one is read where the problem
+    keeps it."""
+    return [_f32(problem.points), _f32(problem.point_obs), _flag(problem.point_obs_mask),
+            _f32(problem.lines), _f32(problem.line_obs), _flag(problem.line_obs_stereo),
+            _flag(problem.line_obs_mask), _f32(problem.line_obs_sigma),
+            _f32(problem.frames.Rwb), _f32(problem.frames.twb), _flag(problem.pose_fixed),
+            _f32(problem.Rcb), _f32(problem.tcb)]
+
+
+def _launch(ops: list, npts: int, nlns: int, n_problems: int, intr, cfg: gn.BAConfig,
+            rounds: int, iters: int, threads: int = 0):
+    """One launch over ``n_problems`` problems of ``npts`` points and
+    ``nlns`` lines whose operands (:func:`_operands`, every array but Rcb and
+    tcb stacked on a leading axis) lie on one CUDA device. Returns pose
+    (n, 12) float32, point and line inlier flags (n, npts), (n, nlns) and
+    counts (n,) int32."""
+    from airslam_tpu_torch.backend.windows import POSE_LM_LAM0, POSE_LM_NU0
+
+    if threads not in (0, 64, 128, 256):
+        raise ValueError(f"pose_only_fast: threads={threads} (0, 64, 128 or 256)")
+    launch, smem_bytes = _fns()
+    smem = smem_bytes(npts, nlns)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"pose_only_fast: {npts} points and {nlns} lines need {smem} bytes "
+                         f"of shared memory (> {MAX_SHARED_BYTES})")
+    dev = ops[0].device
+    pose = torch.empty((n_problems, 12), dtype=torch.float32, device=dev)
+    pin = torch.empty((n_problems, npts), dtype=torch.bool, device=dev)
+    lin = torch.empty((n_problems, nlns), dtype=torch.bool, device=dev)
+    count = torch.empty(n_problems, dtype=torch.int32, device=dev)
+    p = [a.data_ptr() for a in ops]
+    with torch.cuda.device(dev):
+        err = launch(p[0], p[1], p[2], npts, p[3], p[4], p[5], p[6], p[7], nlns,
+                    p[8], p[9], p[10], p[11], p[12],
+                    float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy),
+                    float(intr.bf), cfg.mono_point, cfg.stereo_point, cfg.mono_line,
+                    cfg.stereo_line, POSE_LM_LAM0, POSE_LM_NU0, rounds, iters, n_problems,
+                    pose.data_ptr(), pin.data_ptr(), lin.data_ptr(), count.data_ptr(), threads,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"pose_only_fast kernel launch failed: CUDA error {err}")
+    return pose, pin, lin, count
+
+
 def pose_only_fast(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConfig(),
                    rounds: int = 3, iters: int = 10):
     """Kernel P: solve the F=1 vision pose-only problem. A CPU problem runs
     the plain version; a CUDA problem is ONE kernel launch (float32, on the
     current stream, no synchronisation) and counts it."""
-    from airslam_tpu_torch.backend.windows import POSE_LM_LAM0, POSE_LM_NU0
-
     if problem.imu is not None or problem.frames.Rwb.shape[0] != 1:
         raise ValueError("pose_only_fast solves the F=1 problem without IMU factors")
     if rounds < 1 or iters < 0:
@@ -270,37 +328,12 @@ def pose_only_fast(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConfig()
             or problem.lines.shape != (nlns, 6) or problem.points.shape != (npts, 3)):
         raise ValueError("pose_only_fast: points (P, 3), point_obs (P, 1, 3), lines (L, 6), "
                          "line_obs (L, 1, 8) expected")
-    launch, smem_bytes = _fns()
-    smem = smem_bytes(npts, nlns)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"pose_only_fast: {npts} points and {nlns} lines need {smem} bytes "
-                         f"of shared memory (> {MAX_SHARED_BYTES})")
-    pose = torch.empty(12, dtype=torch.float32, device=dev)
-    inl = torch.empty(npts + nlns, dtype=torch.bool, device=dev)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
-    # every operand is read where the problem keeps it; these are no-ops for
-    # a float32 problem (the builder's template)
-    args = [_f32(problem.points), _f32(problem.point_obs), _flag(problem.point_obs_mask),
-            _f32(problem.lines), _f32(problem.line_obs), _flag(problem.line_obs_stereo),
-            _flag(problem.line_obs_mask), _f32(problem.line_obs_sigma),
-            _f32(problem.frames.Rwb), _f32(problem.frames.twb), _flag(problem.pose_fixed),
-            _f32(problem.Rcb), _f32(problem.tcb)]
-    p = [a.data_ptr() for a in args]
-    with torch.cuda.device(dev):
-        err = launch(p[0], p[1], p[2], npts, p[3], p[4], p[5], p[6], p[7], nlns,
-                    p[8], p[9], p[10], p[11], p[12],
-                    float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy),
-                    float(intr.bf), cfg.mono_point, cfg.stereo_point, cfg.mono_line,
-                    cfg.stereo_line, POSE_LM_LAM0, POSE_LM_NU0, rounds, iters, 1,
-                    pose.data_ptr(), inl.data_ptr(), inl.data_ptr() + npts,
-                    count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"pose_only_fast kernel launch failed: CUDA error {err}")
+    pose, pin, lin, count = _launch(_operands(problem), npts, nlns, 1, intr, cfg, rounds, iters)
     pose_only_fast.launches += 1
     dtype = problem.points.dtype
     out = problem._replace(frames=problem.frames._replace(
-        Rwb=pose[0:9].view(1, 3, 3).to(dtype), twb=pose[9:12].view(1, 3).to(dtype)))
-    return out, inl[:npts, None], inl[npts:, None], count[0]
+        Rwb=pose[0, 0:9].view(1, 3, 3).to(dtype), twb=pose[0, 9:12].view(1, 3).to(dtype)))
+    return out, pin[0, :, None], lin[0, :, None], count[0]
 
 
 pose_only_fast.launches = 0

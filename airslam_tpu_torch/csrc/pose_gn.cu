@@ -13,19 +13,36 @@
 //
 // What bounds it on an H100: neither bytes nor operations (about 27 KB of
 // operands and well under a megaflop per iteration) but latency: a chain of
-// rounds·iters dependent iterations, each with two block-wide reductions.
-// The design keeps that chain inside one thread block per problem
-// (blockIdx.x is the problem index): operands are staged once into shared
-// memory, thread i owns point rows i, i+256, … and line rows from the other
-// end of the block, the 21 upper entries of H and the 6 of b are reduced by
-// warp shuffles and then across the 8 warps through shared memory, and every
-// thread then sums the 8 partials in the same order, so all threads hold the
-// same H, b, pose, λ, ν and cost in registers and run the 6×6 solve, the
-// retraction and the accept redundantly with no broadcast. The reduction
-// order is fixed: two runs give the same bits. Global memory is read once
-// and written once; nothing returns to the host inside the solve.
-//
-// Arithmetic: IEEE sqrtf and division, sinf/cosf, no fast-math. FMA
+// dependent block-wide reductions. The design keeps that chain inside one
+// thread block per problem (blockIdx.x is the problem index) and keeps it
+// short:
+// - one walk over the rows per pose: at every pose the solve evaluates, the
+//   Huber cost and the undamped H, b come out of the same pass as 28 sums
+//   reduced together. A trial that is accepted hands its H, b to the next
+//   iteration; a rejected one leaves the previous H, b, which belong to the
+//   same pose and so are the same numbers. A round is one pass at its start
+//   pose plus one per iteration, and the whole solve rounds·(iters+1)+1
+//   reductions (34 at 3 × 10);
+// - one __syncthreads per reduction: the shared scratch is double-buffered,
+//   the 28 sums go down each warp by shuffles, and after the barrier lane i
+//   of every warp adds column i of the kWarps partials in warp order and the
+//   28 totals reach the other lanes by shuffle (no second barrier, 8 shared
+//   reads per lane);
+// - operands staged once into shared memory; thread i owns point rows i,
+//   i+NT, … and line rows from the other end of the block; every thread
+//   holds the same H, b, pose, λ, ν and cost in registers and runs the 6×6
+//   solve (one reciprocal per pivot), the retraction (sincosf) and the
+//   accept redundantly, with no broadcast. The reduction order is fixed: two
+//   runs give the same bits. Global memory is read once and written once;
+//   nothing returns to the host inside the solve. The block size NT is a
+//   template parameter (64, 128 or 256 threads; 256, the fastest in
+//   chip_smoke.py's sweep at both shapes, is the default);
+// - a link's time is its longest thread's rows, and the longest row is a
+//   line's: its Jacobian would divide by the guarded norms 60 times, so it
+//   takes one reciprocal per norm and multiplies (the residuals and the cost
+//   keep their divisions).
+
+// Arithmetic: IEEE sqrtf and division, sincosf, no fast-math. FMA
 // contraction is left ON (nvcc's default): the accept test compares f32 sums
 // whose order already differs from the plain version's tensor reductions, so
 // bit-equality with it is out of reach with or without contraction, and a
@@ -43,9 +60,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 27;  // 21 upper entries of H + 6 of b
+constexpr int kDefaultThreads = 256;  // block size of a launch that names none
+constexpr int kMaxWarps = 8;           // warps of the largest block (256 threads)
+constexpr int kAcc = 28;  // 21 upper entries of H + 6 of b + the robust cost
 constexpr float kEps = 1e-4f;  // lie._EPS (IMU_EPS, include/imu.h:20)
 
 struct V3 {
@@ -118,8 +135,10 @@ __device__ __forceinline__ void so3_exp(V3 v, float* E) {
   float theta = sqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
   bool small = theta < kEps;
   float st = small ? 1.0f : theta;
-  float a = small ? 1.0f : sinf(st) / st;
-  float b = small ? 0.5f : (1.0f - cosf(st)) / (st * st);
+  float sn, cs;
+  sincosf(st, &sn, &cs);
+  float a = small ? 1.0f : sn / st;
+  float b = small ? 0.5f : (1.0f - cs) / (st * st);
   float O[9] = {0.0f, -v.z, v.y, v.z, 0.0f, -v.x, -v.y, v.x, 0.0f};
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -130,9 +149,10 @@ __device__ __forceinline__ void so3_exp(V3 v, float* E) {
     }
 }
 
-// gn.solve_spd_small for n = 6: unrolled Cholesky, forward and back solves
+// gn.solve_spd_small for n = 6: unrolled Cholesky, forward and back solves,
+// with one reciprocal per pivot (multiplied where the plain version divides)
 __device__ __forceinline__ void chol_solve6(const float (*H)[6], const float* b, float* x) {
-  float L[6][6];
+  float L[6][6], inv[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
     float s = H[j][j];
@@ -140,13 +160,13 @@ __device__ __forceinline__ void chol_solve6(const float (*H)[6], const float* b,
     for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
     float d = sqrtf(s);
     L[j][j] = d;
-    float inv = 1.0f / d;
+    inv[j] = 1.0f / d;
 #pragma unroll
     for (int i = j + 1; i < 6; ++i) {
       float t = H[i][j];
 #pragma unroll
       for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
-      L[i][j] = t * inv;
+      L[i][j] = t * inv[j];
     }
   }
   float y[6];
@@ -155,14 +175,14 @@ __device__ __forceinline__ void chol_solve6(const float (*H)[6], const float* b,
     float s = b[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = s * inv[i];
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
 #pragma unroll
     for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    x[i] = s * inv[i];
   }
 }
 
@@ -174,27 +194,35 @@ __device__ __forceinline__ float huber_cost(float chi2, float d2, float active) 
   return active > 0.5f ? (chi2 <= d2 ? chi2 : lin) : 0.0f;
 }
 
-// Sum N per-thread values over the block in a fixed order; every thread ends
-// with the same totals. `red` holds kWarps·N floats.
-template <int N>
-__device__ __forceinline__ void block_sum(float* acc, float* red) {
+// Sum N ≤ 32 per-thread values over the block in a fixed order; every thread
+// ends with the same totals. `red` holds 2·kMaxWarps·N floats, used in turns
+// (`phase`): a thread reaches the next reduction's writes to one half only
+// after the barrier of the reduction between, which every reader of that half
+// passed after its reads, so one barrier per reduction is enough.
+template <int NT, int N>
+__device__ __forceinline__ void block_sum(float* acc, float* red, int& phase) {
+  static_assert(N <= 32, "one lane per total");
+  constexpr int kWarps = NT / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* buf = red + phase * (kMaxWarps * N);
+  phase ^= 1;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     float v = acc[i];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp * N + i] = v;
+    if (lane == 0) buf[warp * N + i] = v;
   }
   __syncthreads();
+  // lane i adds column i over the warps, in warp order
+  float tot = 0.0f;
+  if (lane < N) {
+    tot = buf[lane];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = red[i];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += red[w * N + i];
-    acc[i] = s;
+    for (int w = 1; w < kWarps; ++w) tot += buf[w * N + lane];
   }
-  __syncthreads();  // `red` is free for the next reduction
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = __shfl_sync(0xffffffffu, tot, i);
 }
 
 // One problem's operands in shared memory (structure of arrays).
@@ -286,25 +314,6 @@ __device__ __forceinline__ float line_chi2(const LineRow& o, float m) {
   return (o.e0 * o.e0 * m + o.e1 * o.e1 * m + o.e2 * o.e2 * mst + o.e3 * o.e3 * mst) * o.sig;
 }
 
-// Robust cost of the active rows at `pose`, summed over the block.
-__device__ float cost_of(const Rows& s, const Cam& cam, const Pose& pose, const Params& prm,
-                         float* red) {
-  const CamPose cp = camera_of(cam, pose);
-  float c = 0.0f;
-  for (int i = threadIdx.x; i < s.np; i += kThreads) {
-    PointRow o = point_vals(s, i, cam, cp, prm);
-    float m = s.p_m[i];
-    c += huber_cost(point_chi2(o, m), o.thr, m);
-  }
-  for (int j = kThreads - 1 - threadIdx.x; j < s.nl; j += kThreads) {
-    LineRow o = line_vals(s, j, cam, cp, prm);
-    float m = s.l_m[j];
-    c += huber_cost(line_chi2(o, m), o.thr, m);
-  }
-  block_sum<1>(&c, red);
-  return c;
-}
-
 // acc[0..20] += w·JᵀJ (upper triangle, row-major), acc[21..26] += w·Jᵀr
 template <int R>
 __device__ __forceinline__ void accumulate(float* acc, float w, const float (*J)[R],
@@ -329,19 +338,24 @@ __device__ __forceinline__ void accumulate(float* acc, float w, const float (*J)
   }
 }
 
-// The undamped normal equations at `pose` over this thread's rows.
-__device__ void rows_jac(const Rows& s, const Cam& cam, const Pose& pose, const Params& prm,
-                         float pose_free, float* acc) {
+// One pass over this thread's rows at `pose`: the undamped normal equations
+// (acc[0..26]) and the robust cost of the active rows (acc[27]), the cost
+// summed in the order the separate cost pass used (points, then lines).
+template <int NT>
+__device__ void rows_eval(const Rows& s, const Cam& cam, const Pose& pose, const Params& prm,
+                          float pose_free, float* acc) {
   const CamPose cp = camera_of(cam, pose);
   const V3 tb = mtv(pose.R, pose.t);
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
 
-  for (int i = threadIdx.x; i < s.np; i += kThreads) {
+  for (int i = threadIdx.x; i < s.np; i += NT) {
     PointRow o = point_vals(s, i, cam, cp, prm);
     float m = s.p_m[i];
     float mst = m * o.st;
-    float w = huber_w(point_chi2(o, m), o.thr) * m;
+    float chi2 = point_chi2(o, m);
+    acc[27] += huber_cost(chi2, o.thr, m);
+    float w = huber_w(chi2, o.thr) * m;
     float dzi_dz = o.guard ? 0.0f : -o.zi * o.zi;
     V3 pb = mtv(pose.R, load3(s.P, s.np, i) - pose.t);  // body-frame point
     float rr[3] = {o.r0 * m, o.r1 * m, o.r2 * mst};
@@ -361,15 +375,21 @@ __device__ void rows_jac(const Rows& s, const Cam& cam, const Pose& pose, const 
     accumulate<3>(acc, w, J, rr);
   }
 
-  for (int j = kThreads - 1 - threadIdx.x; j < s.nl; j += kThreads) {
+  for (int j = NT - 1 - threadIdx.x; j < s.nl; j += NT) {
     LineRow o = line_vals(s, j, cam, cp, prm);
     const int nl = s.nl;
     float m = s.l_m[j];
     float mst = m * o.st;
-    float w = huber_w(line_chi2(o, m), o.thr) * m * o.sig;
+    float chi2 = line_chi2(o, m);
+    acc[27] += huber_cost(chi2, o.thr, m);
+    float w = huber_w(chi2, o.thr) * m * o.sig;
     V3 wb = mtv(pose.R, v3(s.LN[j], s.LN[nl + j], s.LN[2 * nl + j]));
     V3 db = mtv(pose.R, v3(s.LN[3 * nl + j], s.LN[4 * nl + j], s.LN[5 * nl + j]));
     float er[4] = {o.e0 * m, o.e1 * m, o.e2 * mst, o.e3 * mst};
+    // the Jacobian's divisions by the guarded norms as products with one
+    // reciprocal each (the residuals and the cost above keep theirs)
+    const float ins = 1.0f / o.ns, inrs = 1.0f / o.nrs;
+    const float inn = 1.0f / fmaxf(o.n, 1e-30f), innr = 1.0f / fmaxf(o.nr, 1e-30f);
     float J[6][4];
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
@@ -383,14 +403,14 @@ __device__ void rows_jac(const Rows& s, const Cam& cam, const Pose& pose, const 
         dwc = cross(neg(col(cam.Rcb, k - 3)), o.dc);
       }
       float dl0 = cam.fy * dwc.x, dl1 = cam.fx * dwc.y, dl2 = dot(cam.kv, dwc);
-      float dns = o.n < 1e-12f ? 0.0f : (o.l0 * dl0 + o.l1 * dl1) / fmaxf(o.n, 1e-30f);
-      float de0 = (o.lo[0] * dl0 + o.lo[1] * dl1 + dl2) / o.ns - o.e0 * dns / o.ns;
-      float de1 = (o.lo[2] * dl0 + o.lo[3] * dl1 + dl2) / o.ns - o.e1 * dns / o.ns;
+      float dns = o.n < 1e-12f ? 0.0f : (o.l0 * dl0 + o.l1 * dl1) * inn;
+      float de0 = (o.lo[0] * dl0 + o.lo[1] * dl1 + dl2) * ins - o.e0 * dns * ins;
+      float de1 = (o.lo[2] * dl0 + o.lo[3] * dl1 + dl2) * ins - o.e1 * dns * ins;
       V3 dwr = v3(dwc.x, dwc.y + cam.bb * dd.z, dwc.z - cam.bb * dd.y);
       float dm0 = cam.fy * dwr.x, dm1 = cam.fx * dwr.y, dm2 = dot(cam.kv, dwr);
-      float dnr = o.nr < 1e-12f ? 0.0f : (o.m0 * dm0 + o.m1 * dm1) / fmaxf(o.nr, 1e-30f);
-      float de2 = (o.lo[4] * dm0 + o.lo[5] * dm1 + dm2) / o.nrs - o.e2 * dnr / o.nrs;
-      float de3 = (o.lo[6] * dm0 + o.lo[7] * dm1 + dm2) / o.nrs - o.e3 * dnr / o.nrs;
+      float dnr = o.nr < 1e-12f ? 0.0f : (o.m0 * dm0 + o.m1 * dm1) * innr;
+      float de2 = (o.lo[4] * dm0 + o.lo[5] * dm1 + dm2) * inrs - o.e2 * dnr * inrs;
+      float de3 = (o.lo[6] * dm0 + o.lo[7] * dm1 + dm2) * inrs - o.e3 * dnr * inrs;
       J[k][0] = de0 * m * pose_free;
       J[k][1] = de1 * m * pose_free;
       J[k][2] = de2 * mst * pose_free;
@@ -400,7 +420,8 @@ __device__ void rows_jac(const Rows& s, const Cam& cam, const Pose& pose, const 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int NT>
+__global__ void __launch_bounds__(NT)
 pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
                const uint8_t* __restrict__ pmask, int np, const float* __restrict__ lines,
                const float* __restrict__ lobs, const uint8_t* __restrict__ lstereo,
@@ -410,6 +431,7 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
                const float* __restrict__ tcb, Params prm, float* __restrict__ pose_out,
                uint8_t* __restrict__ pin_out, uint8_t* __restrict__ lin_out,
                int* __restrict__ ninl_out) {
+  static_assert(NT % 32 == 0 && NT / 32 <= kMaxWarps, "block of whole warps, at most 256");
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int prob = blockIdx.x;
@@ -432,28 +454,28 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
   float* sLst = sLbase + nl;
   float* sLsig = sLst + nl;
   float* sLm = sLsig + nl;
-  float* red = sLm + nl;  // kWarps·kAcc
+  float* red = sLm + nl;  // 2·kMaxWarps·kAcc
 
   // stage the operands: (n, c) rows in global memory -> c planes of n
-  for (int idx = tid; idx < 3 * np; idx += kThreads) {
+  for (int idx = tid; idx < 3 * np; idx += NT) {
     int i = idx / 3, c = idx - 3 * i;
     sP[c * np + i] = points[idx];
     sOB[c * np + i] = pobs[idx];
   }
-  for (int i = tid; i < np; i += kThreads) {
+  for (int i = tid; i < np; i += NT) {
     float m = pmask[i] ? 1.0f : 0.0f;
     sPbase[i] = m;
     sPm[i] = m;
   }
-  for (int idx = tid; idx < 6 * nl; idx += kThreads) {
+  for (int idx = tid; idx < 6 * nl; idx += NT) {
     int j = idx / 6, c = idx - 6 * j;
     sLN[c * nl + j] = lines[idx];
   }
-  for (int idx = tid; idx < 8 * nl; idx += kThreads) {
+  for (int idx = tid; idx < 8 * nl; idx += NT) {
     int j = idx / 8, c = idx - 8 * j;
     sLO[c * nl + j] = lobs[idx];
   }
-  for (int j = tid; j < nl; j += kThreads) {
+  for (int j = tid; j < nl; j += NT) {
     float m = lmask[j] ? 1.0f : 0.0f;
     sLbase[j] = m;
     sLm[j] = m;
@@ -496,15 +518,15 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
 
   Pose pose = pose0;
   float n_in = 0.0f;
+  int phase = 0;  // which half of `red` the next reduction writes
   for (int round = 0; round < prm.rounds; ++round) {
     pose = pose0;
     float lam = prm.lam0, nu = prm.nu0;
-    float cost = cost_of(s, cam, pose, prm, red);
+    // H (upper), Jᵀr and the cost at `pose`
+    float acc[kAcc];
+    rows_eval<NT>(s, cam, pose, prm, pose_free, acc);
+    block_sum<NT, kAcc>(acc, red, phase);
     for (int it = 0; it < prm.iters; ++it) {
-      float acc[kAcc];
-      rows_jac(s, cam, pose, prm, pose_free, acc);
-      block_sum<kAcc>(acc, red);
-
       float H[6][6], b[6], dx[6];
       int idx = 0;
 #pragma unroll
@@ -536,13 +558,17 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
                                pose.R[3 * i + 2] * E[6 + j];
       trial.t = pose.t + mv(pose.R, v3(dx[3], dx[4], dx[5]));
 
-      float new_cost = cost_of(s, cam, trial, prm, red);
-      if (new_cost < cost) {  // uniform across the block
+      // the trial's cost, and its H and b for the next iteration if accepted
+      float tr[kAcc];
+      rows_eval<NT>(s, cam, trial, prm, pose_free, tr);
+      block_sum<NT, kAcc>(tr, red, phase);
+      if (tr[27] < acc[27]) {  // uniform across the block
         pose = trial;
         lam = lam / 3.0f;
         nu = 2.0f;
-        cost = new_cost;
-      } else {
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) acc[i] = tr[i];
+      } else {  // H and b at `pose` stay as they are
         lam = lam * nu;
         nu = nu * 2.0f;
       }
@@ -552,14 +578,14 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
     // masks of the rows it owns and is the only reader of them
     const CamPose cp = camera_of(cam, pose);
     n_in = 0.0f;
-    for (int i = tid; i < np; i += kThreads) {
+    for (int i = tid; i < np; i += NT) {
       PointRow o = point_vals(s, i, cam, cp, prm);
       float base = s.p_base[i];
       float in = (point_chi2(o, base) <= o.thr && o.pc.z > 0.0f && base > 0.5f) ? 1.0f : 0.0f;
       s.p_m[i] = in;
       n_in += in;
     }
-    for (int j = kThreads - 1 - tid; j < nl; j += kThreads) {
+    for (int j = NT - 1 - tid; j < nl; j += NT) {
       LineRow o = line_vals(s, j, cam, cp, prm);
       float base = s.l_base[j];
       float in = (line_chi2(o, base) <= o.thr && base > 0.5f) ? 1.0f : 0.0f;
@@ -568,9 +594,9 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
     }
   }
 
-  block_sum<1>(&n_in, red);  // counts up to np + nl are exact in f32
-  for (int i = tid; i < np; i += kThreads) pin_out[(size_t)prob * np + i] = s.p_m[i] > 0.5f;
-  for (int j = kThreads - 1 - tid; j < nl; j += kThreads)
+  block_sum<NT, 1>(&n_in, red, phase);  // counts up to np + nl are exact in f32
+  for (int i = tid; i < np; i += NT) pin_out[(size_t)prob * np + i] = s.p_m[i] > 0.5f;
+  for (int j = NT - 1 - tid; j < nl; j += NT)
     lin_out[(size_t)prob * nl + j] = s.l_m[j] > 0.5f;
   if (tid == 0) {
 #pragma unroll
@@ -582,16 +608,29 @@ pose_gn_kernel(const float* __restrict__ points, const float* __restrict__ pobs,
   }
 }
 
+using KernelFn = decltype(&pose_gn_kernel<256>);
+
+// the instantiation for a block of `threads` (0: the default), or null
+KernelFn kernel_for(int threads) {
+  switch (threads == 0 ? kDefaultThreads : threads) {
+    case 64: return pose_gn_kernel<64>;
+    case 128: return pose_gn_kernel<128>;
+    case 256: return pose_gn_kernel<256>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // Shared-memory bytes one problem of np points and nl lines needs.
 extern "C" int airslam_pose_gn_smem_bytes(int np, int nl) {
-  return (int)sizeof(float) * (8 * np + 18 * nl + kWarps * kAcc);
+  return (int)sizeof(float) * (8 * np + 18 * nl + 2 * kMaxWarps * kAcc);
 }
 
 // Launch on `stream`: `n_problems` problems of np points and nl lines each,
-// their arrays stacked along a leading axis; Rcb/tcb are shared. Returns the
-// CUDA error code of the launch (0 = success).
+// their arrays stacked along a leading axis; Rcb/tcb are shared; `threads`
+// is the block size (64, 128 or 256; 0 takes the default). Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int airslam_pose_gn(const void* points, const void* pobs, const void* pmask, int np,
                                const void* lines, const void* lobs, const void* lstereo,
                                const void* lmask, const void* lsigma, int nl, const void* Rwb,
@@ -600,20 +639,40 @@ extern "C" int airslam_pose_gn(const void* points, const void* pobs, const void*
                                float mono_point, float stereo_point, float mono_line,
                                float stereo_line, float lam0, float nu0, int rounds, int iters,
                                int n_problems, void* pose_out, void* pin_out, void* lin_out,
-                               void* ninl_out, void* stream) {
+                               void* ninl_out, int threads, void* stream) {
+  const KernelFn kernel = kernel_for(threads);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   Params prm{fx, fy, cx, cy, bf, mono_point, stereo_point, mono_line, stereo_line,
              lam0, nu0, rounds, iters};
   const int smem = airslam_pose_gn_smem_bytes(np, nl);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(pose_gn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pose_gn_kernel<<<n_problems, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<n_problems, threads == 0 ? kDefaultThreads : threads, smem, (cudaStream_t)stream>>>(
       (const float*)points, (const float*)pobs, (const uint8_t*)pmask, np, (const float*)lines,
       (const float*)lobs, (const uint8_t*)lstereo, (const uint8_t*)lmask, (const float*)lsigma, nl,
       (const float*)Rwb, (const float*)twb, (const uint8_t*)pose_fixed, (const float*)Rcb,
       (const float*)tcb, prm, (float*)pose_out, (uint8_t*)pin_out, (uint8_t*)lin_out,
       (int*)ninl_out);
   return (int)cudaGetLastError();
+}
+
+// What the compiler gave the block size's instantiation: out = {registers
+// per thread, static shared bytes, dynamic shared bytes for np points and nl
+// lines, local (spill) bytes per thread, threads per block}. Returns a CUDA
+// error code.
+extern "C" int airslam_pose_gn_attributes(int threads, int np, int nl, int* out) {
+  const KernelFn kernel = kernel_for(threads);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = airslam_pose_gn_smem_bytes(np, nl);
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = threads == 0 ? kDefaultThreads : threads;
+  return 0;
 }

@@ -12,7 +12,10 @@ Port of ``airslam_tpu/ops/attention.py``:
   in the CUDA source.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. All three take any number of leading batch dimensions.
+raises. All three take any number of leading batch dimensions. The kernel
+reads its operands in place where every row starts on 16 bytes (LightGlue's
+views do); an operand that does not is copied once, and
+``flash_mha.copies`` counts it.
 """
 
 from __future__ import annotations
@@ -67,20 +70,51 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fn():
     fn = cuda_build.library("attention").airslam_flash_mha
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def kernel_attributes(q_dtype, v_dtype, d: int, q_warps: int = 0) -> dict:
+    """What the compiler gave the kernel instantiation a call with these
+    types, head size and query tile runs (``cudaFuncGetAttributes``)."""
+    fn = cuda_build.library("attention").airslam_flash_mha_attributes
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(int(q_dtype == torch.bfloat16), int(v_dtype == torch.bfloat16), d, q_warps, out)
+    if err:
+        raise RuntimeError(f"flash_mha attributes: CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
+                     "rows"), out))
+
+
 def _bhnd(t: torch.Tensor) -> torch.Tensor:
     """(…, H, N, D) as a 4-d (B, H, N, D) tensor whose last dimension is
-    contiguous: a view wherever the strides allow it (the transposed views
-    LightGlue hands over do), else a copy."""
-    t = t[None] if t.ndim == 3 else t.reshape(-1, *t.shape[-3:])
-    return t if t.stride(-1) == 1 else t.contiguous()
+    contiguous and whose rows start on 16 bytes: a view wherever the strides
+    allow it (the transposed views LightGlue hands over do), else one copy,
+    which ``flash_mha.copies`` counts."""
+    if t.ndim == 4:
+        t4 = t
+    elif t.ndim == 3:
+        t4 = t[None]
+    else:
+        t4 = t.reshape(-1, *t.shape[-3:])
+        if t4.data_ptr() != t.data_ptr():  # the leading dimensions did not merge in place
+            flash_mha.copies += 1
+            return t4
+    sb, sh, sn, sd = t4.stride()
+    # the base on 16 bytes and every row stride a multiple of 16 bytes (the
+    # element count per 16 bytes is a power of two: one test for all three)
+    if sd == 1 and t4.data_ptr() % 16 == 0 and (sb | sh | sn) % (16 // t4.element_size()) == 0:
+        return t4
+    flash_mha.copies += 1
+    return t4.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, kv_mask) -> torch.Tensor:
+def _launch(q, k, v, kv_mask, q_warps: int = 0) -> torch.Tensor:
+    """One kernel launch; ``q_warps`` picks the bf16 route's query tile
+    (16-row tiles per block, 1–4; 0 = the kernel's default)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev or (
             kv_mask is not None and kv_mask.device != dev):
@@ -103,6 +137,8 @@ def _launch(q, k, v, kv_mask) -> torch.Tensor:
     if kv_mask is not None and (kv_mask.dtype != torch.bool or kv_mask.shape != lead + (nk,)):
         raise ValueError(f"flash_mha: kv_mask {tuple(kv_mask.shape)} {kv_mask.dtype} must be "
                          f"bool {tuple(lead + (nk,))}")
+    if q_warps not in (0, 1, 2, 3, 4):
+        raise ValueError(f"flash_mha: q_warps={q_warps} (0-4)")
     out = torch.empty(lead + (nq, heads, d), dtype=q.dtype, device=dev)
     if out.numel():
         q4, k4, v4 = _bhnd(q), _bhnd(k.to(q.dtype)), _bhnd(v)
@@ -119,7 +155,7 @@ def _launch(q, k, v, kv_mask) -> torch.Tensor:
             err = _fn()(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask_ptr, out.data_ptr(),
                         batch, heads, nq, nk, d, int(q.dtype == torch.bfloat16),
                         int(v.dtype == torch.bfloat16), *q4.stride()[:3], *k4.stride()[:3],
-                        *v4.stride()[:3], mask_stride, stream)
+                        *v4.stride()[:3], mask_stride, q_warps, stream)
         if err:
             raise RuntimeError(f"flash_mha kernel launch failed: CUDA error {err}")
         flash_mha.launches += 1
@@ -139,3 +175,4 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_mha.launches = 0
+flash_mha.copies = 0  # operands the wrapper had to copy for the kernel's layout

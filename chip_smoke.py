@@ -22,7 +22,10 @@ without a result line):
    128 lines), the path's shape (256 points, one masked line), a fixed pose
    (must come back unchanged) and a lines-only problem. Gates: translation
    ≤2e-3, rotation ≤1e-3 (max abs), inlier agreement ≥0.98, inlier counts
-   within 2 %, and ‖t − t_true‖ < 5e-3.
+   within 2 %, and ‖t − t_true‖ < 5e-3. Then each block size's registers,
+   shared and local bytes, the block-size sweep (64, 128, 256 threads) at
+   both shapes, and the times with the chain of dependent reductions the
+   kernel runs and µs per link.
 5. ``slice``: ``FrontendStep`` in bf16, then f32 with TF32 off, over the 3
    stereo pairs of ``tests/data/torch_frontend_oracle.npz`` (the JAX
    package's f32 CPU outputs), gated with ``scripts/verify_tpu.py``'s
@@ -39,8 +42,9 @@ without a result line):
    LightGlue hands them over), (4, 1024, 64) unbatched, an odd size, padded
    keys masked, one batch entry with every key masked, bf16, f32 and mixed.
    Gates: f32 ≤1e-5 abs, bf16 ≤2e-2 of the output's max, two runs bit-equal.
-   Times of the kernel, its plain version, ``scaled_dot_product_attention``
-   and ``mha``.
+   Each instantiation's registers, shared and local bytes; the bf16 route's
+   query-tile sweep (16–64 rows per block); times of the kernel, its plain
+   version, ``scaled_dot_product_attention`` and ``mha``.
 8. ``VO``: ``MapBuilder.add_input`` with ``use_flash=True`` over the 8 stored
    frames of ``tests/data/torch_vo_oracle.npz`` (the JAX ``MapBuilder`` on the
    CPU), bf16 then f32: initialisation, tracking, four keyframe insertions
@@ -109,6 +113,8 @@ FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 2, "bilerp_points_t": 4, "pose_on
 # six Jacobian columns + the 27 accumulators per LM iteration, and one robust
 # cost evaluation (the trial cost, a round's first cost, the relabel)
 POSE_FLOPS = {"point_iter": 400, "point_cost": 45, "line_iter": 1100, "line_cost": 110}
+POSE_THREADS = (64, 128, 256)  # kernel P's block sizes (csrc/pose_gn.cu instantiations)
+FLASH_Q_WARPS = (1, 2, 3, 4)   # kernel F's bf16 query tiles of 16 rows per block
 
 
 # ---------------------------------------------------------------------------
@@ -548,17 +554,21 @@ def phase_kernel_bt(dev, which):
 
 def _pose_work(problem, rounds, iters):
     """(bytes, f32 operations, dependent reductions) of one solve: every
-    operand read once and every result written once; the operations of the
-    rows the kernel walks (it skips none: masks are multiplied in); and the
-    length of the chain the bound ignores."""
+    operand read once and every result written once; the operations the
+    solve needs over the rows (none skipped: masks are multiplied in): per
+    round ``iters`` Jacobian passes and ``iters + 2`` robust costs (the
+    round's start, each trial, the relabel), not the Jacobians the kernel
+    also takes at the last trial and at rejected ones; and the length of the
+    chain the bound ignores: the kernel's block reductions one after another,
+    one per evaluated pose and the final count."""
     n_p, n_l = problem.points.shape[0], problem.lines.shape[0]
     n_bytes = (n_p * (12 + 12 + 1) + n_l * (24 + 32 + 1 + 1 + 4) + 4 * (9 + 3 + 9 + 3) + 1
                + 48 + n_p + n_l + 4)
     w = POSE_FLOPS
     per_cost = n_p * w["point_cost"] + n_l * w["line_cost"]
-    per_iter = n_p * w["point_iter"] + n_l * w["line_iter"] + per_cost
-    n_flops = rounds * (iters * per_iter + 2 * per_cost)
-    return n_bytes, n_flops, rounds * (2 * iters + 1) + 1
+    per_jac = n_p * w["point_iter"] + n_l * w["line_iter"]
+    n_flops = rounds * (iters * per_jac + (iters + 2) * per_cost)
+    return n_bytes, n_flops, rounds * (iters + 1) + 1
 
 
 def phase_kernel_p(dev):
@@ -619,6 +629,11 @@ def phase_kernel_p(dev):
     print("kernel P: " + "; ".join(report) + f" (gates t<={g['t']} R<={g['R']} "
           f"inlier_agree>={g['inlier_agree']} t_true<{g['t_true']})")
 
+    for threads in POSE_THREADS:
+        a = pose_gn.kernel_attributes(threads, 256, 1)
+        print(f"kernel P instantiation threads={threads}: registers={a['registers']} "
+              f"static_smem={a['static_smem']} dynamic_smem(256 pts, 1 line)={a['dynamic_smem']} "
+              f"local_bytes={a['local_bytes']}")
     times = {}
     for name, (problem, intr, _) in cases.items():
         def kernel():
@@ -627,6 +642,16 @@ def phase_kernel_p(dev):
         def plain():
             return pose_gn.pose_only_fast_plain(problem, intr, cfg)
 
+        def sized(threads, ops=pose_gn._operands(problem), n=problem.points.shape[0],
+                  m=problem.lines.shape[0]):
+            return pose_gn._launch(ops, n, m, 1, intr, cfg, 3, 10, threads=threads)
+
+        # block-size sweep, in turns so that a drift of the clock spreads over all
+        sweep = {t: [] for t in POSE_THREADS}
+        for t in POSE_THREADS + POSE_THREADS[::-1]:
+            sweep[t].append(_time_ms(lambda: sized(t), iters=20))
+        print(f"kernel P {name} block-size sweep ms: "
+              + " ".join(f"threads={t}: {min(v):.5f}" for t, v in sweep.items()))
         n_bytes, n_flops, chain = _pose_work(problem, 3, 10)
         bound, by = _bound_ms(n_bytes, n_flops)
         # the plain version is thousands of small launches with host work
@@ -638,8 +663,8 @@ def phase_kernel_p(dev):
         print(f"kernel P {name}: points={problem.points.shape[0]} lines={problem.lines.shape[0]} "
               f"ms={t['ms']:.5f} eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.3f}(eager) "
               f"bound_ms={bound:.6f} ({by}; the bound by bytes and operations ignores the "
-              f"dependent chain of 3x10 iterations, {chain} block reductions one after "
-              f"another) library_ms=none")
+              f"dependent chain of 3x10 iterations) chain={chain} block reductions one after "
+              f"another, us_per_link={t['ms'] * 1e3 / chain:.3f} library_ms=none")
     rec = times["path"]  # the shape the main path gives the kernel
     return {"name": "pose_only_fast", "route": "cuda",
             "source": "airslam_tpu_torch/csrc/pose_gn.cu",
@@ -687,6 +712,7 @@ def phase_kernel_f(dev):
     import torch
     import torch.nn.functional as F
 
+    from airslam_tpu_torch.ops import attention
     from airslam_tpu_torch.ops.attention import flash_mha, flash_mha_plain, mha
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -733,6 +759,25 @@ def phase_kernel_f(dev):
     print("kernel F: " + "; ".join(notes)
           + f" (gates f32<={FLASH_GATES['f32']} bf16<={FLASH_GATES['bf16_rel']} of max; "
           "two runs bit-equal)")
+
+    for (tq, tv), ws in (((bf, bf), FLASH_Q_WARPS), ((f32, f32), (0,)), ((f32, bf), (0,)),
+                         ((bf, f32), (0,))):
+        for d in (64, 32):
+            for w in ws:
+                a = attention.kernel_attributes(tq, tv, d, w)
+                print(f"kernel F instantiation q/k={str(tq)[6:]} v={str(tv)[6:]} D={d} "
+                      f"rows/block={a['rows']} threads={a['threads']}: "
+                      f"registers={a['registers']} static_smem={a['static_smem']} "
+                      f"dynamic_smem={a['dynamic_smem']} local_bytes={a['local_bytes']}")
+    # the bf16 route's query tile: 16-row warps per block, in turns
+    for batch in (2, 1):
+        q, k, v, mask = _attention_inputs(rng, (batch,), 4, 400, 400, 64, bf, bf, dev, 388)
+        sweep = {w: [] for w in FLASH_Q_WARPS}
+        for w in FLASH_Q_WARPS + FLASH_Q_WARPS[::-1]:
+            sweep[w].append(_time_ms(lambda: attention._launch(q, k, v, mask, q_warps=w)))
+        print(f"kernel F bf16 ({batch}, 4, 400, 64) query-tile sweep ms: "
+              + " ".join(f"{16 * w} rows ({-(-400 // (16 * w)) * 4 * batch} blocks): {min(t):.5f}"
+                         for w, t in sweep.items()))
 
     rec = {}
     for label, dtype, size in (("bf16", bf, 2), ("f32", f32, 4)):
@@ -1085,6 +1130,7 @@ def main() -> int:
     ap.add_argument("--phases", default="", help="comma-separated subset, for a short run")
     only = set(filter(None, ap.parse_args().phases.split(",")))
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -1137,6 +1183,7 @@ def main() -> int:
     launches = phase_vo(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels]}))

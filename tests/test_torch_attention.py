@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from airslam_tpu.models.lightglue import LightGlue as JaxLightGlue
+from airslam_tpu.ops.attention import _flash_call
 from airslam_tpu.ops.attention import flash_mha as jflash_mha
 from airslam_tpu.ops.attention import mha as jmha
 from airslam_tpu_torch.frontend.matcher import MatcherConfig
@@ -80,6 +81,63 @@ def test_flash_plain_bf16_vs_jax(n_valid):
     assert np.abs(_np(got) - want).max() <= BF16_REL * np.abs(want).max()
 
 
+def _bf16(x):
+    """float32 values rounded to the nearest bfloat16 (ties to even)."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _tiled_flash_np(q, k, v, mask, bf16):
+    """Kernel F's order of work in numpy (f32): 64-key tiles, logits divided
+    by √D, masked keys −1e9, a running row maximum and sum, p rounded to v's
+    type against the running maximum, the accumulator rescaled per tile, the
+    division by the row sum last, the output in q's type. Returns the output
+    and the number of tiles."""
+    d, nk = q.shape[-1], k.shape[-2]
+    m = np.full(q.shape[:-1], -np.inf, np.float32)
+    l = np.zeros(q.shape[:-1], np.float32)
+    acc = np.zeros(q.shape, np.float32)
+    tiles = 0
+    for k0 in range(0, nk, 64):
+        s = np.matmul(q, np.swapaxes(k[:, k0:k0 + 64], -1, -2)) / np.float32(np.sqrt(d))
+        s = np.where(mask[None, None, k0:k0 + 64], s, np.float32(-1e9)).astype(np.float32)
+        m_new = np.maximum(m, s.max(-1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        p = _bf16(p) if bf16 else p
+        acc = acc * alpha[..., None] + np.matmul(p, v[:, k0:k0 + 64])
+        m = m_new
+        tiles += 1
+    out = acc / l[..., None]
+    return (_bf16(out) if bf16 else out), tiles
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_valid", [371, 0], ids=["masked-tail", "all-masked"])
+def test_kernel_tile_order_vs_pallas_interpret(bf16, n_valid):
+    """The new kernel's key-tile order holds the gates against the Pallas
+    kernel itself (``_flash_call`` in interpret mode) at the path's head
+    shape (4, 400, 64): f32 1e-5, bf16 2e-2 of the output's max; the bf16
+    rounding of p against the running maximum is the only extra error."""
+    q, k, v = _qkv(9, 4, 400, 400, 64)
+    if bf16:
+        q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    mask = np.arange(400) < n_valid
+    got, tiles = _tiled_flash_np(q, k, v, mask, bf16)
+    assert tiles == 7
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    want = np.asarray(_flash_call(jnp.asarray(q, dt), jnp.asarray(k, dt), jnp.asarray(v, dt),
+                                  jnp.asarray(mask.astype(np.int32)[None]),
+                                  interpret=True).astype(jnp.float32))
+    tol = BF16_REL * np.abs(want).max() if bf16 else F32_TOL
+    assert np.abs(got - want).max() <= tol
+    if n_valid == 0:  # every key masked: the mean of v
+        mean_v = np.broadcast_to(v.mean(-2, keepdims=True), got.shape)
+        assert np.abs(got - mean_v).max() <= (2e-2 if bf16 else F32_TOL)
+
+
 def test_flash_plain_casts_follow_the_kernel():
     """k goes to q's type, p is rounded to v's type before the second
     product, the output comes in q's type (mixed f32 q/k with bf16 v)."""
@@ -126,6 +184,24 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     assert flash_mha.launches == before
     assert torch.equal(got, flash_mha_plain(_t(q), _t(k), _t(v), mask))
     assert attention.HEAD_DIMS == (32, 64)
+
+
+def test_kernel_operands_are_views_unless_a_row_misses_16_bytes():
+    """What the kernel's 16-byte copies need, decided on the host: LightGlue's
+    views of (B, N, 3·H·D) projections pass as they are; a view whose rows
+    start off 16 bytes, or whose leading dimensions do not merge, is copied
+    once and counted."""
+    before = flash_mha.copies
+    qkv = torch.zeros(2, 400, 3 * 256, dtype=torch.bfloat16)
+    for part in qkv.chunk(3, dim=-1):
+        view = attention._bhnd(part.reshape(2, 400, 4, 64).transpose(-3, -2))
+        assert view.data_ptr() == part.data_ptr() and tuple(view.stride()) == (307200, 64, 768, 1)
+    assert flash_mha.copies == before
+    odd = torch.zeros(2, 400, 257)[..., 1:].reshape(2, 400, 4, 64).transpose(-3, -2)
+    copy = attention._bhnd(odd)
+    assert copy.is_contiguous() and torch.equal(copy, odd) and flash_mha.copies == before + 1
+    unmerged = torch.zeros(4, 3, 2, 8, 64).transpose(0, 2)
+    assert attention._bhnd(unmerged).shape == (6, 4, 8, 64) and flash_mha.copies == before + 2
 
 
 def _lg_both(jm, params, model, args):

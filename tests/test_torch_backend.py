@@ -19,6 +19,7 @@ from airslam_tpu_torch.backend import gn, pose_gn, windows
 from airslam_tpu_torch.backend import residuals as res
 from airslam_tpu_torch.core import lie
 from airslam_tpu_torch.core.camera import Intrinsics
+import chip_smoke
 from tests.synthetic import default_intrinsics
 from tests.test_pose_gn_pallas import _tracking_problem
 
@@ -369,6 +370,96 @@ def test_plain_lines_only_vs_jax():
     _assert_pose(out, ref, 1e-4, 1e-3)
     assert (lin.numpy() == np.asarray(lin_r)).all()
     assert not pin.any() and int(n) == int(lin.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# kernel P's schedule: one pass over the rows per evaluated pose
+# ---------------------------------------------------------------------------
+
+
+def _fused_schedule(problem, intr, cfg, rounds, iters):
+    """Kernel P's order of work in plain tensor ops: at every pose the solve
+    evaluates, the robust cost and the undamped H, b come from one pass; an
+    accepted trial hands its H, b to the next iteration, a rejected one keeps
+    the previous H, b (the same pose, so the same numbers). The damping, the
+    solve, the retraction, the accept and the relabel are the plain
+    version's."""
+    dtype = problem.points.dtype
+    vis = pose_gn._Vision(problem, intr, cfg)
+    p_base = problem.point_obs_mask[:, 0].to(dtype)
+    l_base = problem.line_obs_mask[:, 0].to(dtype)
+    R0, t0 = problem.frames.Rwb[0], problem.frames.twb[0]
+    eye6 = torch.eye(6, dtype=dtype)
+    p_m, l_m = p_base, l_base
+    R, t = R0, t0
+    passes = 0
+    for _ in range(rounds):
+        R, t = R0, t0
+        lam = torch.full((), windows.POSE_LM_LAM0, dtype=dtype)
+        nu = torch.full((), windows.POSE_LM_NU0, dtype=dtype)
+        cost, (H, b) = vis.cost_of(R, t, p_m, l_m), vis.normal_equations(R, t, p_m, l_m)
+        passes += 1
+        for _ in range(iters):
+            Hd = H + lam * eye6
+            Hd = Hd + torch.diag((torch.diagonal(Hd) < 1e-10).to(dtype))
+            dx = gn.solve_spd_small(Hd, b)
+            R2, t2 = R @ lie.so3_exp(dx[0:3]), t + R @ dx[3:6]
+            cost2, (H2, b2) = vis.cost_of(R2, t2, p_m, l_m), vis.normal_equations(R2, t2, p_m, l_m)
+            passes += 1
+            if bool(cost2 < cost):
+                R, t, cost, H, b = R2, t2, cost2, H2, b2
+                lam, nu = lam / 3.0, torch.full_like(nu, 2.0)
+            else:
+                lam, nu = lam * nu, nu * 2.0
+        pchi2, lchi2, pz = vis.chi2_of(R, t, p_base, l_base)
+        p_m = ((pchi2 <= vis.pthr) & (pz > 0) & (p_base > 0.5)).to(dtype)
+        l_m = ((lchi2 <= vis.lthr) & (l_base > 0.5)).to(dtype)
+    p_in, l_in = p_m > 0.5, l_m > 0.5
+    out = problem._replace(frames=problem.frames._replace(Rwb=R[None], twb=t[None]))
+    # the kernel's chain: one reduction per pass and the final count
+    return (out, p_in[:, None], l_in[:, None], p_in.sum() + l_in.sum()), passes + 1
+
+
+def _jax_problem(problem):
+    """The JAX package's BAProblem with the same (numpy) leaves."""
+    frames = jgn.FrameStates(*(jnp.asarray(getattr(problem.frames, n).numpy())
+                               for n in jgn.FrameStates._fields))
+    leaves = {n: jnp.asarray(getattr(problem, n).numpy()) for n in jgn.BAProblem._fields
+              if n not in ("frames", "imu", "g_value")}
+    return jgn.BAProblem(frames=frames, imu=None, **leaves)
+
+
+@pytest.mark.parametrize("case", ["full", "path", "lines_only"])
+def test_fused_schedule_equals_plain_and_jax(case):
+    """The schedule kernel P runs (rounds·(iters+1)+1 reductions) gives the
+    plain version's poses, inlier flags and counts in f64 (the same
+    arithmetic: ≤ 1e-12), and holds the JAX scan solver's gate (R 1e-4,
+    t 1e-3, equal inliers) on chip_smoke.py's problems: the kernel's full
+    size, the path's shape (200 points padded to 256, one masked line) and
+    lines only."""
+    rounds, iters = 3, 10
+    if case == "full":
+        problem, intr, _ = chip_smoke.tracking_problem(5, 512, 128, dtype=F64)
+    elif case == "path":
+        problem, intr, _ = chip_smoke.tracking_problem(6, 200, 1, n_masked_points=56,
+                                                       mask_lines=True, dtype=F64)
+    else:
+        problem, intr, _ = chip_smoke.tracking_problem(11, 1, 24, outliers=False, dtype=F64)
+        problem = problem._replace(point_obs_mask=torch.zeros_like(problem.point_obs_mask))
+        rounds, iters = 2, 8
+    cfg = gn.BAConfig()
+    got, links = _fused_schedule(problem, intr, cfg, rounds, iters)
+    assert links == rounds * (iters + 1) + 1
+    want = pose_gn.pose_only_fast_plain(problem, intr, cfg, rounds=rounds, iters=iters)
+    for g, w in ((got[0].frames.Rwb, want[0].frames.Rwb), (got[0].frames.twb, want[0].frames.twb)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-12)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert int(got[3]) == int(want[3]) > 0
+
+    ref = jwindows._pose_only_fast(_jax_problem(problem), default_intrinsics(jnp.float64),
+                                   jgn.BAConfig(), rounds=rounds, iters=iters)
+    _assert_pose(got[0], ref[0], 1e-4, 1e-3)
+    _assert_inliers(tuple(got[1:]), tuple(ref[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -187,6 +187,118 @@ def test_flash_kernel_without_mask_and_with_a_contiguous_copy(dev):
     assert float((got - attention.mha(q, k, v)).abs().max()) <= 1e-5
 
 
+def _flash_gate(got, want, types):
+    """f32 ≤ 1e-5 abs; with bf16 anywhere ≤ 2e-2 of the output's max."""
+    err = float((got.float() - want.float()).abs().max())
+    return err <= (1e-5 if types == "f32" else 2e-2 * float(want.float().abs().max()))
+
+
+_TYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+          "mixed": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,dead_tile", [(1, 1, False), (15, 63, False), (17, 64, False),
+                                             (77, 65, False), (400, 300, False),
+                                             (33, 300, True)],
+                         ids=["1x1", "15x63", "17x64", "77x65", "400x300", "masked-tile"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("types", ["f32", "bf16", "mixed"])
+def test_flash_kernel_tile_edges(dev, nq, nk, dead_tile, d, types):
+    """Query counts around the 16-row fragments and key counts around the
+    64-key tiles (the m16n8k16 fragment layouts, the swizzle, the zero-filled
+    tail), and one 64-key tile whose keys are all masked between live ones."""
+    tq, tv = _TYPES[types]
+    rng = np.random.RandomState(nq * 1000 + nk)
+    q, k, v, mask = chip_smoke._attention_inputs(rng, (2,), 4, nq, nk, d, tq, tv, dev, nk - nk // 7)
+    if dead_tile:
+        mask[:] = True
+        mask[:, 64:128] = False
+    got = attention.flash_mha(q, k, v, mask)
+    want = attention.flash_mha_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+    assert _flash_gate(got, want, types)
+    assert torch.equal(got, attention.flash_mha(q, k, v, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "bf16"])
+def test_flash_kernel_under_graph_capture(dev, types):
+    """Captured in a CUDA graph and replayed, the kernel gives its eager bits."""
+    tq, tv = _TYPES[types]
+    rng = np.random.RandomState(3)
+    q, k, v, mask = chip_smoke._attention_inputs(rng, (2,), 4, 400, 400, 64, tq, tv, dev, 388)
+    eager = attention.flash_mha(q, k, v, mask).clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = attention.flash_mha(q, k, v, mask)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_copies_an_unaligned_view(dev):
+    """A view whose rows do not start on 16 bytes takes one counted copy and
+    gives the bits of its aligned twin."""
+    rng = np.random.RandomState(4)
+    q, k, v, mask = chip_smoke._attention_inputs(rng, (2,), 4, 100, 90, 64, torch.bfloat16,
+                                                 torch.bfloat16, dev, 80)
+    wide = torch.zeros(2, 100, 4 * 64 + 1, dtype=q.dtype, device=dev)
+    wide[..., 1:] = q.transpose(-3, -2).reshape(2, 100, 256)
+    q_odd = wide[..., 1:].reshape(2, 100, 4, 64).transpose(-3, -2)  # 2-byte offset
+    assert q_odd.data_ptr() % 16 != 0 and torch.equal(q_odd, q)
+    before, copies = attention.flash_mha.launches, attention.flash_mha.copies
+    got = attention.flash_mha(q_odd, k, v, mask)
+    assert attention.flash_mha.copies == copies + 1
+    assert attention.flash_mha.launches == before + 1
+    aligned = attention.flash_mha(q, k, v, mask)
+    assert attention.flash_mha.copies == copies + 1  # LightGlue's views take none
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.cuda
+def test_pose_kernel_batched_equals_single_launches(dev):
+    """n_problems = 3 in one launch (one block each) equals three launches of
+    one problem, bit for bit."""
+    cfg = gn.BAConfig()
+    probs = [chip_smoke.tracking_problem(seed, 200, 7, n_masked_points=56, device=dev)
+             for seed in (21, 22, 23)]
+    intr = probs[0][1]
+    ops = [pose_gn._operands(p) for p, _, _ in probs]
+    stacked = [torch.stack([o[i] for o in ops]) for i in range(11)] + ops[0][11:]
+    pose, pin, lin, count = pose_gn._launch(stacked, 256, 7, 3, intr, cfg, 3, 10)
+    for i, (p, _, _) in enumerate(probs):
+        one = pose_gn.pose_only_fast(p, intr, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(pose[i, :9].view(3, 3), one[0].frames.Rwb[0])
+        assert torch.equal(pose[i, 9:], one[0].frames.twb[0])
+        assert torch.equal(pin[i], one[1][:, 0]) and torch.equal(lin[i], one[2][:, 0])
+        assert int(count[i]) == int(one[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_pose_kernel_block_sizes_hold_the_gates(dev, threads):
+    """Every instantiated block size holds the plain version's gates at the
+    path's shape."""
+    problem, intr, _ = chip_smoke.tracking_problem(6, 200, 1, n_masked_points=56,
+                                                   mask_lines=True, device=dev)
+    pose, pin, lin, count = pose_gn._launch(pose_gn._operands(problem), 256, 1, 1, intr,
+                                            gn.BAConfig(), 3, 10, threads=threads)
+    got = (problem._replace(frames=problem.frames._replace(
+        Rwb=pose[:, :9].view(1, 3, 3), twb=pose[:, 9:])), pin[0, :, None], lin[0, :, None],
+        count[0])
+    want = pose_gn.pose_only_fast_plain(problem, intr, gn.BAConfig())
+    a = chip_smoke.pose_agreement(got, want)
+    g = chip_smoke.POSE_GATES
+    assert a["t"] <= g["t"] and a["R"] <= g["R"] and a["inlier_agree"] >= g["inlier_agree"], a
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     """Runs anywhere: a tensor on neither the CPU nor a CUDA device raises
     before any build, and never goes down the plain path."""

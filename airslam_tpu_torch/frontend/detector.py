@@ -7,8 +7,9 @@ pipelines asks for them). With ``use_superpoint`` (the shipped VO
 configuration) keypoints and descriptors come from SuperPoint and PLNet
 supplies lines and junctions (feature_detector.cc:7-34); without it, as in
 ``__graft_entry__.entry()``, PLNet supplies all three. The JAX ``vmap`` over
-the batch is a loop over the views of the decode. The fast ``LoiHead`` is
-not ported yet.
+the batch is a loop over the views of the decode, except for the stage-1
+head, which runs once over every view's candidate lines. The fast
+``LoiHead`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -77,17 +78,10 @@ def _prefilter(p, logit, k: int):
     return pw[torch.arange(pw.shape[0], device=pw.device), aw], logit
 
 
-def detect_single(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
-                  w_scale: float, h_scale: float, loi: LoiHeadS1) -> FrameFeatures:
-    """Decode one image's network outputs (detector.py:82-196). ``sp_out``:
-    SuperPoint's outputs, the source of the keypoint heatmap and descriptors
-    when given; else PLNet's."""
-    point_src = plnet_out if sp_out is None else sp_out
-    heat = point_src["scores"]
-    desc_map = point_src["descriptors"]  # (64, 64, 256) NHWC
-    dev = heat.device
-
-    # -- lines -------------------------------------------------------------
+def _line_candidates(plnet_out: dict, cfg: DetectorConfig):
+    """One view's wireframe decode up to the candidate lines
+    (detector.py:94-139): junctions, the proposal prefilter, junction
+    matching and pair dedup. Returns (junctions, candidates)."""
     juncs = wireframe.decode_junctions(plnet_out["junc_heat"],
                                        plnet_out["junc_offset"], NUM_JUNCTIONS)
     p, logit = _prefilter(plnet_out["line_pred"].reshape(-1, 4),
@@ -96,10 +90,23 @@ def detect_single(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
                                                  cfg.junction_match_threshold)
     cands = wireframe.dedup_pairs(keep, jmin, jmax, juncs, NUM_JUNCTIONS,
                                   cfg.max_lines, line_pred=p)
-    line_scores, lines_adj = loi(cands.lines, cands.prop_lines, plnet_out["loi"],
-                                 plnet_out["loi_thin"], plnet_out["loi_aux"],
-                                 junc_xy=juncs.xy, pair_idx=cands.pairs)
-    decoded = wireframe.gate_lines(lines_adj, line_scores, cands.mask,
+    return juncs, cands
+
+
+def _finish_view(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
+                 w_scale: float, h_scale: float, lines_adj, line_scores,
+                 cand_mask) -> FrameFeatures:
+    """One view's decode after the stage-1 head (detector.py:140-196): line
+    gating, keypoints, descriptors, junction keypoints. ``sp_out``:
+    SuperPoint's outputs, the source of the keypoint heatmap and descriptors
+    when given; else PLNet's."""
+    point_src = plnet_out if sp_out is None else sp_out
+    heat = point_src["scores"]
+    desc_map = point_src["descriptors"]  # (64, 64, 256) NHWC
+    dev = heat.device
+
+    # -- lines -------------------------------------------------------------
+    decoded = wireframe.gate_lines(lines_adj, line_scores, cand_mask,
                                    (DETECT_SIZE, DETECT_SIZE), cfg.remove_borders,
                                    cfg.line_threshold, cfg.line_length_threshold)
     scale4 = torch.tensor([w_scale, h_scale, w_scale, h_scale], dtype=torch.float32,
@@ -124,14 +131,23 @@ def detect_single(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
 
 def detect_batch(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
                  w_scale: float, h_scale: float, loi: LoiHeadS1) -> FrameFeatures:
-    """Decode every image of the batch; returns batched FrameFeatures."""
+    """Decode every image of the batch (detector.py:82-210): each view's
+    candidate lines, then ONE stage-1 head call over the stacked views, then
+    each view's gating and keypoints. Returns batched FrameFeatures."""
     b = plnet_out["scores"].shape[0]
 
     def view(out, i):
         return None if out is None else {k: v[i] for k, v in out.items()}
 
-    views = [detect_single(view(plnet_out, i), view(sp_out, i), cfg, w_scale, h_scale, loi)
-             for i in range(b)]
+    juncs, cands = zip(*(_line_candidates(view(plnet_out, i), cfg) for i in range(b)))
+    with torch.profiler.record_function("loi"):
+        scores, lines_adj = loi(torch.stack([c.lines for c in cands]),
+                                torch.stack([c.prop_lines for c in cands]),
+                                plnet_out["loi"], plnet_out["loi_thin"], plnet_out["loi_aux"],
+                                junc_xy=torch.stack([j.xy for j in juncs]),
+                                pair_idx=torch.stack([c.pairs for c in cands]))
+    views = [_finish_view(view(plnet_out, i), view(sp_out, i), cfg, w_scale, h_scale,
+                          lines_adj[i], scores[i], cands[i].mask) for i in range(b)]
     return FrameFeatures(*(torch.stack(f) for f in zip(*views)))
 
 

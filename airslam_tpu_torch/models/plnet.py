@@ -1,14 +1,15 @@
 """PLNet: unified keypoint + line-segment CNN, and the stage-1 LOI head.
 
 Port of ``airslam_tpu/models/plnet.py``: ``PLNetBackbone``, ``LineHeadTrunk``,
-``PLNet``, ``LoiHeadS1`` and its samplers ``_onnx_bilerp`` /
-``_interior_feats``. Inside, convolutions run NCHW; the outputs keep the JAX
-layouts (NHWC maps) so the two packages compare like with like.
+``PLNet`` and ``LoiHeadS1``, whose samplers ``_onnx_bilerp`` /
+``_interior_feats`` are one call of ``ops.bilerp.loi_features`` here.
+Inside, convolutions run NCHW; the outputs keep the JAX layouts (NHWC maps)
+so the two packages compare like with like.
 
 Compute dtype follows the JAX program: convs and Dense layers run in
 ``dtype`` (inputs and weights cast), the keypoint softmax, descriptor
 normalization and the sigmoid heads run in f32, and the LOI maps stay in
-``dtype`` into the samplers (kernels B and T on the card).
+``dtype`` into the sampler (kernel ``loi_features`` on the card).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from airslam_tpu_torch.models.weights import BACKBONE_CONVS, TRUNK_HEADS
-from airslam_tpu_torch.ops.bilerp import bilerp_points, bilerp_points_t
+from airslam_tpu_torch.ops.bilerp import loi_features
 
 NUM_JUNCTIONS = 300  # top-k junctions, = JN in plnet.cpp:284
 NUM_PROPOSALS_PER_CELL = 3
@@ -162,44 +163,26 @@ class LoiHeadS1(nn.Module):
         self.register_buffer("t_rev", torch.arange(n, 0, -1, dtype=torch.float32) / (n + 1))
 
     def forward(self, lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx):
-        """lines/prop_lines: (L, 4) (x1, y1, x2, y2) in 128-grid coords;
-        loi (128, 128, 128), loi_thin/aux (128, 128, 4) HWC; ``junc_xy``
-        (J, 2) the junctions and ``pair_idx`` (L, 2) each line's endpoint
-        junctions. The LOI map is sampled once per junction and gathered per
-        line (the JAX head's fast endpoint path, the one its detector runs).
-        Returns (scores (L,), lines)."""
-        f_junc = _onnx_bilerp(loi, junc_xy[:, 0] - 0.5, junc_xy[:, 1] - 0.5)
-        idx = pair_idx.clamp(0, junc_xy.shape[0] - 1)
-        f_ep1 = f_junc[idx[:, 0]]
-        f_ep2 = f_junc[idx[:, 1]]
-
-        def interior(seg):  # (L, 4) -> x (L, 30), y (L, 30)
-            x = seg[:, 0:1] * self.t_fwd[None, :] + seg[:, 2:3] * self.t_rev[None, :] - 0.5
-            y = seg[:, 1:2] * self.t_fwd[None, :] + seg[:, 3:4] * self.t_rev[None, :] - 0.5
-            return x, y
-
-        n_lines = lines.shape[0]
-        f_thin = _interior_feats(loi_thin, *interior(lines), n_lines)
-        f_aux = _interior_feats(loi_aux, *interior(prop_lines), n_lines)
-
-        feats = torch.cat([f_ep1, f_ep2, f_thin, f_aux], dim=-1).to(self.dtype)
-        res_in = torch.cat([f_thin, f_aux], dim=-1).to(self.dtype)
+        """lines/prop_lines: (V, L, 4) (x1, y1, x2, y2) in 128-grid coords;
+        loi (V, 128, 128, 128), loi_thin/aux (V, 128, 128, 4) HWC; ``junc_xy``
+        (V, J, 2) the junctions and ``pair_idx`` (V, L, 2) each line's
+        endpoint junctions — or the same without the leading V for one view.
+        The LOI map is sampled at the junctions and gathered per line (the
+        JAX head's fast endpoint path, the one its detector runs); every view
+        is sampled in one ``loi_features`` call and the MLP runs once over
+        the V·L rows. Returns (scores (V, L) or (L,), lines)."""
+        single = lines.ndim == 2
+        if single:
+            lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx = (
+                t[None] for t in (lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx))
+        v, n = lines.shape[:2]
+        feats = loi_features(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
+                             self.t_fwd, self.t_rev, out_dtype=self.dtype).reshape(v * n, -1)
+        res_in = feats[:, 2 * LOI_DIM:]  # [thin | aux]
         x = F.relu(self.fc2_0(feats))
         x = F.relu(self.fc2_2(x))
         x = self.fc2_4(x)
         r = F.relu(self.fc2_res(res_in))
         logits = self.fc2_head(x + r).float()
-        return torch.softmax(logits, dim=-1)[:, 1], lines
-
-
-def _interior_feats(fmap, xx, yy, n_lines: int):
-    """Channel-major interior sampling (L, C·T) for the thin/aux branches
-    (kernel T on the card)."""
-    out = bilerp_points_t(fmap, xx.contiguous(), yy.contiguous())  # (C, L, T)
-    return out.permute(1, 0, 2).reshape(n_lines, -1)
-
-
-def _onnx_bilerp(fmap, x, y):
-    """Bilinear sampling with the stage-1 graph's corner arithmetic
-    (kernel B on the card). fmap (H, W, C); x, y (...). Returns (..., C)."""
-    return bilerp_points(fmap, x.contiguous(), y.contiguous())
+        scores = torch.softmax(logits, dim=-1)[:, 1].reshape(v, n)
+        return (scores[0], lines[0]) if single else (scores, lines)

@@ -1,20 +1,25 @@
-"""Kernels B and T: LOI bilinear point sampling (``csrc/bilerp.cu``).
+"""LOI bilinear point sampling (``csrc/bilerp.cu``): kernels B and T, and
+``loi_features``, their redesign for the H100.
 
-Replace the Pallas TPU kernels ``airslam_tpu/ops/bilerp_pallas.py:_kernel``
-(:func:`bilerp_points`, row-major output) and ``:_kernel_t``
-(:func:`bilerp_points_t`, channel-major output) that the stage-1 LOI head
-runs on its 128-channel LOI map and its 4-channel thin/aux maps. What bounds
-them on the H100 and what the design does about it is noted in the CUDA
-source.
+Kernels B (:func:`bilerp_points`, row-major output) and T
+(:func:`bilerp_points_t`, channel-major output) replace the Pallas TPU
+kernels ``airslam_tpu/ops/bilerp_pallas.py:_kernel`` and ``:_kernel_t``
+that the stage-1 LOI head runs on its 128-channel LOI map and its 4-channel
+thin/aux maps. :func:`loi_features` computes what the head asked of them —
+the endpoint features at the clamped junctions, the 30 interior samples per
+line of both 4-channel maps, and their concatenation into the MLP's input
+row — for every view of a frame in one launch; the head runs it, and B and T
+stay as entry points. What bounds them on the H100 and what the design does
+about it is noted in the CUDA source.
 
-Both follow the stage-1 ONNX corner arithmetic: ``x0 = clip(floor x, 0,
-W-1)``, ``x1 = clip(x0+1, 0, W-1)``, UNclamped weights (zero total weight at
-the far border; the two taps add when ``x0 == x1``). For bf16 maps the row
-(y) weights are rounded to bf16 and everything accumulates in f32, as the
-Pallas kernels do (``bilerp_pallas.py:68-70,147-150``) — which differs from
-the JAX CPU einsum branch (``plnet.py:488``), which rounds its rows to bf16.
-:func:`bilerp_plain` is the plain PyTorch version with the kernels'
-semantics.
+All three follow the stage-1 ONNX corner arithmetic: ``x0 = clip(floor x,
+0, W-1)``, ``x1 = clip(x0+1, 0, W-1)``, UNclamped weights (zero total weight
+at the far border; the two taps add when ``x0 == x1``). For bf16 maps the
+row (y) weights are rounded to bf16 and everything accumulates in f32, as
+the Pallas kernels do (``bilerp_pallas.py:68-70,147-150``) — which differs
+from the JAX CPU einsum branch (``plnet.py:488``), which rounds its rows to
+bf16. :func:`bilerp_plain` and :func:`loi_features_plain` are the plain
+PyTorch versions with the kernels' semantics.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -60,13 +65,55 @@ def bilerp_plain(fmap: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.
     return out.reshape(shape + (c,))
 
 
+LOI_C, INTERIOR_C = 128, 4  # the channel counts loi_features is built for
+MAX_INTERIOR = 32  # interior points per line: one lane each
+
+
+def loi_features_plain(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
+                       t_fwd, t_rev, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`loi_features`: the stage-1 head's
+    sampling, view by view — the LOI map at each junction − 0.5 gathered by
+    the clamped ``pair_idx``, the thin map along ``lines`` and the aux map
+    along ``prop_lines`` at ``s0·t_fwd + s2·t_rev − 0.5`` (likewise y),
+    flattened channel-major — concatenated and cast to ``out_dtype`` (the
+    maps' dtype when None). Shapes as :func:`loi_features`."""
+    rows = []
+    for v in range(loi.shape[0]):
+        f_junc = bilerp_plain(loi[v], junc_xy[v, :, 0] - 0.5, junc_xy[v, :, 1] - 0.5)
+        idx = pair_idx[v].clamp(0, junc_xy.shape[1] - 1)
+        parts = [f_junc[idx[:, 0]], f_junc[idx[:, 1]]]
+        for fmap, seg in ((loi_thin[v], lines[v]), (loi_aux[v], prop_lines[v])):
+            x = seg[:, 0:1] * t_fwd[None, :] + seg[:, 2:3] * t_rev[None, :] - 0.5
+            y = seg[:, 1:2] * t_fwd[None, :] + seg[:, 3:4] * t_rev[None, :] - 0.5
+            # (L, T, C) -> channel-major (L, C·T)
+            parts.append(bilerp_plain(fmap, x, y).transpose(1, 2).reshape(seg.shape[0], -1))
+        rows.append(torch.cat(parts, dim=-1))
+    return torch.stack(rows).to(out_dtype or loi.dtype)
+
+
 @functools.cache
-def _fn():
-    fn = cuda_build.library("bilerp").airslam_bilerp
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = cuda_build.library("bilerp")
+    lib.airslam_bilerp.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.airslam_loi_features.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                                         + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                                         + [ctypes.c_void_p])
+    lib.airslam_loi_features_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.airslam_bilerp, lib.airslam_loi_features, lib.airslam_loi_features_attributes):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def kernel_attributes(map_dtype, out_dtype) -> dict:
+    """What the compiler gave the ``loi_features`` instantiation for these
+    types (``cudaFuncGetAttributes``)."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().airslam_loi_features_attributes(int(map_dtype == torch.bfloat16),
+                                                 int(out_dtype == torch.bfloat16), out)
+    if err:
+        raise RuntimeError(f"loi_features attributes: CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "local_bytes", "threads"), out))
 
 
 def _launch(fmap, x, y, wrapper) -> torch.Tensor:
@@ -95,9 +142,9 @@ def _launch(fmap, x, y, wrapper) -> torch.Tensor:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(fmap.data_ptr(), int(fmap.dtype == torch.bfloat16),
-                    x.data_ptr(), y.data_ptr(), out.data_ptr(), n, h, w, c,
-                    int(channel_major), stream)
+        err = _lib().airslam_bilerp(fmap.data_ptr(), int(fmap.dtype == torch.bfloat16),
+                                    x.data_ptr(), y.data_ptr(), out.data_ptr(), n, h, w, c,
+                                    int(channel_major), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
@@ -120,5 +167,89 @@ def bilerp_points_t(fmap: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tor
     return _launch(fmap, x, y, bilerp_points_t)
 
 
+def _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
+                out_dtype, warps: int = 0) -> torch.Tensor:
+    """Check the operands as :func:`_launch` does, launch ``loi_features``
+    once, and count the launch. ``warps``: lines per block, 1-8 (0: the
+    kernel's default)."""
+    name = "loi_features"
+    dev = loi.device
+    operands = dict(loi=loi, loi_thin=loi_thin, loi_aux=loi_aux, junc_xy=junc_xy,
+                    pair_idx=pair_idx, lines=lines, prop_lines=prop_lines, t_fwd=t_fwd,
+                    t_rev=t_rev)
+    if dev.type != "cuda" or any(t.device != dev for t in operands.values()):
+        raise ValueError(f"{name}: operands on {sorted({str(t.device) for t in operands.values()})}; "
+                         "all must be on the same CUDA device")
+    if loi.dtype not in (torch.float32, torch.bfloat16) or not (
+            loi_thin.dtype == loi_aux.dtype == loi.dtype):
+        raise ValueError(f"{name}: maps {loi.dtype}/{loi_thin.dtype}/{loi_aux.dtype} "
+                         "(all float32 or all bfloat16)")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: output dtype {out_dtype} (float32 or bfloat16)")
+    for k in ("junc_xy", "lines", "prop_lines", "t_fwd", "t_rev"):
+        if operands[k].dtype != torch.float32:
+            raise ValueError(f"{name}: {k} must be float32, not {operands[k].dtype}")
+    if pair_idx.dtype != torch.int64:
+        raise ValueError(f"{name}: pair_idx must be int64, not {pair_idx.dtype}")
+    if loi.ndim != 4 or loi.shape[-1] != LOI_C:
+        raise ValueError(f"{name}: loi {tuple(loi.shape)} must be (V, H, W, {LOI_C})")
+    v, h, w, _ = loi.shape
+    n_junc = junc_xy.shape[1] if junc_xy.ndim == 3 else -1
+    n_lines = lines.shape[1] if lines.ndim == 3 else -1
+    nt = t_fwd.shape[0] if t_fwd.ndim == 1 else -1
+    want = dict(loi_thin=(v, h, w, INTERIOR_C), loi_aux=(v, h, w, INTERIOR_C),
+                junc_xy=(v, n_junc, 2), pair_idx=(v, n_lines, 2), lines=(v, n_lines, 4),
+                prop_lines=(v, n_lines, 4), t_fwd=(nt,), t_rev=(nt,))
+    bad = [f"{k} {tuple(operands[k].shape)} (want {s})" for k, s in want.items()
+           if tuple(operands[k].shape) != s]
+    if bad:
+        raise ValueError(f"{name}: " + ", ".join(bad))
+    if not 1 <= nt <= MAX_INTERIOR:
+        raise ValueError(f"{name}: {nt} interior points (1-{MAX_INTERIOR})")
+    if n_junc == 0 and n_lines:
+        raise ValueError(f"{name}: lines but no junctions")
+    if not all(t.is_contiguous() for t in operands.values()):
+        raise ValueError(f"{name}: every operand must be contiguous")
+    if any(t.data_ptr() % 16 for t in (loi, loi_thin, loi_aux)):
+        raise ValueError(f"{name}: the maps must start on 16 bytes")
+    if warps not in range(9):
+        raise ValueError(f"{name}: warps={warps} (0-8)")
+    out = torch.empty((v, n_lines, 2 * LOI_C + 2 * INTERIOR_C * nt), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().airslam_loi_features(
+            loi.data_ptr(), loi_thin.data_ptr(), loi_aux.data_ptr(),
+            int(loi.dtype == torch.bfloat16), junc_xy.data_ptr(), pair_idx.data_ptr(),
+            lines.data_ptr(), prop_lines.data_ptr(), t_fwd.data_ptr(), t_rev.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), v, n_lines, n_junc, h, w, nt,
+            warps, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    loi_features.launches += 1
+    return out
+
+
+def loi_features(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
+                 out_dtype=None) -> torch.Tensor:
+    """The stage-1 LOI head's sampling for V views in one launch.
+
+    ``loi`` (V, H, W, 128), ``loi_thin``/``loi_aux`` (V, H, W, 4) HWC in one
+    dtype; ``junc_xy`` (V, J, 2) the junctions; ``pair_idx`` (V, L, 2) each
+    line's endpoint junctions (clamped to [0, J−1]); ``lines``/``prop_lines``
+    (V, L, 4) (x1, y1, x2, y2) in 128-grid coords; ``t_fwd``/``t_rev`` (T,)
+    the interior ramps. Returns the MLP's input rows (V, L, 256 + 8·T) in
+    ``out_dtype`` (the maps' dtype when None): endpoint 1, endpoint 2, then
+    the thin and the aux samples, each flattened channel-major."""
+    out_dtype = out_dtype or loi.dtype
+    if loi.device.type == "cpu":
+        return loi_features_plain(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
+                                  t_fwd, t_rev, out_dtype)
+    return _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd,
+                       t_rev, out_dtype)
+
+
 bilerp_points.launches = 0
 bilerp_points_t.launches = 0
+loi_features.launches = 0

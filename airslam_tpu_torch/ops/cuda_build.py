@@ -24,11 +24,12 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.normpath(os.path.join(_HERE, "..", "csrc"))
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 
-# per-source extra flags; remap keeps the plain version's unfused arithmetic
-# (bit-equal to gridsample.remap), bilerp accepts FMA contraction (≤1e-5),
-# pose_gn keeps it on purpose (see the note in its source), attention writes
-# its fused multiply-adds out
-KERNELS = {"remap": ("-fmad=false",), "bilerp": (), "pose_gn": (), "attention": ()}
+# per-source extra flags; remap and bilerp keep their plain versions'
+# unfused arithmetic (bit-equal to gridsample.remap, bilerp_plain and
+# loi_features_plain), pose_gn keeps FMA contraction on purpose (see the
+# note in its source), attention writes its fused multiply-adds out
+KERNELS = {"remap": ("-fmad=false",), "bilerp": ("-fmad=false",), "pose_gn": (),
+           "attention": ()}
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

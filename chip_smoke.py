@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases f,vo]
 
-``--phases`` runs only the named phases (r, b, t, p, f, slice, tracking,
+``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
 path, vo; ``path`` needs ``slice`` and ``tracking``) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
@@ -16,7 +16,21 @@ without a result line):
    times.
 3. ``kernel B`` / ``kernel T``: LOI point sampling at the frontend's shapes,
    f32 and bf16 maps, points on and beyond the borders, vs the plain version
-   (f32 ≤1e-5 abs; bf16 ≤1e-5 relative to the map's max).
+   (f32 ≤1e-5 abs; bf16 ≤1e-5 relative to the map's max). These entry points
+   no longer run on the path: ``loi_features`` does their work there.
+   ``kernel LOI``: ``loi_features``, the stage-1 head's whole sampling for
+   both views in one launch, at the path's shapes (2 views, 512 lines, 300
+   junctions, out-of-range pair indices, points on and beyond the borders)
+   vs its plain version, every map/output type pair: f32 output ≤1e-5 abs
+   (f32 maps) or ≤1e-5 of the map's max (bf16 maps), bf16 output within one
+   bf16 ulp, and how many values are not bit-equal (compiled without FMA
+   contraction, none should be); two runs bit-equal; a CUDA-graph replay
+   gives the eager bits;
+   a non-contiguous or wrongly typed operand raises. Then each
+   instantiation's registers, the kernel's time, eager time, plain time and
+   bound, the time of the six-launch per-view sequence it replaced
+   (:func:`loi_unfused`) and an empty kernel's (the launch floor), and the
+   sweep of lines (warps) per block, 1-8.
 4. ``kernel P``: the whole-solver tracking kernel vs its plain version on
    synthetic problems made from a seed: the kernel's full size (512 points,
    128 lines), the path's shape (256 points, one masked line), a fixed pose
@@ -52,12 +66,13 @@ without a result line):
    and ``load_map``. f32 gates: the oracle's keyframe ids, every pose within
    0.02 m / 5e-3, landmark counts within 5 %; bf16: every pose within 0.05 m.
    The launch counts are set to 0 before the run and read after it: a tracked
-   frame must launch R 1, B 2, T 4, P 1, F 36.
+   frame must launch R 1, ``loi_features`` 1, P 1, F 36, B and T 0.
 9. ``path``: every launch count set to 0, then rectify (kernel R) →
-   ``FrontendStep`` (kernels B, T) on one pair; each kernel must have run.
-   The same again for the f32 program. Then the same for one tracked frame,
-   which must launch R once, B twice, T four times and P once. Then the
-   per-frame times over 20 frames, bf16 and f32.
+   ``FrontendStep`` (``loi_features``) on one pair, which must launch R and
+   ``loi_features`` once each and B and T never. The same again for the f32
+   program. Then the same for one tracked frame, which must launch R,
+   ``loi_features`` and P once each. Then the per-frame times over 20
+   frames, bf16 and f32.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -107,14 +122,15 @@ FLASH_GATES = {"f32": 1e-5, "bf16_rel": 2e-2}
 # the VO run against the JAX MapBuilder's (f32 features, f64 geometry)
 VO_GATES = {"f32": {"t": 0.02, "R": 5e-3, "count_rel": 0.05}, "bf16": {"t": 0.05}}
 # launches of one tracked frame (no keyframe) of the VO path with use_flash
-FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 2, "bilerp_points_t": 4, "pose_only_fast": 1,
-                  "flash_mha": 36}
+FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": 1,
+                  "pose_only_fast": 1, "flash_mha": 36}
 # f32 operations one row costs, counted from csrc/pose_gn.cu: residuals +
 # six Jacobian columns + the 27 accumulators per LM iteration, and one robust
 # cost evaluation (the trial cost, a round's first cost, the relabel)
 POSE_FLOPS = {"point_iter": 400, "point_cost": 45, "line_iter": 1100, "line_cost": 110}
 POSE_THREADS = (64, 128, 256)  # kernel P's block sizes (csrc/pose_gn.cu instantiations)
 FLASH_Q_WARPS = (1, 2, 3, 4)   # kernel F's bf16 query tiles of 16 rows per block
+LOI_WARPS = (1, 2, 4, 8)       # loi_features' lines (one warp each) per block
 
 
 # ---------------------------------------------------------------------------
@@ -480,8 +496,9 @@ def _border_points(rng, shape, lo, hi, size):
     n = int(np.prod(shape))
     v = rng.uniform(lo, hi, n).astype(np.float32)
     edge = np.asarray([-1.5, -0.5, 0.0, size - 1.0, size - 0.5, size + 1.0], np.float32)
-    v[:len(edge)] = edge
-    v[len(edge):2 * len(edge)] = edge[::-1]
+    m = min(len(edge), n // 2)
+    v[:m] = edge[:m]
+    v[m:2 * m] = edge[::-1][:m]
     return v.reshape(shape)
 
 
@@ -550,6 +567,217 @@ def phase_kernel_bt(dev, which):
             "replaces": f"airslam_tpu/ops/bilerp_pallas.py:{line}",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def loi_unfused(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
+                out_dtype=None):
+    """The stage-1 head's sampling as it ran before ``loi_features``, view
+    by view: kernel B at the junctions, the clamp and row gathers, the
+    interior ramps and kernel T on each 4-channel map, the permutes, both
+    concatenations and casts (``feats`` and ``res_in``) — for two views six
+    kernel launches and the glue around them. Kept to be timed beside the
+    fused kernel and held against it. Operands as ``loi_features``; returns
+    [(feats (L, 256 + 8·T), res_in (L, 8·T))] per view."""
+    import torch
+
+    from airslam_tpu_torch.ops.bilerp import bilerp_points, bilerp_points_t
+
+    out_dtype = out_dtype or loi.dtype
+    n_lines = lines.shape[1]
+
+    def interior(fmap, seg):
+        x = seg[:, 0:1] * t_fwd[None, :] + seg[:, 2:3] * t_rev[None, :] - 0.5
+        y = seg[:, 1:2] * t_fwd[None, :] + seg[:, 3:4] * t_rev[None, :] - 0.5
+        out = bilerp_points_t(fmap, x.contiguous(), y.contiguous())  # (C, L, T)
+        return out.permute(1, 0, 2).reshape(n_lines, -1)
+
+    views = []
+    for v in range(loi.shape[0]):
+        f_junc = bilerp_points(loi[v], junc_xy[v, :, 0] - 0.5, junc_xy[v, :, 1] - 0.5)
+        idx = pair_idx[v].clamp(0, junc_xy.shape[1] - 1)
+        f_thin = interior(loi_thin[v], lines[v])
+        f_aux = interior(loi_aux[v], prop_lines[v])
+        feats = torch.cat([f_junc[idx[:, 0]], f_junc[idx[:, 1]], f_thin, f_aux], dim=-1)
+        views.append((feats.to(out_dtype), torch.cat([f_thin, f_aux], dim=-1).to(out_dtype)))
+    return views
+
+
+def loi_inputs(rng, n_views, n_lines, n_junc, dtype, device="cpu", n_interior=30):
+    """The stage-1 head's operands from a seed: LOI, thin and aux maps
+    (V, 128, 128, C) in ``dtype``; junctions on and beyond the borders;
+    pair indices with out-of-range ones (clamped by the head); lines at the
+    clamped junctions and proposals around them, both crossing the borders;
+    the head's interior ramps. Returns the ``loi_features`` operands in
+    order."""
+    import torch
+
+    def t(a, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dt or torch.float32)
+
+    maps = [t(rng.randn(n_views, 128, 128, c).astype(np.float32), dtype) for c in (128, 4, 4)]
+    junc = _border_points(rng, (n_views, n_junc, 2), -1.5, 129.5, 128)
+    pairs = rng.randint(0, n_junc, (n_views, n_lines, 2)).astype(np.int64)
+    odd = np.asarray([[n_junc - 1, 0], [n_junc, -1], [-5, n_junc + 7]], np.int64)
+    pairs[:, :len(odd)] = odd[:n_lines]
+    ends = np.take_along_axis(junc, np.clip(pairs, 0, n_junc - 1).reshape(n_views, -1, 1),
+                              axis=1).reshape(n_views, n_lines, 4)
+    props = ends + rng.randn(n_views, n_lines, 4).astype(np.float32) * 3
+    n = n_interior
+    ramps = (np.arange(1, n + 1, dtype=np.float32) / (n + 1),
+             np.arange(n, 0, -1, dtype=np.float32) / (n + 1))
+    return (*maps, t(junc), t(pairs, torch.int64), t(ends), t(props.astype(np.float32)),
+            t(ramps[0]), t(ramps[1]))
+
+
+def bf16_ulps(a, b):
+    """Distance of two bf16 tensors in units in the last place (the bf16
+    values between them, plus one), elementwise."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def loi_gate(got, want, fmap):
+    """(error, limit, passed) of ``loi_features`` against its plain version:
+    a bf16 output in bf16 ulps (≤ 1), an f32 output in max abs, ≤ 1e-5 for
+    f32 maps and ≤ 1e-5 of the map's max for bf16 ones."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        err = int(bf16_ulps(got, want).max()) if got.numel() else 0
+        return err, 1, err <= 1
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    tol = 1e-5 * (1.0 if fmap.dtype == torch.float32 else float(fmap.float().abs().max()))
+    return err, tol, err <= tol
+
+
+def _loi_work(ops, out):
+    """(bytes, f32 operations) of one ``loi_features`` call: every small
+    operand read once, the texels of the three maps these points touch (per
+    view), the output written once; 9 operations per sample and channel
+    (csrc/bilerp.cu combine) and about 20 per point for its taps."""
+    loi, thin, aux, junc, pairs, lines, props, t_fwd, t_rev = ops
+    size = loi.element_size()
+    n_views, n_lines = lines.shape[:2]
+    nt = t_fwd.shape[0]
+    n_bytes = sum(t.numel() * t.element_size() for t in ops[3:]) + out.numel() * out.element_size()
+    for v in range(n_views):
+        idx = pairs[v].clamp(0, junc.shape[1] - 1).unique()
+        jx, jy = junc[v, idx, 0] - 0.5, junc[v, idx, 1] - 0.5
+        n_bytes += _distinct_taps(jx, jy, 128, 128) * 128 * size
+        for seg, fmap in ((lines[v], thin), (props[v], aux)):
+            x = seg[:, 0:1] * t_fwd[None] + seg[:, 2:3] * t_rev[None] - 0.5
+            y = seg[:, 1:2] * t_fwd[None] + seg[:, 3:4] * t_rev[None] - 0.5
+            n_bytes += _distinct_taps(x, y, 128, 128) * 4 * size
+    n_samples_c = n_views * n_lines * (2 * 128 + 2 * 4 * nt)
+    n_points = n_views * n_lines * (2 + 2 * nt)
+    return n_bytes, n_samples_c * 9 + n_points * 20
+
+
+def phase_kernel_loi(dev):
+    """``loi_features`` against its plain version at the path's shapes, then
+    its times beside the sequence it replaced and the launch floor."""
+    import ctypes
+
+    import torch
+
+    from airslam_tpu_torch.ops import bilerp, cuda_build
+
+    f32, bf = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(3)
+    worst, notes, ops_by = {}, [], {}
+    for map_dtype in (f32, bf):
+        ops = loi_inputs(rng, 2, 512, 300, map_dtype, dev)
+        ops_by[map_dtype] = ops
+        for out_dtype in (f32, bf):
+            got = bilerp.loi_features(*ops, out_dtype=out_dtype)
+            again = bilerp.loi_features(*ops, out_dtype=out_dtype)
+            want = bilerp.loi_features_plain(*ops, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            label = f"maps {str(map_dtype)[6:]} -> {str(out_dtype)[6:]}"
+            _require(got.shape == want.shape == (2, 512, 496) and got.dtype == out_dtype,
+                     f"kernel LOI ({label}): output {tuple(got.shape)} {got.dtype}")
+            _require(torch.equal(got, again), f"kernel LOI ({label}): two runs differ")
+            err, tol, ok = loi_gate(got, want, ops[0])
+            _require(ok, f"kernel LOI ({label}) disagrees with its plain version: {err} > {tol}")
+            worst[(map_dtype, out_dtype)] = err
+            differ = int((got != want).sum())
+            notes.append((f"{label}: {err:.3e}" if out_dtype == f32 else f"{label}: {err} ulp")
+                         + f", {differ} of {got.numel()} values not bit-equal")
+    ops = ops_by[bf]  # the production program's types
+    eager = bilerp.loi_features(*ops).clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = bilerp.loi_features(*ops)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    _require(torch.equal(captured, eager), "kernel LOI: a CUDA-graph replay differs from eager")
+    def spoiled(i, t):
+        return ops[:i] + (t,) + ops[i + 1:]
+
+    bad = {"non-contiguous lines": spoiled(5, ops[5].transpose(0, 1).contiguous().transpose(0, 1)),
+           "int32 pair_idx": spoiled(4, ops[4].int()),
+           "f32 thin map beside bf16 ones": spoiled(1, ops[1].float())}
+    for what, args in bad.items():
+        try:
+            bilerp.loi_features(*args)
+        except ValueError:
+            continue
+        raise RuntimeError(f"kernel LOI took {what}")
+    print("kernel LOI: " + "; ".join(notes) + " (gates f32 out <=1e-5 abs, or <=1e-5 of the "
+          "map's max for bf16 maps; bf16 out <=1 ulp; two runs bit-equal; graph replay = eager; "
+          "bad operands raise)")
+    for map_dtype in (f32, bf):
+        for out_dtype in (f32, bf):
+            a = bilerp.kernel_attributes(map_dtype, out_dtype)
+            print(f"kernel LOI instantiation maps={str(map_dtype)[6:]} out={str(out_dtype)[6:]}: "
+                  f"registers={a['registers']} static_smem={a['static_smem']} "
+                  f"local_bytes={a['local_bytes']} threads={a['threads']}")
+
+    lib = cuda_build.library("bilerp")
+    lib.airslam_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.airslam_empty_launch.restype = ctypes.c_int
+
+    def empty():
+        _require(lib.airslam_empty_launch(torch.cuda.current_stream().cuda_stream) == 0,
+                 "the empty kernel did not launch")
+
+    times = {}
+    for label, dtype in (("bf16", bf), ("f32", f32)):
+        o = ops_by[dtype]
+        times[label] = dict(
+            ms=_time_ms(lambda: bilerp.loi_features(*o)),
+            eager_ms=_eager_ms(lambda: bilerp.loi_features(*o)),
+            plain_ms=_time_ms(lambda: bilerp.loi_features_plain(*o)),
+            unfused_ms=_time_ms(lambda: loi_unfused(*o)),
+            unfused_eager_ms=_eager_ms(lambda: loi_unfused(*o)))
+        times[label]["bound_ms"], times[label]["bound_by"] = _bound_ms(
+            *_loi_work(o, bilerp.loi_features(*o)))
+    floor_ms, floor_eager_ms = _time_ms(empty), _eager_ms(empty)
+    for label, t in times.items():
+        print(f"kernel LOI {label} (2 views, 512 lines, 300 junctions): ms={t['ms']:.5f} "
+              f"eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+              f"bound_ms={t['bound_ms']:.6f} ({t['bound_by']}) the per-view sequence it "
+              f"replaced (6 kernels + glue): ms={t['unfused_ms']:.5f} "
+              f"eager_ms={t['unfused_eager_ms']:.5f}")
+    print(f"empty kernel (launch floor): ms={floor_ms:.5f} eager_ms={floor_eager_ms:.5f}")
+    o = ops_by[bf]
+    sweep = {w: [] for w in LOI_WARPS}
+    for w in LOI_WARPS + LOI_WARPS[::-1]:  # in turns, so that a drift spreads over all
+        sweep[w].append(_time_ms(lambda: bilerp._launch_loi(*o, out_dtype=bf, warps=w)))
+    print("kernel LOI bf16 lines-per-block sweep ms: "
+          + " ".join(f"{w} ({-(-1024 // w)} blocks): {min(t):.5f}" for w, t in sweep.items()))
+    t = times["bf16"]
+    return {"name": "loi_features", "route": "cuda", "source": "airslam_tpu_torch/csrc/bilerp.cu",
+            "replaces": "airslam_tpu/ops/bilerp_pallas.py:45,124",
+            "max_abs_err": max(worst[(f32, f32)], worst[(bf, f32)]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
 
 
 def _pose_work(problem, rounds, iters):
@@ -807,13 +1035,13 @@ def phase_kernel_f(dev):
 
 
 def _counted():
-    """The five kernel wrappers, by the name their record carries."""
+    """The six kernel wrappers, by the name their record carries."""
     from airslam_tpu_torch.backend import pose_gn
     from airslam_tpu_torch.ops import attention, bilerp, remap as remap_mod
 
     return {fn.__name__: fn for fn in (remap_mod.remap, bilerp.bilerp_points,
-                                       bilerp.bilerp_points_t, pose_gn.pose_only_fast,
-                                       attention.flash_mha)}
+                                       bilerp.bilerp_points_t, bilerp.loi_features,
+                                       pose_gn.pose_only_fast, attention.flash_mha)}
 
 
 def _run_vo(builder, frames, rec, timed_ba=None):
@@ -1046,8 +1274,10 @@ def phase_path(dev, steps, builders, frames, grids_np):
 
     grids = torch.as_tensor(grids_np, device=dev)
     raw = torch.as_tensor(frames[0], device=dev)
-    counted = (remap_mod.remap, bilerp.bilerp_points, bilerp.bilerp_points_t)
+    counted = (remap_mod.remap, bilerp.loi_features, bilerp.bilerp_points, bilerp.bilerp_points_t)
     tracked = counted + (pose_gn.pose_only_fast,)
+    # B's and T's work runs inside loi_features on the path
+    want = {"remap": 1, "loi_features": 1, "bilerp_points": 0, "bilerp_points_t": 0}
 
     def frame(step):
         left, right = step.rectify(raw[0], raw[1], grids)
@@ -1063,8 +1293,8 @@ def phase_path(dev, steps, builders, frames, grids_np):
         launches[label] = {fn.__name__: fn.launches for fn in counted}
         tag = "kernels:" if label == "bf16" else "kernels f32:"
         print(tag + "".join(f" {k}={v}" for k, v in launches[label].items()))
-        _require(all(v > 0 for v in launches[label].values()),
-                 f"a kernel of the {label} path did not run: {launches[label]}")
+        _require(launches[label] == want,
+                 f"the {label} path launched {launches[label]}, not {want}")
         shapes = [(400, 2), (400, 2), (400,), (400,), (512, 4), (512,), (400, 256), (400,),
                   (2, 256, 2), (2, 256, 256), (2, 256)]
         _require([tuple(o.shape) for o in out] == shapes,
@@ -1075,7 +1305,7 @@ def phase_path(dev, steps, builders, frames, grids_np):
                  f"{label} path found no keypoints, lines or matches")
 
     # one tracked frame: the main path of the system after initialisation
-    want = {"remap": 1, "bilerp_points": 2, "bilerp_points_t": 4, "pose_only_fast": 1}
+    want = dict(want, pose_only_fast=1)
     lost = builders["bf16"].kf_config.lost_num_match
     tracked_launches = {}
     for label in ("bf16", "f32"):
@@ -1159,7 +1389,8 @@ def main() -> int:
     if only:
         frames, refs = oracle_pairs()
         short = {"r": lambda: phase_kernel_r(dev, grids_np), "b": lambda: phase_kernel_bt(dev, "B"),
-                 "t": lambda: phase_kernel_bt(dev, "T"), "p": lambda: phase_kernel_p(dev),
+                 "t": lambda: phase_kernel_bt(dev, "T"), "l": lambda: phase_kernel_loi(dev),
+                 "p": lambda: phase_kernel_p(dev),
                  "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev)}
         for name in short:
             if name in only:
@@ -1175,7 +1406,8 @@ def main() -> int:
         print(f"chip_smoke: phases {sorted(only)} ran; no result line for a partial run")
         return 3
     kernels = [phase_kernel_r(dev, grids_np), phase_kernel_bt(dev, "B"),
-               phase_kernel_bt(dev, "T"), phase_kernel_p(dev), phase_kernel_f(dev)]
+               phase_kernel_bt(dev, "T"), phase_kernel_loi(dev), phase_kernel_p(dev),
+               phase_kernel_f(dev)]
     frames, refs = oracle_pairs()
     steps = phase_slice(dev, frames, refs)
     builders = phase_tracking(dev, frames)
@@ -1183,10 +1415,12 @@ def main() -> int:
     launches = phase_vo(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in ("bilerp_points", "bilerp_points_t"):
+            k["on_path"] = f"inside loi_features ({launches['loi_features']} per tracked frame)"
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path")
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ Without ``--tracked`` it runs ``FrontendStep.rectify`` (kernel R) →
 ``chip_smoke.py``'s path phase does. With ``--tracked`` it initialises the
 port's ``MapBuilder`` (SuperPoint keypoints) on pair 0 and runs
 ``MapBuilder.track_frame`` on pair 1 against that keyframe: the per-frame
-tracking path with kernels R, B, T and P. With ``--vo`` it runs
+tracking path with kernels R, ``loi_features`` and P. With ``--vo`` it runs
 ``MapBuilder.add_input`` over the 8 stored frames of
 ``tests/data/torch_vo_oracle.npz`` (initialisation, tracking, four keyframe
 insertions with the local BA; a first pass warms up) and also counts the
@@ -16,15 +16,17 @@ LightGlue's attention through kernel F. It reports from ``torch.profiler``
 over 20 frames (``--vo``: the 8 frames of one pass):
 
 - per stage, the ``record_function`` ranges the port itself opens
-  (``rectify``, ``resize+plnet``, ``superpoint``, ``decode+loi``,
-  ``stereo+temporal match`` with ``lightglue`` and ``match`` inside it,
+  (``rectify``, ``resize+plnet``, ``superpoint``, ``decode+loi`` with the
+  stage-1 head's ``loi`` inside it, ``stereo+temporal match`` with
+  ``lightglue`` and ``match`` inside it,
   ``build_frame``, ``pnp``, ``pose_only``): the host time spent inside the
   range and the device (kernel) time of the kernels launched inside it, per
   frame;
 - kernels launched per frame, summed device time per frame, the device's busy
   share of the profiled wall time and of the unprofiled frame time, and the
-  kernels that take the most device time (the ctypes-launched kernels R, B,
-  T and P count in the totals but are not attributed to a range);
+  kernels that take the most device time (the ctypes-launched kernels R,
+  ``loi_features``, P and F count in the totals but are not attributed to a
+  range);
 - the per-frame wall time of the same frames without the profiler (CUDA
   events).
 
@@ -45,7 +47,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-RANGES = ("rectify", "resize+plnet", "superpoint", "decode+loi", "stereo+temporal match",
+RANGES = ("rectify", "resize+plnet", "superpoint", "decode+loi", "loi", "stereo+temporal match",
           "lightglue", "match", "build_frame", "pnp", "pose_only", "local_ba")
 
 

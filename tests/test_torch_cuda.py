@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (R, B, T, P, F) against their plain PyTorch versions.
+"""The port's CUDA kernels (R, B, T, loi_features, P, F) against their plain
+PyTorch versions.
 
 The kernel tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 without one. Where JAX (which ``tests/conftest.py`` imports) is not
@@ -49,7 +50,8 @@ def test_remap_kernel_equals_plain_on_euroc_grids(dev):
 @pytest.mark.parametrize("c,shape", [(128, (300,)), (4, (512, 30)), (7, (13,))])
 def test_bilerp_kernels_equal_plain(dev, dtype, c, shape):
     """B and T vs the plain version: 1e-5 abs for f32, 1e-5 of the map's max
-    for bf16 (same rounded weights; FMA contraction only)."""
+    for bf16 (same rounded weights; compiled without FMA contraction, so
+    equal in practice)."""
     rng = np.random.RandomState(c)
     fmap = torch.as_tensor(rng.randn(128, 128, c).astype(np.float32), device=dev).to(dtype)
     x = torch.as_tensor(rng.uniform(-1.5, 129.5, shape).astype(np.float32), device=dev)
@@ -62,6 +64,129 @@ def test_bilerp_kernels_equal_plain(dev, dtype, c, shape):
                                torch.movedim(want, -1, 0), rtol=0, atol=tol)
     with pytest.raises(ValueError):
         bilerp.bilerp_points(fmap.transpose(0, 1), x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [128, 4])
+def test_bilerp_kernels_on_an_unaligned_map(dev, dtype, c):
+    """A map that does not start on 16 bytes takes B's and T's scalar forms
+    and holds the same gates as the vector ones."""
+    rng = np.random.RandomState(c + 1)
+    base = torch.as_tensor(rng.randn(128 * 128 * c + 1).astype(np.float32), device=dev).to(dtype)
+    fmap = base[1:].view(128, 128, c)
+    assert fmap.data_ptr() % 16 and fmap.is_contiguous()
+    x = torch.as_tensor(chip_smoke._border_points(rng, (300,), -1.5, 129.5, 128), device=dev)
+    y = x.flip(0).contiguous()
+    want = bilerp.bilerp_plain(fmap, x, y)
+    tol = 1e-5 * (1.0 if dtype == torch.float32 else float(fmap.float().abs().max()))
+    torch.testing.assert_close(bilerp.bilerp_points(fmap, x, y), want, rtol=0, atol=tol)
+    torch.testing.assert_close(bilerp.bilerp_points_t(fmap, x, y), want.T, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("map_dtype", [torch.float32, torch.bfloat16], ids=["maps_f32", "maps_bf16"])
+@pytest.mark.parametrize("n_junc", [1, 300])
+@pytest.mark.parametrize("n_lines", [1, 31, 512])
+@pytest.mark.parametrize("n_views", [1, 2])
+def test_loi_features_kernel_equals_plain(dev, n_views, n_lines, n_junc, map_dtype, out_dtype):
+    """One launch against the plain version (out-of-range pair indices,
+    points on and beyond the borders, proposals up to about 10 px out where
+    the unclamped weights extrapolate): an f32 output ≤ 1e-5 abs from f32
+    maps and ≤ 1e-5 of the map's max from bf16 maps; a bf16 output within
+    one bf16 ulp; two runs bit-equal. Compiled without FMA contraction, the
+    kernel rounds as the plain version does, so the gaps are 0 in practice."""
+    rng = np.random.RandomState(n_views * 1000 + n_lines + n_junc)
+    ops = chip_smoke.loi_inputs(rng, n_views, n_lines, n_junc, map_dtype, dev)
+    before = bilerp.loi_features.launches
+    got = bilerp.loi_features(*ops, out_dtype=out_dtype)
+    assert bilerp.loi_features.launches == before + 1
+    again = bilerp.loi_features(*ops, out_dtype=out_dtype)
+    want = bilerp.loi_features_plain(*ops, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n_views, n_lines, 496) and got.dtype == out_dtype
+    assert torch.equal(got, again)
+    err, tol, ok = chip_smoke.loi_gate(got, want, ops[0])
+    assert ok, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loi_features_kernel_under_graph_capture(dev, dtype):
+    """Captured in a CUDA graph and replayed, the kernel gives its eager bits."""
+    ops = chip_smoke.loi_inputs(np.random.RandomState(5), 2, 512, 300, dtype, dev)
+    eager = bilerp.loi_features(*ops).clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bilerp.loi_features(*ops)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_loi_features_refuses_what_the_kernel_does_not_take(dev):
+    """A non-contiguous, wrongly typed, misshapen or misaligned operand
+    raises before any launch; no lines is an empty row block and no launch."""
+    ops = chip_smoke.loi_inputs(np.random.RandomState(6), 2, 31, 300, torch.bfloat16, dev)
+    loi = ops[0]
+    shifted = torch.empty(loi.numel() + 1, dtype=loi.dtype, device=dev)[1:].view(loi.shape)
+    shifted.copy_(loi)
+    spoiled = {
+        "non-contiguous lines": {5: ops[5].transpose(0, 1).contiguous().transpose(0, 1)},
+        "int32 pair_idx": {4: ops[4].int()},
+        "f32 aux beside bf16 maps": {2: ops[2].float()},
+        "f64 junctions": {3: ops[3].double()},
+        "3 views of junctions": {3: torch.cat([ops[3], ops[3][:1]])},
+        "64-channel LOI map": {0: loi[..., :64].contiguous()},
+        "a map off 16 bytes": {0: shifted},
+        "33 interior points": {7: torch.zeros(33, device=dev), 8: torch.zeros(33, device=dev)},
+    }
+    before = bilerp.loi_features.launches
+    for what, change in spoiled.items():
+        bad = tuple(change.get(i, t) for i, t in enumerate(ops))
+        with pytest.raises(ValueError):
+            bilerp.loi_features(*bad)
+        assert bilerp.loi_features.launches == before, what
+    with pytest.raises(ValueError):
+        bilerp.loi_features(*ops, out_dtype=torch.float16)
+    empty = tuple(t[:, :0] if i in (4, 5, 6) else t for i, t in enumerate(ops))
+    assert bilerp.loi_features(*empty).shape == (2, 0, 496)
+    assert bilerp.loi_features.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loi_head_batched_on_the_card(dev, dtype):
+    """The stage-1 head with the shipped weights: two views in one call (one
+    ``loi_features`` launch) against the same head view by view and against
+    the batched head's plain sampling on the card. f32 ≤ 1e-5 on the
+    scores; bf16 ≤ 2e-2 (a bf16 input row may differ by one ulp, and the MLP
+    over 2·L rows may sum in another order)."""
+    from airslam_tpu_torch.models import weights as wio
+    from airslam_tpu_torch.models.plnet import LoiHeadS1
+
+    ops = chip_smoke.loi_inputs(np.random.RandomState(8), 2, 512, 300, dtype, dev)
+    loi, thin, aux, junc, pairs, lines, props = ops[:7]
+    head = LoiHeadS1(dtype=dtype)
+    head.load_state_dict(wio.loi_s1_from_flax(wio.load_npz(wio.checkpoint_path("plnet_s0.npz"))["loi"]))
+    head.to(dev)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    before = bilerp.loi_features.launches
+    with torch.no_grad():
+        got, _ = head(lines, props, loi, thin, aux, junc_xy=junc, pair_idx=pairs)
+        assert bilerp.loi_features.launches == before + 1
+        for v in range(2):
+            one, _ = head(lines[v], props[v], loi[v], thin[v], aux[v], junc_xy=junc[v],
+                          pair_idx=pairs[v])
+            assert float((one - got[v]).abs().max()) <= tol
+        cpu = head.to("cpu")
+        want, _ = cpu(*(t.cpu() for t in (lines, props, loi, thin, aux)), junc_xy=junc.cpu(),
+                      pair_idx=pairs.cpu())
+    assert float((got.cpu() - want).abs().max()) <= tol
 
 
 @pytest.mark.cuda
@@ -305,3 +430,11 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(2, 8, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         attention.flash_mha(q, q, q)
+
+
+def test_loi_wrapper_refuses_non_cuda_devices():
+    """Runs anywhere: operands on neither the CPU nor a CUDA device raise
+    before any build, and never go down the plain path."""
+    ops = chip_smoke.loi_inputs(np.random.RandomState(9), 1, 3, 4, torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bilerp.loi_features(*(t.to("meta") for t in ops))

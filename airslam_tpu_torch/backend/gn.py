@@ -1,5 +1,5 @@
 """Batched Levenberg-Marquardt bundle adjustment with Schur-complement
-elimination, for vision-only problems.
+elimination.
 
 Port of ``airslam_tpu/backend/gn.py`` (which replaces g2o's sparse optimizer,
 ``LocalmapOptimization``/``FrameOptimization`` in
@@ -12,8 +12,9 @@ grid:
   (``torch.func``), exact and batched;
 - landmark blocks (3×3 points, 4×4 lines) are inverted in closed form, and
   the Schur complement is a handful of contractions;
-- the reduced camera system (F·6 dims for a sliding window) is solved dense,
-  by Cholesky;
+- the reduced camera system is solved dense, by Cholesky: F·6 dims for a
+  vision-only window, F·15 + 2 with IMU factors (pose, velocity and biases
+  per frame, and the 2-dof gravity direction);
 - fixed vertices are handled by masking their Jacobian columns and pinning
   the diagonal, so one shape serves every fix pattern.
 
@@ -22,9 +23,9 @@ LM damping/accept logic follows g2o's Levenberg strategy (λ ← λ/3 on accept,
 threshold. The chi²-gating schedule (optimize(5) → drop outlier observations →
 optimize(15)) is driven by ``backend/windows.py``.
 
-The IMU branch of the assembly (15 dof per frame and the gravity border)
-belongs to the stereo-inertial slice and raises ``NotImplementedError``.
-Nothing in the LM loop reads a value back to the host: accept/reject are
+The IMU factors' residuals come from ``vmap(jacfwd)`` over the factors,
+and each factor's 15/15/2 sub-blocks go into the (F, 15, F, 15) frame block
+grid by one-hot contractions, as in the JAX package. Nothing in the LM loop reads a value back to the host: accept/reject are
 ``torch.where`` on device scalars (only ``early_exit`` reads one flag per
 step). Matrix products run in full float32 (TF32 off, see :func:`full_f32`).
 """
@@ -49,9 +50,6 @@ VEL_DIM = 3
 BIAS_DIM = 6
 FRAME_DIM = POSE_DIM + VEL_DIM + BIAS_DIM  # 15
 GRAV_DIM = 2
-
-_IMU_SLICE = "belongs to the stereo-inertial slice (ROADMAP queue 3)"
-
 
 @contextlib.contextmanager
 def full_f32():
@@ -130,30 +128,34 @@ class BAConfig(NamedTuple):
 
 
 _BOOL_LEAVES = ("pose_fixed", "vel_fixed", "point_fixed", "point_obs_mask",
-                "line_fixed", "line_obs_stereo", "line_obs_mask")
+                "line_fixed", "line_obs_stereo", "line_obs_mask", "mask")
+_INDEX_LEAVES = ("idx_i", "idx_j")
 
 
 def problem_from_numpy(problem, dtype=torch.float32, device="cpu") -> BAProblem:
     """A ``BAProblem`` of tensors from one whose leaves are numpy arrays (or
     anything ``np.asarray`` reads, e.g. the JAX package's problem pulled to the
-    host): float leaves in ``dtype``, masks as bool, on ``device``. The leaves
-    are matched by field name; the IMU factors are not carried (the F=1
-    tracking problem has none)."""
-    if getattr(problem, "imu", None) is not None:
-        raise NotImplementedError(
-            "IMU factors belong to the stereo-inertial slice (ROADMAP queue 3)")
+    host): float leaves in ``dtype``, masks as bool, factor indices as int64,
+    on ``device``. The leaves are matched by field name, the IMU factors'
+    too."""
 
     def leaf(name, value):
         a = np.asarray(value)
         if name in _BOOL_LEAVES:
             return torch.as_tensor(a.astype(bool), device=device)
+        if name in _INDEX_LEAVES:
+            return torch.as_tensor(a.astype(np.int64), device=device)
         return torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
 
-    frames = FrameStates(*(leaf(n, getattr(problem.frames, n)) for n in FrameStates._fields))
+    def leaves(container, cls):
+        return cls(*(leaf(n, getattr(container, n)) for n in cls._fields))
+
+    imu = getattr(problem, "imu", None)
     fields = {n: leaf(n, getattr(problem, n)) for n in BAProblem._fields
               if n not in ("frames", "imu", "g_value")}
-    return BAProblem(frames=frames, imu=None, g_value=float(np.asarray(problem.g_value)),
-                     **fields)
+    return BAProblem(frames=leaves(problem.frames, FrameStates),
+                     imu=None if imu is None else leaves(imu, IMUFactors),
+                     g_value=float(np.asarray(problem.g_value)), **fields)
 
 
 def _jac_with_value(f, n, dtype=None, device=None):
@@ -277,6 +279,46 @@ def _line_grid_residuals(problem: BAProblem, intr, with_jac: bool):
     return r, row_mask, Jc, Jl
 
 
+def _imu_residuals(problem: BAProblem, with_jac: bool):
+    return imu_residuals(problem.frames, problem.imu, problem.Rwg, with_jac, problem.g_value)
+
+
+def imu_residuals(fr: FrameStates, imu: IMUFactors, Rwg, with_jac: bool, g_value=9.81):
+    """Residuals (K, 15) = the 9-d preintegration residual and the 6-d bias
+    random walk, and with ``with_jac`` their Jacobians (K, 15, 32) (else
+    None). Delta layout per factor: (frame_i 15 | frame_j 15 | gravity 2).
+    The frames' states are gathered per factor before the map over the
+    factors."""
+    dtype, dev = fr.twb.dtype, fr.twb.device
+    ii, jj = imu.idx_i.long(), imu.idx_j.long()
+    per_factor = (fr.Rwb[ii], fr.twb[ii], fr.vel[ii], fr.bg[ii], fr.ba[ii],
+                  fr.Rwb[jj], fr.twb[jj], fr.vel[jj], fr.bg[jj], fr.ba[jj],
+                  imu.dR, imu.dV, imu.dP, imu.JRg, imu.JVg, imu.JVa, imu.JPg, imu.JPa,
+                  imu.bg_lin, imu.ba_lin, imu.dT)
+
+    def one(Ri, ti, vi, bgi, bai, Rj, tj, vj, bgj, baj, *pre):
+        def f(delta):
+            di, dj, dg = delta[0:15], delta[15:30], delta[30:32]
+            Ri2, ti2 = res.retract_pose(Ri, ti, di[0:6])
+            Rj2, tj2 = res.retract_pose(Rj, tj, dj[0:6])
+            bgj2 = bgj + dj[9:12]
+            baj2 = baj + dj[12:15]
+            Rwg2 = Rwg @ lie.so3_exp(torch.cat([dg, dg.new_zeros(1)]))
+            r9 = res.imu_residual(Ri2, ti2, vi + di[6:9], Rj2, tj2, vj + dj[6:9], bgj2, baj2,
+                                  *pre, Rwg2, g_value)
+            # bias random walk: bg_j − bg_i, ba_j − ba_i (EdgeGyr/EdgeAcc)
+            r = torch.cat([r9, bgj2 - (bgi + di[9:12]), baj2 - (bai + di[12:15])])
+            return r, r
+
+        if with_jac:
+            J, (r, _) = _jac_with_value(f, 32, dtype, dev)
+            return r, J.to(dtype)
+        return (f(torch.zeros(32, dtype=dtype, device=dev))[0],)
+
+    out = torch.func.vmap(one)(*per_factor)
+    return out[0], (out[1] if with_jac else None)
+
+
 # ---------------------------------------------------------------------------
 # chi² and robust cost
 # ---------------------------------------------------------------------------
@@ -373,8 +415,6 @@ def _thresholds(flag, hi: float, lo: float, dtype):
 
 
 def total_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
-    if problem.imu is not None:
-        raise NotImplementedError("the IMU terms of the window cost " + _IMU_SLICE)
     pchi2, _ = point_chi2(problem, intr)
     dtype = pchi2.dtype
     is_stereo = problem.point_obs[..., 2] >= 0
@@ -384,9 +424,23 @@ def total_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
     lthr = _thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
     active_l = problem.line_obs_mask
     if robust:
-        return _huber_cost(pchi2, pthr, active_p) + _huber_cost(lchi2, lthr, active_l)
-    return (torch.where(active_p, pchi2, torch.zeros_like(pchi2)).sum()
-            + torch.where(active_l, lchi2, torch.zeros_like(lchi2)).sum())
+        cost = _huber_cost(pchi2, pthr, active_p) + _huber_cost(lchi2, lthr, active_l)
+    else:
+        cost = (torch.where(active_p, pchi2, torch.zeros_like(pchi2)).sum()
+                + torch.where(active_l, lchi2, torch.zeros_like(lchi2)).sum())
+    if problem.imu is not None:
+        r, _ = _imu_residuals(problem, with_jac=False)
+        r9, rw = r[:, :9], r[:, 9:]
+        m = problem.imu.mask
+        c_imu = torch.einsum("ki,kij,kj->k", r9, problem.imu.info * cfg.imu_info_scale, r9)
+        c_walk = torch.einsum("ki,kij,kj->k", rw, problem.imu.info_walk, rw)
+        if robust:
+            # Huber delta² = 16.92 on the 9-d residual (g2o_optimization.cc:321)
+            cost = cost + _huber_cost(c_imu, 16.92, m)
+        else:
+            cost = cost + torch.where(m, c_imu, torch.zeros_like(c_imu)).sum()
+        cost = cost + torch.where(m, c_walk, torch.zeros_like(c_walk)).sum()
+    return cost
 
 
 # ---------------------------------------------------------------------------
@@ -400,9 +454,8 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
 
     Vision-only: velocity/bias rows are touched ONLY by IMU factors, so the
     reduced system is the F·6 pose block (exact, the dropped rows carry no
-    coupling), and gravity has no gradient."""
-    if problem.imu is not None:
-        raise NotImplementedError("the IMU branch of the window assembly " + _IMU_SLICE)
+    coupling), and gravity has no gradient. With IMU factors the system is
+    the (F, 15, F, 15) frame block grid plus the 2-dof gravity border."""
     f = problem.frames.Rwb.shape[0]
     dtype, dev = problem.points.dtype, problem.points.device
 
@@ -453,6 +506,8 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
 
     Hcc = Hcc_pt + Hcc_ln  # (F, 6, 6)
     bc = bc_pt + bc_ln
+    if problem.imu is not None:
+        Hff, bf, Hfg, Hgg, bg_grav = _imu_blocks(problem, cfg, Hcc, bc, robust)
 
     # -- landmark-block damping + closed-form inverses ---------------------
     def damped(Hb, k):
@@ -474,14 +529,26 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
     bs = ((Y * bp[:, None, None, :]).sum(dim=(0, 3))
           + (Yl * bl[:, None, None, :]).sum(dim=(0, 3)))  # (F, 6)
 
-    Htop = _blockdiag(Hcc) - S_big6
-    Htop = Htop + torch.diag(lam * torch.ones(n, dtype=dtype, device=dev))
-    diag = torch.diagonal(Htop)
-    Htop = Htop + torch.diag((diag < 1e-10).to(dtype))
-    dxc = solve_spd(Htop, (bc - bs).reshape(-1)).reshape(f, POSE_DIM)
-    dx_frames = torch.cat(
-        [dxc, torch.zeros((f, FRAME_DIM - POSE_DIM), dtype=dtype, device=dev)], dim=1)
-    dg = torch.zeros(GRAV_DIM, dtype=dtype, device=dev)
+    if problem.imu is not None:
+        # fold the landmark Schur complement into the pose sub-blocks, then
+        # densify (pure layout) with the gravity border
+        Hff[:, :POSE_DIM, :, :POSE_DIM] += -S_big6.reshape(f, POSE_DIM, f, POSE_DIM)
+        bf[:, :POSE_DIM] += -bs
+        n = f * FRAME_DIM
+        Hfg2 = Hfg.reshape(n, GRAV_DIM)
+        H = torch.cat([torch.cat([Hff.reshape(n, n), Hfg2], dim=1),
+                       torch.cat([Hfg2.T, Hgg], dim=1)])
+        b = torch.cat([bf.reshape(-1), bg_grav])
+        dx = solve_spd(_damped_pinned(H, lam), b)
+        dx_frames = dx[:n].reshape(f, FRAME_DIM)
+        dg = dx[n:]
+        dxc = dx_frames[:, :POSE_DIM]
+    else:
+        Htop = _blockdiag(Hcc) - S_big6
+        dxc = solve_spd(_damped_pinned(Htop, lam), (bc - bs).reshape(-1)).reshape(f, POSE_DIM)
+        dx_frames = torch.cat(
+            [dxc, torch.zeros((f, FRAME_DIM - POSE_DIM), dtype=dtype, device=dev)], dim=1)
+        dg = torch.zeros(GRAV_DIM, dtype=dtype, device=dev)
 
     # -- back-substitute landmarks ----------------------------------------
     gp = bp - (Wcp * dxc[None, :, :, None]).sum(dim=(1, 2))  # (P, 3)
@@ -489,6 +556,74 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
     dp = (Hpp_inv * gp[:, None, :]).sum(dim=2)
     dl = (Hll_inv * gl[:, None, :]).sum(dim=2)
     return dx_frames, dg, dp, dl
+
+
+def _damped_pinned(H, lam):
+    """H + λI, then every diagonal entry still under 1e-10 (a fixed or
+    unobserved dof) pinned by adding 1."""
+    H = H + torch.diag(lam * torch.ones(H.shape[0], dtype=H.dtype, device=H.device))
+    return H + torch.diag((torch.diagonal(H) < 1e-10).to(H.dtype))
+
+
+def _imu_blocks(problem: BAProblem, cfg: BAConfig, Hcc, bc, robust: bool):
+    """The VI system in block layout before the Schur fold: the frame block
+    grid Hff (F, 15, F, 15) holding the vision pose blocks and every IMU
+    factor's 15/15 sub-blocks, its right side bf (F, 15), the gravity border
+    Hfg (F, 15, 2), Hgg (2, 2) and its right side (2,). Each factor's
+    sub-blocks go into frames i and j by one-hot contractions (no scatter),
+    with the columns of fixed poses, fixed velocity/bias and a pinned gravity
+    masked."""
+    f = Hcc.shape[0]
+    dtype, dev = Hcc.dtype, Hcc.device
+    FD = FRAME_DIM
+    Hff = torch.zeros((f, FD, f, FD), dtype=dtype, device=dev)
+    Hff[:, :POSE_DIM, :, :POSE_DIM] += torch.einsum(
+        "fg,fab->fagb", torch.eye(f, dtype=dtype, device=dev), Hcc)
+    bf = torch.zeros((f, FD), dtype=dtype, device=dev)
+    bf[:, :POSE_DIM] += bc
+
+    imu = problem.imu
+    ir, iJ = _imu_residuals(problem, True)  # (K, 15), (K, 15, 32)
+    k = ir.shape[0]
+    info9 = imu.info * cfg.imu_info_scale
+    if robust:
+        c_imu = torch.einsum("ki,kij,kj->k", ir[:, :9], info9, ir[:, :9])
+        wi = res.huber_weight(c_imu, torch.full_like(c_imu, 16.92))
+    else:
+        wi = torch.ones(k, dtype=dtype, device=dev)
+    wi = wi * imu.mask
+    # information for all 15 residual rows: blockdiag(info9·w, info_walk)
+    big_info = torch.zeros((k, 15, 15), dtype=dtype, device=dev)
+    big_info[:, :9, :9] = info9 * wi[:, None, None]
+    big_info[:, 9:15, 9:15] = imu.info_walk * imu.mask[:, None, None].to(dtype)
+
+    # column masks: fixed frames / fixed vel+bias / fixed gravity
+    ii, jj = imu.idx_i.long(), imu.idx_j.long()
+    frame_cols = torch.cat([(~problem.pose_fixed).to(dtype)[:, None].expand(f, POSE_DIM),
+                            (~problem.vel_fixed).to(dtype)[:, None].expand(f, FD - POSE_DIM)],
+                           dim=1)  # (F, 15)
+    g_cols = (problem.gravity_free * torch.ones(GRAV_DIM, dtype=dtype, device=dev)).expand(k, -1)
+    iJ = iJ * torch.cat([frame_cols[ii], frame_cols[jj], g_cols], dim=1)[:, None, :]
+
+    JtW = torch.einsum("krc,krs->ksc", iJ, big_info)  # (K, 15, 32)
+    Hk = torch.einsum("ksc,ksd->kcd", JtW, iJ)  # (K, 32, 32)
+    bk = -torch.einsum("ksc,ks->kc", JtW, ir)  # (K, 32)
+
+    oh_i = torch.nn.functional.one_hot(ii, f).to(dtype)  # (K, F)
+    oh_j = torch.nn.functional.one_hot(jj, f).to(dtype)
+    Hii, Hij, Hjj = Hk[:, :FD, :FD], Hk[:, :FD, FD:2 * FD], Hk[:, FD:2 * FD, FD:2 * FD]
+    # Hk is symmetric (JᵀWJ with symmetric W): the (j,i) placement is the
+    # transpose of the (i,j) one
+    Tij = torch.einsum("kf,kab,kg->fagb", oh_i, Hij, oh_j)
+    Hff = Hff + (torch.einsum("kf,kab,kg->fagb", oh_i, Hii, oh_i)
+                 + Tij + Tij.permute(2, 3, 0, 1)
+                 + torch.einsum("kf,kab,kg->fagb", oh_j, Hjj, oh_j))
+    Hfg = (torch.einsum("kf,kac->fac", oh_i, Hk[:, :FD, 2 * FD:])
+           + torch.einsum("kf,kac->fac", oh_j, Hk[:, FD:2 * FD, 2 * FD:]))
+    Hgg = Hk[:, 2 * FD:, 2 * FD:].sum(0)
+    bf = bf + (torch.einsum("kf,ka->fa", oh_i, bk[:, :FD])
+               + torch.einsum("kf,ka->fa", oh_j, bk[:, FD:2 * FD]))
+    return Hff, bf, Hfg, Hgg, bk[:, 2 * FD:].sum(0)
 
 
 def _blockdiag(blocks):

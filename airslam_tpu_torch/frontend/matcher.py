@@ -57,7 +57,7 @@ class PointMatcher:
         if config.matcher != 0:
             raise NotImplementedError(
                 "matcher: 1 (SuperGlue) is not ported yet: it rides with relocalization "
-                "(ROADMAP queue 5)")
+                "(ROADMAP A.5, stage 3)")
         self.config = config
         self.device = resolve_device(device)
         self.model = LightGlue(dtype=config.dtype, use_flash=config.use_flash)

@@ -6,8 +6,9 @@ reference checkpoints the full object graph via boost binary archives
 content is a pickle of plain dicts, numpy arrays and Python scalars with
 explicit, versioned state dicts. No tensor and no class of either package
 gets into the file, so a map written by this package loads in the JAX package
-and the other way round. Preintegration state (stereo-inertial maps) is not
-carried yet.
+and the other way round. A keyframe's preintegration is saved as its raw
+(dt, acc, gyr) rows, noise values, biases and times, and restored into the
+loaded map's dtype and device.
 """
 
 from __future__ import annotations
@@ -19,13 +20,9 @@ import numpy as np
 
 SCHEMA_VERSION = 1
 
-_IMU_SLICE = "belongs to the stereo-inertial slice (ROADMAP queue 3)"
-
 
 def _frame_state(f) -> dict:
-    if f.preintegration is not None:
-        raise NotImplementedError("a keyframe's preintegration state " + _IMU_SLICE)
-    return dict(
+    d = dict(
         frame_id=f.frame_id, timestamp=f.timestamp, Twc=f.Twc,
         keypoints=f.keypoints, kp_scores=f.kp_scores, kp_desc=f.kp_desc,
         kp_mask=f.kp_mask, lines=f.lines, line_scores=f.line_scores,
@@ -39,14 +36,23 @@ def _frame_state(f) -> dict:
         previous_frame_id=f.previous_frame.frame_id if f.previous_frame else -1,
         bow_vector=f.bow_vector, junction_bow_vector=f.junction_bow_vector,
     )
+    if f.preintegration is not None:
+        p = f.preintegration
+        d["preintegration"] = dict(
+            noise_diag=p.noise_diag, walk_diag=p.walk_diag, bg=p.bg, ba=p.ba,
+            start_time=p.start_time, end_time=p.end_time,
+            rows_dt=np.asarray(p._rows_dt),
+            rows_acc=np.asarray(p._rows_acc).reshape(-1, 3),
+            rows_gyr=np.asarray(p._rows_gyr).reshape(-1, 3),
+        )
+    return d
 
 
-def _restore_frame(d: dict, camera):
+def _restore_frame(d: dict, camera, device, dtype):
+    from airslam_tpu_torch.core.imu import Preintegration
     from airslam_tpu_torch.frontend.detector import FrameFeatures
     from airslam_tpu_torch.slam.frame import Frame
 
-    if "preintegration" in d:
-        raise NotImplementedError("a keyframe's preintegration state " + _IMU_SLICE)
     feats = FrameFeatures(
         keypoints=d["keypoints"], kp_scores=d["kp_scores"], kp_desc=d["kp_desc"],
         kp_mask=d["kp_mask"], lines=d["lines"], line_scores=d["line_scores"],
@@ -69,6 +75,19 @@ def _restore_frame(d: dict, camera):
     f.ba = d["ba"]
     f.bow_vector = d.get("bow_vector")
     f.junction_bow_vector = d.get("junction_bow_vector")
+    if "preintegration" in d:
+        p = d["preintegration"]
+        pre = Preintegration(dtype=dtype, device=device)
+        pre.noise_diag = p["noise_diag"]
+        pre.walk_diag = p["walk_diag"]
+        pre.bg = p["bg"]
+        pre.ba = p["ba"]
+        pre.start_time = p["start_time"]
+        pre.end_time = p["end_time"]
+        pre._rows_dt = list(p["rows_dt"])
+        pre._rows_acc = list(p["rows_acc"])
+        pre._rows_gyr = list(p["rows_gyr"])
+        f.preintegration = pre
     return f, d["previous_frame_id"]
 
 
@@ -129,7 +148,7 @@ def load_map(path: str, camera=None, device=None, dtype=None):
     m.keyframe_ids = state["keyframe_ids"]
     prev_ids = {}
     for fid, fs in state["keyframes"].items():
-        fr, prev = _restore_frame(fs, camera)
+        fr, prev = _restore_frame(fs, camera, m.device, m.dtype)
         m.keyframes[fid] = fr
         prev_ids[fid] = prev
     for fid, prev in prev_ids.items():

@@ -63,7 +63,7 @@ class Frame:
         self.velocity = np.zeros(3)
         self.bg = np.zeros(3)
         self.ba = np.zeros(3)
-        self.preintegration: Optional["Preintegration"] = None  # core/imu.py, not ported yet
+        self.preintegration: Optional["Preintegration"] = None  # core/imu.py
         self.previous_frame: Optional["Frame"] = None
 
         # BoW data filled by loopclosure

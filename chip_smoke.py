@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo; ``path`` needs ``slice`` and ``tracking``) and then prints no
+path, vo, vio; ``path`` needs ``slice`` and ``tracking``) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -73,6 +73,24 @@ without a result line):
    program. Then the same for one tracked frame, which must launch R,
    ``loi_features`` and P once each. Then the per-frame times over 20
    frames, bf16 and f32.
+10. ``VIO``: the stereo-inertial path in f32 against
+   ``tests/data/torch_vio_oracle.npz`` (the JAX ``MapBuilder``, f64
+   geometry). (a) ``add_input`` with ``use_flash=True`` and each frame's IMU
+   batch over the 8 stored frames, on their camera with ``use_imu`` and
+   ``configs/camera/synth_stereo_imu.yaml``'s noise: the oracle's keyframe
+   ids, every pose within 0.02 m / 5e-3, landmark counts within 5 %, each
+   keyframe's preintegration (dT, dR, dV, dP) within 1e-4 relative; a
+   tracked frame launches R 1, ``loi_features`` 1, P 1, F 36 (the counts set
+   to 0 before the run). (b) ``track_features`` over the stored
+   initialization stream (tests/test_vio.py's, 41 frames, 400 keypoints, an
+   identity matcher): the same keyframe ids, the IMU initialized at the
+   oracle's keyframe, every pose within 0.02 m / 5e-3, landmark counts within
+   5 %, the last keyframe's gyro bias within 5e-3 of the truth, keyframe
+   speeds < 2 m/s, consecutive keyframe distances within 0.05 m of the
+   truth; kernel P launched once per tracked frame before the
+   initialization and never after. Prints the ms of a VI tracked frame
+   before and after the initialization, of the F=2 solve, of
+   ``initialize_imu`` and of a vision and a VI ``local_ba``.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -95,6 +113,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(REPO, "tests", "data", "torch_frontend_oracle.npz")
 TRACKING_ORACLE = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz")
 VO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
+VIO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -121,9 +140,14 @@ TRACK_GATES = {"f32": {"t": 2e-3, "R": 1e-3, "inliers_rel": 0.05},
 FLASH_GATES = {"f32": 1e-5, "bf16_rel": 2e-2}
 # the VO run against the JAX MapBuilder's (f32 features, f64 geometry)
 VO_GATES = {"f32": {"t": 0.02, "R": 5e-3, "count_rel": 0.05}, "bf16": {"t": 0.05}}
-# launches of one tracked frame (no keyframe) of the VO path with use_flash
+# launches of one tracked frame (no keyframe) of the VO path with use_flash;
+# a stereo-inertial frame before the IMU is initialized launches the same
 FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": 1,
                   "pose_only_fast": 1, "flash_mha": 36}
+# the stereo-inertial runs against the JAX MapBuilder's (f64): the VO gates on
+# poses and landmark counts, test_full_vio_pipeline's asserts on the
+# initialized state, and the keyframes' preintegration deltas
+VIO_GATES = {"bg": 5e-3, "speed": 2.0, "rel_t": 0.05, "preint_rel": 1e-4}
 # f32 operations one row costs, counted from csrc/pose_gn.cu: residuals +
 # six Jacobian columns + the 27 accumulators per LM iteration, and one robust
 # cost evaluation (the trial cost, a round's first cost, the relabel)
@@ -215,10 +239,12 @@ def euroc_grids():
     return np.stack(out)
 
 
-def camera_node(cam):
+def camera_node(cam, imu=None):
     """The ``Camera(node=...)`` dictionary of a rectified pinhole stereo rig
     whose body frame is the left camera. ``cam``: fx, fy, cx, cy, baseline,
-    depth_lower_thr, depth_upper_thr, max_y_diff, image_height, image_width."""
+    depth_lower_thr, depth_upper_thr, max_y_diff, image_height, image_width.
+    ``imu``: the IMU block of a stereo-inertial rig (rate_hz, the four noise
+    densities, g_value), which sets ``use_imu``."""
     intr = [float(cam[k]) for k in ("fx", "fy", "cx", "cy")]
     right = np.eye(4)
     right[0, 3] = float(cam["baseline"])
@@ -227,11 +253,14 @@ def camera_node(cam):
         return {"intrinsics": intr, "distortion_coeffs": [0.0] * 5, "T_type": 0,
                 "T": [float(v) for v in T.ravel()]}
 
-    return {"image_height": int(cam["image_height"]), "image_width": int(cam["image_width"]),
+    node = {"image_height": int(cam["image_height"]), "image_width": int(cam["image_width"]),
             "depth_lower_thr": float(cam["depth_lower_thr"]),
             "depth_upper_thr": float(cam["depth_upper_thr"]),
             "max_y_diff": float(cam["max_y_diff"]), "distortion_type": 0, "use_imu": 0,
             "cam0": view(np.eye(4)), "cam1": view(right)}
+    if imu is not None:
+        node.update({k: float(v) for k, v in imu.items()}, use_imu=1)
+    return node
 
 
 def tracking_oracle():
@@ -248,17 +277,18 @@ def tracking_oracle():
     return cam, init, pairs
 
 
-def tracking_builder(cam, dtype, device, identity_rectify=False, use_flash=False):
+def tracking_builder(cam, dtype, device, identity_rectify=False, use_flash=False, imu=None):
     """The port's visual-odometry ``MapBuilder`` (SuperPoint keypoints, PLNet
     lines, LightGlue, the shipped checkpoints, networks in ``dtype``) on the
-    camera the stored pairs were rendered with. ``identity_rectify``: give
+    camera the stored pairs were rendered with (stereo-inertial with the IMU
+    block ``imu``, see :func:`camera_node`). ``identity_rectify``: give
     the (already rectified) camera identity remap grids, so that a frame goes
     through the rectification kernel as a distorted rig's would, with its
     pixels unchanged."""
     from airslam_tpu_torch.core.camera import Camera
     from airslam_tpu_torch.entry import vo_map_builder
 
-    camera = Camera(node=camera_node(cam))
+    camera = Camera(node=camera_node(cam, imu))
     if identity_rectify:
         v, u = np.mgrid[0:camera.image_height, 0:camera.image_width].astype(np.float32)
         camera.map_left = camera.map_right = np.stack([u, v], axis=-1)
@@ -272,6 +302,92 @@ def vo_oracle():
     cam = {k[len("camera_"):]: float(z[k]) for k in z.files if k.startswith("camera_")}
     rec = {k: z[k] for k in z.files if not k.startswith("camera_") and k != "frames_u8"}
     return cam, z["frames_u8"].astype(np.float32) / np.float32(255.0), rec
+
+
+def vio_oracle():
+    """The stored stereo-inertial JAX runs: (camera values, IMU block, record
+    of arrays); the record's ``a_`` keys are the image path over the VO
+    oracle's frames, its ``b_`` keys the initialization stream."""
+    z = np.load(VIO_ORACLE)
+    cam = {k[len("camera_"):]: float(z[k]) for k in z.files if k.startswith("camera_")}
+    imu = {k[len("imu_"):]: float(z[k]) for k in z.files if k.startswith("imu_")
+           and k[len("imu_"):] in ("rate_hz", "gyroscope_noise_density", "gyroscope_random_walk",
+                                   "accelerometer_noise_density", "accelerometer_random_walk",
+                                   "g_value")}
+    return cam, imu, {k: z[k] for k in z.files}
+
+
+def imu_batch(t, gyr, acc, lo, hi):
+    """Rows ``lo:hi`` as the port's ``ImuData`` list (one frame's batch)."""
+    from airslam_tpu_torch.core.imu import ImuData
+
+    return [ImuData(float(t[k]), gyr[k], acc[k]) for k in range(int(lo), int(hi))]
+
+
+class StreamCamera:
+    """tests/test_vo_pipeline.py's FakeCamera with the stream's IMU noise: a
+    rectified 752×480 pinhole rig (fx = fy = 450, baseline 0.1 m), the body
+    frame the left camera."""
+
+    def __init__(self, noise):
+        self.fx = self.fy = 450.0
+        self.cx, self.cy, self.bf = 376.0, 240.0, 45.0
+        self.image_width, self.image_height = 752, 480
+        self.depth_lower_thr, self.depth_upper_thr = 0.1, 20.0
+        self.max_x_diff = self.bf / self.depth_lower_thr
+        self.min_x_diff = self.bf / self.depth_upper_thr
+        self.max_y_diff = 1.0
+        self.Tbc = self.Tcb = np.eye(4)
+        self.use_imu, self.g_value = True, 9.81
+        self.gyr_noise, self.acc_noise, self.gyr_walk, self.acc_walk = (float(v) for v in noise)
+
+    def intrinsics(self):
+        from airslam_tpu_torch.core.camera import Intrinsics
+
+        return Intrinsics(self.fx, self.fy, self.cx, self.cy, self.bf,
+                          self.image_width, self.image_height)
+
+    def rectify_maps(self, device=None):
+        return None, None
+
+
+class IdMatcher:
+    """Matches by descriptor identity (the stream's descriptors are unit
+    vectors, one per world point): tests/test_vo_pipeline.py's FakeMatcher,
+    answering in tensors as the port's matcher does."""
+
+    def match(self, k0, s0, d0, m0, k1, s1, d1, m1, threshold=None):
+        import torch
+
+        from airslam_tpu_torch.ops.match import Matches
+
+        sim = np.asarray(d0) @ np.asarray(d1).T
+        idx = sim.argmax(axis=1).astype(np.int32)
+        ok = (sim.max(axis=1) > 0.99) & np.asarray(m0)
+        ok &= np.asarray(m1)[idx]
+        return Matches(idx1=torch.as_tensor(np.where(ok, idx, -1)),
+                       score=torch.as_tensor(np.where(ok, 1.0, 0.0)), mask=torch.as_tensor(ok))
+
+
+def stream_frame(rec, n):
+    """Frame ``n`` of the stored stream: (left, right FrameFeatures of numpy
+    arrays, stereo pairs), rebuilt from its keypoints and world-point ids as
+    tests/test_vo_pipeline.py's renderer made them."""
+    from airslam_tpu_torch.frontend.detector import FrameFeatures
+
+    kp, ids = rec["b_kp"][n], rec["b_ids"][n].astype(np.int64)
+    mask = ids >= 0
+    k, n_lines, n_junc = int(mask.sum()), int(rec["b_n_lines"]), int(rec["b_n_junctions"])
+    desc = np.zeros((len(ids), 256), np.float32)
+    desc[:k] = rec["b_desc"][ids[:k]]
+    left = FrameFeatures(
+        keypoints=kp, kp_scores=mask.astype(np.float32), kp_desc=desc, kp_mask=mask,
+        lines=np.zeros((n_lines, 4), np.float32), line_scores=np.zeros(n_lines, np.float32),
+        line_mask=np.zeros(n_lines, bool), junctions=np.zeros((n_junc, 2), np.float32),
+        junc_scores=np.zeros(n_junc, np.float32), junc_desc=np.zeros((n_junc, 256), np.float32),
+        junc_mask=np.zeros(n_junc, bool))
+    right = left._replace(keypoints=np.stack([rec["b_ur"][n], kp[:, 1]], -1))
+    return left, right, np.stack([np.arange(k), np.arange(k)], -1).astype(np.int32)
 
 
 def _rodrigues(v):
@@ -1180,6 +1296,217 @@ def phase_vo(dev):
     return frame_launches["bf16"]
 
 
+@contextlib.contextmanager
+def _timed(module, name, sink):
+    """``module.name`` wrapped for the block: each call's wall ms between
+    two ``synchronize()`` appended to ``sink`` as (ms, result, args,
+    keywords)."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append(((time.perf_counter() - t0) * 1e3, out, args, kw))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler``: (CUDA kernels launched,
+    their summed device ms, the wall ms under the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-12))
+
+
+def phase_vio(dev):
+    """The stereo-inertial path in float32 against the stored JAX runs.
+    (a) ``add_input`` with ``use_flash=True`` and the IMU batches over the 8
+    stored frames; (b) ``track_features`` over the initialization stream.
+    Returns the launch counts of a tracked frame of (a)."""
+    import torch
+
+    from airslam_tpu_torch.backend import windows
+    from airslam_tpu_torch.pipelines.map_builder import KeyframeConfig, MapBuilder
+
+    cam, imu, rec = vio_oracle()
+    counted = _counted()
+    vo_cam, frames, _ = vo_oracle()
+    gates, vgates = VO_GATES["f32"], VIO_GATES
+
+    # (a) the image path, before the IMU can initialize (0.4 s)
+    with _no_tf32("f32"):
+        builder = tracking_builder(cam, torch.float32, dev, identity_rectify=True,
+                                   use_flash=True, imu=imu)
+        for fn in counted.values():
+            fn.launches = 0
+        rows = []
+        for i in range(len(frames)):
+            before = {k: fn.launches for k, fn in counted.items()}
+            n_kf = len(builder.map.keyframe_ids)
+            batch = imu_batch(rec["a_imu_t"], rec["a_imu_gyr"], rec["a_imu_acc"],
+                              *rec["a_imu_slices"][i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = builder.add_input(float(rec["a_frame_t"][i]), frames[i][0], frames[i][1],
+                                      batch)
+            torch.cuda.synchronize()
+            rows.append(((time.perf_counter() - t0) * 1e3,
+                         {k: fn.launches - before[k] for k, fn in counted.items()},
+                         len(builder.map.keyframe_ids) > n_kf, frame.Twc.copy()))
+        totals = {k: fn.launches for k, fn in counted.items()}
+    m = builder.map
+    poses = np.stack([r[3] for r in rows])
+    dt = float(np.abs(poses[:, :3, 3] - rec["a_Twc"][:, :3, 3]).max())
+    dR = float(np.abs(poses[:, :3, :3] - rec["a_Twc"][:, :3, :3]).max())
+    n_pts = sum(p.is_valid for p in m.mappoints.values())
+    n_lns = sum(l.is_valid for l in m.maplines.values())
+    pre_ids = [f for f in m.keyframe_ids if m.keyframes[f].preintegration is not None]
+    pre_gap = max(_rel(torch.stack([getattr(m.keyframes[f].preintegration.state, key)
+                                    for f in pre_ids]).double().cpu().numpy(),
+                       rec["a_preint_" + key]) for key in ("dT", "dR", "dV", "dP"))
+    note = (f"keyframes={m.keyframe_ids}(oracle {rec['a_keyframe_ids'].tolist()}) "
+            f"max dt={dt:.2e}(<={gates['t']}) max dR={dR:.2e}(<={gates['R']}) "
+            f"mappoints={n_pts}(oracle {int(rec['a_n_mappoints'])}) "
+            f"maplines={n_lns}(oracle {int(rec['a_n_maplines'])}) "
+            f"preintegration rel gap={pre_gap:.2e}(<={vgates['preint_rel']})")
+    ok = (m.keyframe_ids == rec["a_keyframe_ids"].tolist() and dt <= gates["t"]
+          and dR <= gates["R"] and not m.imu_initialized
+          and pre_ids == rec["a_preint_ids"].tolist() and pre_gap <= vgates["preint_rel"]
+          and abs(n_pts - int(rec["a_n_mappoints"])) <= gates["count_rel"] * rec["a_n_mappoints"]
+          and abs(n_lns - int(rec["a_n_maplines"])) <= gates["count_rel"] * rec["a_n_maplines"])
+    _require(ok, f"VIO (a) gates failed: {note}")
+    tracked = [r for r in rows[1:] if not r[2]]
+    _require(tracked and all(r[1] == FRAME_LAUNCHES for r in rows[1:]),
+             f"VIO (a): a tracked frame launched {[r[1] for r in rows[1:]]}, "
+             f"not {FRAME_LAUNCHES}")
+    print(f"VIO (a) image path, f32, use_flash: {note}; VI tracked frame (before the IMU "
+          f"initializes) ms={np.median([r[0] for r in tracked]):.3f} over {len(tracked)}; "
+          f"frame launches={tracked[0][1]} run launches={totals}")
+
+    # (b) the initialization stream, through track_features
+    n = len(rec["b_frame_t"])
+    kf_cfg = KeyframeConfig(min_init_stereo_feature=40, max_num_match=500,
+                            tracking_point_rate=2.0)
+    pose_only = counted["pose_only_fast"]
+    solves, bas, inits, init_gns = [], [], [], []
+    with _no_tf32("f32"):
+        builder = MapBuilder(StreamCamera(rec["b_noise"]), None, IdMatcher(), kf_cfg,
+                             device=dev, dtype=torch.float32)
+        m = builder.map
+        init_kf, rows = -1, []
+        with _timed(windows, "_pose_only_fast_vi", solves), _timed(windows, "local_ba", bas), \
+                _timed(m, "initialize_imu", inits), \
+                _timed(windows, "imu_initialization", init_gns):
+            pose_only.launches = 0
+            for i in range(n):
+                before, was_init = pose_only.launches, m.imu_initialized
+                n_ba = len(bas)
+                fl, fr, pairs = stream_frame(rec, i)
+                batch = (imu_batch(rec["b_imu_t"], rec["b_imu_gyr"], rec["b_imu_acc"],
+                                   *rec["b_imu_slices"][i]) if i else None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                builder.track_features(float(rec["b_frame_t"][i]), fl, fr, pairs,
+                                       imu_batch=batch)
+                torch.cuda.synchronize()
+                rows.append(((time.perf_counter() - t0) * 1e3, pose_only.launches - before,
+                             was_init, len(bas) > n_ba))
+                if m.imu_initialized and init_kf < 0:
+                    init_kf = m.keyframe_ids[-1]
+            p_total = pose_only.launches
+    traj = np.stack([T for _, T in builder.trajectory])
+    dt = float(np.abs(traj[:, :3, 3] - rec["b_trajectory"][:, :3, 3]).max())
+    dR = float(np.abs(traj[:, :3, :3] - rec["b_trajectory"][:, :3, :3]).max())
+    kfs = [m.keyframes[f] for f in m.keyframe_ids]
+    n_pts = sum(p.is_valid for p in m.mappoints.values())
+    last = kfs[-1]
+    speeds = [float(np.linalg.norm(k.velocity)) for k in kfs[-5:]]
+    rel_t = []
+    pos_of = {int(t): p for t, p in zip(np.rint(rec["b_frame_t"] * 1e3), rec["b_true_pos"])}
+    for a, b in zip(kfs[-4:-1], kfs[-3:]):
+        d_est = np.linalg.norm(b.Twc[:3, 3] - a.Twc[:3, 3])
+        d_gt = np.linalg.norm(pos_of[int(round(b.timestamp * 1e3))]
+                              - pos_of[int(round(a.timestamp * 1e3))])
+        rel_t.append(abs(float(d_est - d_gt)))
+    same_kf = m.keyframe_ids == rec["b_keyframe_ids"].tolist()
+    kf_gap = {}
+    if same_kf:
+        kf_gap = {"Twc": float(np.abs(np.stack([k.Twc for k in kfs]) - rec["b_keyframe_Twc"]).max()),
+                  "velocity": float(np.abs(np.stack([k.velocity for k in kfs])
+                                           - rec["b_keyframe_velocity"]).max()),
+                  "bg": float(np.abs(np.stack([k.bg for k in kfs]) - rec["b_keyframe_bg"]).max()),
+                  "ba": float(np.abs(np.stack([k.ba for k in kfs]) - rec["b_keyframe_ba"]).max())}
+    bg_err = float(np.abs(last.bg - rec["b_true_bg"]).max())
+    note = (f"keyframes={len(m.keyframe_ids)} same as the oracle's: {same_kf}; "
+            f"IMU initialized at keyframe {init_kf}(oracle {int(rec['b_init_keyframe'])}); "
+            f"max dt={dt:.2e}(<={gates['t']}) max dR={dR:.2e}(<={gates['R']}); "
+            f"keyframe gaps {({k: f'{v:.2e}' for k, v in kf_gap.items()})}; "
+            f"mappoints={n_pts}(oracle {int(rec['b_n_mappoints'])}); "
+            f"|bg - true|={bg_err:.2e}(<={vgates['bg']}) max speed={max(speeds):.3f}"
+            f"(<{vgates['speed']}) max |d - d_true|={max(rel_t):.2e}(<{vgates['rel_t']}); "
+            f"Rwg=I: {bool(np.array_equal(m.Rwg, np.eye(3)))}")
+    ok = (same_kf and init_kf == int(rec["b_init_keyframe"]) and m.imu_initialized
+          and dt <= gates["t"] and dR <= gates["R"] and bg_err <= vgates["bg"]
+          and max(speeds) < vgates["speed"] and max(rel_t) < vgates["rel_t"]
+          and abs(n_pts - int(rec["b_n_mappoints"])) <= gates["count_rel"] * rec["b_n_mappoints"])
+    _require(ok, f"VIO (b) gates failed: {note}")
+    # P: once per tracked frame while the IMU waits, never after
+    before = [r for r in rows[1:] if not r[2]]
+    after = [r for r in rows[1:] if r[2]]
+    _require(all(r[1] == 1 for r in before) and after and all(r[1] == 0 for r in after)
+             and p_total == len(before),
+             f"VIO (b): kernel P launched {[r[1] for r in rows]} (before/after init)")
+    _require(len(inits) >= 1 and inits[-1][1] is True and solves,
+             f"VIO (b): initialize_imu ran {len(inits)} times, the F=2 solve {len(solves)}")
+    solve_ms, ba_ms = [r[0] for r in solves], [r[0] for r in bas]
+    n_vision = sum(1 for r in rows if r[3] and not r[2])  # local BAs before the IMU ran
+    print(f"VIO (b) initialization stream, f32: {note}")
+    print("VIO timings, wall ms (synchronized): tracked frame before init "
+          f"{np.median([r[0] for r in before if not r[3]]):.3f}, after init "
+          f"{np.median([r[0] for r in after if not r[3]]):.3f} (no image path); "
+          f"F=2 solve {np.median(solve_ms):.3f} (n={len(solve_ms)}, first {solve_ms[0]:.1f}); "
+          f"initialize_imu {inits[-1][0]:.1f} (its GN {init_gns[-1][0]:.1f}; attempts "
+          f"{len(inits)}, the others {[round(r[0], 1) for r in inits[:-1]]}); local_ba vision "
+          f"{np.median(ba_ms[1:n_vision]):.1f} (n={n_vision}, first {ba_ms[0]:.1f}), "
+          f"VI {np.median(ba_ms[n_vision:]):.1f} (n={len(ba_ms) - n_vision}); "
+          f"kernel P launches per tracked frame: {len(before)} frames before init 1 each, "
+          f"{len(after)} after 0")
+    # where the time goes: one call of each again under the profiler
+    with _no_tf32("f32"):
+        for label, (_, _, args, kw), fn in (
+                ("F=2 solve", solves[-1], windows._pose_only_fast_vi),
+                ("imu_initialization", init_gns[-1], windows.imu_initialization),
+                ("local_ba vision", bas[n_vision - 1], windows.local_ba),
+                ("local_ba VI", bas[-1], windows.local_ba)):
+            n_k, dev_ms, wall = _profile_call(lambda: fn(*args, **kw))
+            print(f"VIO profile {label}: {n_k} kernels, device ms={dev_ms:.3f}, wall ms under "
+                  f"the profiler={wall:.1f}, device busy share={dev_ms / wall:.4f}")
+    return tracked[0][1]
+
+
 def tracking_builder_like(builder):
     """A fresh ``MapBuilder`` on ``builder``'s camera, detector and matcher
     (the networks stay loaded and warm)."""
@@ -1391,7 +1718,8 @@ def main() -> int:
         short = {"r": lambda: phase_kernel_r(dev, grids_np), "b": lambda: phase_kernel_bt(dev, "B"),
                  "t": lambda: phase_kernel_bt(dev, "T"), "l": lambda: phase_kernel_loi(dev),
                  "p": lambda: phase_kernel_p(dev),
-                 "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev)}
+                 "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev),
+                 "vio": lambda: phase_vio(dev)}
         for name in short:
             if name in only:
                 short[name]()
@@ -1413,13 +1741,15 @@ def main() -> int:
     builders = phase_tracking(dev, frames)
     phase_path(dev, steps, builders, frames, grids_np)
     launches = phase_vo(dev)
+    vi_launches = phase_vio(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_vi_frame"] = vi_launches[k["name"]]
         if k["name"] in ("bilerp_points", "bilerp_points_t"):
             k["on_path"] = f"inside loi_features ({launches['loi_features']} per tracked frame)"
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,7 +33,33 @@ the inlier count and whether the frame became a keyframe, then the final
 trajectory, the keyframe ids and poses after the last BA, and the counts of
 valid mappoints and maplines.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo]
+VIO oracle
+----------
+Two stereo-inertial runs of the JAX ``MapBuilder`` on the CPU (float64
+geometry), in ``tests/data/torch_vio_oracle.npz``:
+
+(a) the image path: the ``N_VO`` stored frames of the VO oracle through
+    ``add_input`` with float32 networks, ``use_flash=False``, on the frames'
+    camera with ``use_imu`` and the noise densities of
+    ``configs/camera/synth_stereo_imu.yaml``, and the IMU rows that
+    ``apps/make_synth_dataset.py`` writes for that trajectory (``forward``,
+    stride 1: zero body rates, the analytic acceleration plus g), chunked
+    between frames by the JAX ``Dataset`` over an ASL tree of those stamps.
+    Kept: the rows and each frame's slice of them, the frame stamps, every
+    tracked pose, the keyframe decisions and ids, each keyframe's
+    preintegration (dT, dR, dV, dP) and the landmark counts. 0.4 s does not
+    initialize the IMU.
+(b) the initialization stream: tests/test_vio.py::test_full_vio_pipeline's
+    feature stream (``make_imu_sequence(8 s, bg)``, 600 world points, one
+    frame per 0.2 s, the test's keyframe policy, which inserts a keyframe at
+    every second frame) rendered at the VO configuration's 400-keypoint
+    budget. Kept: per frame the left keypoints, right u, the world-point id
+    behind each keypoint, the stamps and IMU slices; the world descriptors
+    and the IMU rows; the true positions and gyro bias; the keyframe ids, the
+    keyframe at which the IMU initialized, Rwg, every keyframe's Twc,
+    velocity and biases, the full-rate trajectory and the landmark counts.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -58,6 +84,15 @@ CAMERA = {"fx": 450.0, "fy": 450.0, "cx": 376.0, "cy": 240.0, "baseline": 0.11,
           "depth_lower_thr": 0.5, "depth_upper_thr": 25.0, "max_y_diff": 2.0,
           "image_height": 480, "image_width": 752}
 OUT_VO = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
+OUT_VIO = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
+# configs/camera/synth_stereo_imu.yaml:35-40
+IMU_NODE = {"rate_hz": 200.0, "gyroscope_noise_density": 0.001,
+            "gyroscope_random_walk": 1.0e-05, "accelerometer_noise_density": 0.01,
+            "accelerometer_random_walk": 1.0e-04, "g_value": 9.81}
+# tests/test_vio.py::test_full_vio_pipeline's stream, at the VO budget
+STREAM = {"duration": 8.0, "bg": (0.01, -0.015, 0.02), "n_points": 600, "world_seed": 5,
+          "frame_stride": 40, "k_budget": 400,
+          "noise": (1e-3, 1e-2, 1e-5, 1e-4)}  # gyr/acc noise, gyr/acc walk (√rate-scaled)
 N_PAIRS = 3
 N_VO = 8  # frames of the VO sequence: at least three keyframes after the first
 FRAME_SEED = 3
@@ -66,9 +101,10 @@ FRAME_SEED = 3
 KEEP = (0, 1, 2, 4, 5, 7, 8, 10)
 
 
-def jax_builder(dtype=None):
+def jax_builder(dtype=None, imu=None):
     """The JAX ``MapBuilder`` with the shipped checkpoints, SuperPoint
-    keypoints and the frames' camera (float32 networks unless ``dtype``)."""
+    keypoints and the frames' camera (float32 networks unless ``dtype``;
+    ``imu``: the camera's IMU block, see ``chip_smoke.camera_node``)."""
     import jax.numpy as jnp
 
     from airslam_tpu.core.camera import Camera
@@ -86,7 +122,7 @@ def jax_builder(dtype=None):
     # the node builder is chip_smoke.py's, which reads CAMERA back from the file
     from chip_smoke import camera_node
 
-    return MapBuilder(Camera(node=camera_node(CAMERA)), detector, matcher)
+    return MapBuilder(Camera(node=camera_node(CAMERA, imu)), detector, matcher)
 
 
 def jax_frontend(builder, pair):
@@ -226,6 +262,161 @@ def write_vo_oracle():
     print(f"oracle written: {OUT_VO} ({os.path.getsize(OUT_VO)} bytes)")
 
 
+def dataset_imu_slices(frame_t, imu_t, gyr, acc):
+    """The JAX ``Dataset``'s IMU chunking of these rows between these frames,
+    read from an ASL tree of their nanosecond stamps (the images are empty
+    files: the loader reads them only in ``get``). Returns (frame stamps,
+    row stamps as the loader parsed them, (N, 2) [lo, hi) row slice per
+    frame)."""
+    import tempfile
+
+    from airslam_tpu.io.dataset import Dataset
+
+    with tempfile.TemporaryDirectory() as root:
+        for cam in ("cam0", "cam1"):
+            os.makedirs(os.path.join(root, cam, "data"))
+            for t in frame_t:
+                open(os.path.join(root, cam, "data", f"{int(round(t * 1e9))}.png"), "w").close()
+        os.makedirs(os.path.join(root, "imu0"))
+        with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+            for k, t in enumerate(imu_t):
+                f.write(",".join([str(int(round(t * 1e9)))]
+                                 + [repr(float(v)) for v in (*gyr[k], *acc[k])]) + "\n")
+        ds = Dataset(root, use_imu=True)
+    assert len(ds) == len(frame_t), "a frame fell outside the IMU's range"
+    parsed = np.asarray([int(round(t * 1e9)) * 1e-9 for t in imu_t])
+    slices = []
+    for batch in ds.imu_batches:
+        lo = int(np.nonzero(parsed == batch[0].timestamp)[0][0]) if batch else 0
+        slices.append((lo, lo + len(batch)))
+        assert all(r.timestamp == parsed[lo + j] for j, r in enumerate(batch))
+    return np.asarray(ds.timestamps), parsed, np.asarray(slices, np.int32)
+
+
+def synth_imu_rows(frame_t):
+    """``apps/make_synth_dataset.py:173-182``'s IMU for the ``forward``
+    trajectory at stride 1: one sample before the first frame to one past the
+    last, zero body rates, the analytic acceleration plus g on z."""
+    from apps.make_synth_dataset import G_VALUE, IMU_RATE, traj_accel
+
+    t_imu = np.arange(-1, int(frame_t[-1] * IMU_RATE) + 2) / IMU_RATE
+    acc = traj_accel(np.maximum(t_imu, 0.0), "forward", None)
+    acc[:, 2] += G_VALUE
+    return t_imu, np.zeros_like(acc), acc
+
+
+def _rows(imu_t, gyr, acc, lo, hi):
+    from airslam_tpu.core.imu import ImuData
+
+    return [ImuData(float(imu_t[k]), gyr[k], acc[k]) for k in range(lo, hi)]
+
+
+def _keyframe_preints(m, blob, prefix):
+    ids = [f for f in m.keyframe_ids if m.keyframes[f].preintegration is not None]
+    pres = [m.keyframes[f].preintegration for f in ids]
+    blob[prefix + "preint_ids"] = np.asarray(ids, np.int32)
+    for key in ("dT", "dR", "dV", "dP"):
+        blob[prefix + "preint_" + key] = np.stack([np.asarray(getattr(p.state, key))
+                                                   for p in pres])
+
+
+def write_vio_oracle():
+    vo = np.load(OUT_VO)
+    frames = vo["frames_u8"].astype(np.float32) / np.float32(255.0)
+    blob = {"camera_" + k: np.float64(v) for k, v in CAMERA.items()}
+    blob.update({"imu_" + k: np.float64(v) for k, v in IMU_NODE.items()})
+
+    # (a) the image path
+    t_imu, gyr, acc = synth_imu_rows(vo["timestamps"])
+    frame_t, imu_t, slices = dataset_imu_slices(vo["timestamps"], t_imu, gyr, acc)
+    builder = jax_builder(imu=IMU_NODE)
+    Twc, is_kf = [], []
+    for i in range(len(frames)):
+        n_kf = len(builder.map.keyframe_ids)
+        frame = builder.add_input(float(frame_t[i]), frames[i][0], frames[i][1],
+                                  _rows(imu_t, gyr, acc, *slices[i]))
+        Twc.append(frame.Twc.copy())
+        is_kf.append(len(builder.map.keyframe_ids) > n_kf)
+        print(f"(a) frame {i}: keyframe={is_kf[-1]} t={frame.Twc[:3, 3]}")
+    m = builder.map
+    assert not m.imu_initialized
+    blob.update(a_frame_t=frame_t, a_imu_t=imu_t, a_imu_gyr=gyr, a_imu_acc=acc,
+                a_imu_slices=slices, a_Twc=np.stack(Twc), a_is_keyframe=np.asarray(is_kf),
+                a_keyframe_ids=np.asarray(m.keyframe_ids, np.int32),
+                a_n_mappoints=np.int32(sum(p.is_valid for p in m.mappoints.values())),
+                a_n_maplines=np.int32(sum(l.is_valid for l in m.maplines.values())))
+    _keyframe_preints(m, blob, "a_")
+    print(f"(a) keyframes={m.keyframe_ids} mappoints={blob['a_n_mappoints']} "
+          f"maplines={blob['a_n_maplines']}")
+
+    # (b) the initialization stream
+    from airslam_tpu.pipelines.map_builder import KeyframeConfig, MapBuilder
+    from tests import test_vo_pipeline as jvo
+    from tests.synthetic import make_imu_sequence
+
+    seq = make_imu_sequence(duration=STREAM["duration"], bg=np.asarray(STREAM["bg"]))
+    rng = np.random.RandomState(STREAM["world_seed"])
+    n = STREAM["n_points"]
+    pts = np.stack([rng.uniform(-4, 6, n), rng.uniform(-3, 3, n), rng.uniform(3, 11, n)],
+                   axis=-1)
+    desc = rng.randn(n, 256).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    cam = jvo.FakeCamera()
+    cam.use_imu = True
+    cam.gyr_noise, cam.acc_noise, cam.gyr_walk, cam.acc_walk = STREAM["noise"]
+    builder = MapBuilder(cam, detector=None, matcher=jvo.FakeMatcher(),
+                         kf_config=KeyframeConfig(min_init_stereo_feature=40,
+                                                  max_num_match=500, tracking_point_rate=2.0))
+    jvo.K_BUDGET = STREAM["k_budget"]  # the renderer reads its budget at call time
+    times = seq["times"]
+    idx = np.arange(0, len(times), STREAM["frame_stride"])
+    kp, ur, ids, slices, init_kf = [], [], [], [], -1
+    last_i = 0
+    for n_frame, i in enumerate(idx):
+        T = np.eye(4)
+        T[:3, :3] = seq["Rwb"][i]
+        T[:3, 3] = seq["pos"][i]
+        fl, fr, pairs = jvo.render_features(pts, desc, T, cam, rng)
+        k = int(fl.kp_mask.sum())
+        sim = fl.kp_desc[:k] @ desc.T
+        ids.append(np.concatenate([sim.argmax(1), np.full(len(fl.kp_mask) - k, -1)]))
+        kp.append(fl.keypoints)
+        ur.append(fr.keypoints[:, 0])
+        lo, hi = (max(last_i - 1, 0), i + 2) if n_frame else (0, 0)
+        slices.append((lo, min(hi, len(times))))
+        builder.track_features(times[i], fl, fr, pairs,
+                               imu_batch=_rows(times, seq["gyr"], seq["acc"], *slices[-1])
+                               if n_frame else None)
+        if builder.map.imu_initialized and init_kf < 0:
+            init_kf = builder.map.keyframe_ids[-1]
+        last_i = i
+        print(f"(b) frame {n_frame}: keyframes={len(builder.map.keyframe_ids)} "
+              f"imu_initialized={builder.map.imu_initialized}")
+    m = builder.map
+    assert m.imu_initialized and init_kf >= 0
+    kfs = [m.keyframes[f] for f in m.keyframe_ids]
+    blob.update(
+        b_frame_t=times[idx], b_frame_idx=idx.astype(np.int32),
+        b_kp=np.stack(kp).astype(np.float32), b_ur=np.stack(ur).astype(np.float32),
+        b_ids=np.stack(ids).astype(np.int16), b_desc=desc, b_imu_t=times,
+        b_imu_gyr=seq["gyr"], b_imu_acc=seq["acc"], b_imu_slices=np.asarray(slices, np.int32),
+        b_true_pos=seq["pos"][idx], b_true_bg=np.asarray(STREAM["bg"]),
+        b_noise=np.asarray(STREAM["noise"]), b_n_lines=np.int32(jvo.L_BUDGET),
+        b_n_junctions=np.int32(8),
+        b_keyframe_ids=np.asarray(m.keyframe_ids, np.int32), b_init_keyframe=np.int32(init_kf),
+        b_Rwg=m.Rwg, b_keyframe_Twc=np.stack([f.Twc for f in kfs]),
+        b_keyframe_velocity=np.stack([f.velocity for f in kfs]),
+        b_keyframe_bg=np.stack([f.bg for f in kfs]), b_keyframe_ba=np.stack([f.ba for f in kfs]),
+        b_trajectory=np.stack([T for _, T in builder.trajectory]),
+        b_n_mappoints=np.int32(sum(p.is_valid for p in m.mappoints.values())),
+        b_n_maplines=np.int32(sum(l.is_valid for l in m.maplines.values())))
+    print(f"(b) keyframes={m.keyframe_ids} init at {init_kf} bg={kfs[-1].bg} "
+          f"mappoints={blob['b_n_mappoints']}")
+    np.savez_compressed(OUT_VIO, **blob)
+    print(f"oracle written: {OUT_VIO} ({os.path.getsize(OUT_VIO)} bytes)")
+
+
 def write_frontend_oracle():
     import jax
     import jax.numpy as jnp
@@ -267,6 +458,8 @@ def main():
         write_tracking_oracle()
     if which in ("all", "vo"):
         write_vo_oracle()
+    if which in ("all", "vio"):
+        write_vio_oracle()
 
 
 if __name__ == "__main__":

@@ -468,9 +468,9 @@ def test_fused_schedule_equals_plain_and_jax(case):
 
 
 def test_pose_only_optimization_dispatch():
-    """A CPU problem with one frame runs the kernel's plain version and one
-    with two frames the general dense solver; what the port leaves out raises
-    and names where it belongs."""
+    """A CPU problem with one frame runs the kernel's plain version, one with
+    two frames the general dense solver, and the VI tracking layout the F=2
+    VI solve."""
     _, _, ours, intr, _ = _both(5)
     launches = pose_gn.pose_only_fast.launches
     got = windows.pose_only_optimization(ours, intr, gn.BAConfig())
@@ -491,8 +491,19 @@ def test_pose_only_optimization_dispatch():
         line_obs_sigma=torch.cat([ours.line_obs_sigma] * 2, dim=1)), intr)
     assert out2[1].shape == (ours.points.shape[0], 2) and int(out2[3]) == int(want[3])
     assert float((out2[0].frames.twb[0] - want[0].frames.twb[0]).abs().max()) < 1e-6
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        windows.pose_only_optimization(ours._replace(imu=object()), intr)
+    # the VI tracking layout (F=2, one IMU factor, frame 0 fixed) goes to the
+    # 15×15 solve, a problem with no IMU factor is refused for that solve
+    from tests.test_vio import _tiny_vi_problem
+
+    vi = gn.problem_from_numpy(_tiny_vi_problem([True, False], [True, False])[0], F64)
+    got_vi = windows.pose_only_optimization(vi, intr)
+    want_vi = windows._pose_only_fast_vi(vi, intr, gn.BAConfig(), rounds=3, iters=10)
+    assert torch.equal(got_vi[0].frames.twb, want_vi[0].frames.twb)
+    assert torch.equal(got_vi[0].frames.vel, want_vi[0].frames.vel)
+    assert int(got_vi[3]) == int(want_vi[3]) > 0
+    assert pose_gn.pose_only_fast.launches == launches
+    with pytest.raises(ValueError, match="exactly one IMU factor"):
+        windows.pose_only_optimization(vi._replace(imu=None), intr, vi_tracking=True)
     with pytest.raises(ValueError, match="F=1"):
         pose_gn.pose_only_fast(two, intr)
     assert (windows.POSE_LM_LAM0, windows.POSE_LM_NU0) == (jwindows.POSE_LM_LAM0,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (R, B, T, loi_features, P, F) against their plain
-PyTorch versions.
+PyTorch versions, and the stereo-inertial solves (plain PyTorch) in float32
+on the card against float64 on the CPU.
 
 The kernel tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 without one. Where JAX (which ``tests/conftest.py`` imports) is not
@@ -438,3 +439,174 @@ def test_loi_wrapper_refuses_non_cuda_devices():
     ops = chip_smoke.loi_inputs(np.random.RandomState(9), 1, 3, 4, torch.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         bilerp.loi_features(*(t.to("meta") for t in ops))
+
+
+# ---------------------------------------------------------------------------
+# the stereo-inertial solves (plain PyTorch) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+VI_NOISE = (1e-3, 1e-2, 1e-5, 1e-4)  # the initialization stream's gyr/acc noise and walks
+
+
+def _vi_tracking_problem(dtype, device):
+    """The F=2 tracking layout at the initialization stream's shapes: 400
+    keypoints padded to 512 and one masked line seen from frame 1, frame 0
+    the fixed keyframe 0.2 s earlier, and one IMU factor whose deltas are
+    exact for the true motion and whose information and bias Jacobians come
+    from a 200 Hz preintegration at the stream's noise floors (float64 on
+    the CPU). Returns (problem, intrinsics, true twb of frame 1)."""
+    from airslam_tpu_torch.core.imu import ImuData, Preintegration
+    from airslam_tpu_torch.slam.map import preintegration_information
+
+    p1, intr, tj = chip_smoke.tracking_problem(12, 400, 1, n_masked_points=112,
+                                               mask_lines=True, dtype=torch.float64)
+    Rj = chip_smoke._rodrigues(np.array([0.02, -0.03, 0.01]))
+    Ri, ti, vi, vj = np.eye(3), tj - [0.1, 0.0, 0.02], np.array([0.5, 0.0, 0.1]), \
+        np.array([0.52, 0.01, 0.1])
+    dT, g = 0.2, np.array([0.0, 0.0, -9.81])
+    pre = Preintegration(noise=VI_NOISE, dtype=torch.float64, device="cpu")
+    pre.add_batch([ImuData(0.005 * k, np.array([0.1, -0.15, 0.05]), np.array([0.3, 0.1, 9.81]))
+                   for k in range(41)], 0.0, dT)
+    st = pre.state
+    info9, walk = preintegration_information(st.cov)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64))
+
+    imu = gn.IMUFactors(
+        idx_i=torch.zeros(1, dtype=torch.long), idx_j=torch.ones(1, dtype=torch.long),
+        dR=t(Ri.T @ Rj)[None], dV=t(Ri.T @ (vj - vi - g * dT))[None],
+        dP=t(Ri.T @ (tj - ti - vi * dT - 0.5 * g * dT * dT))[None],
+        JRg=st.JRg[None], JVg=st.JVg[None], JVa=st.JVa[None], JPg=st.JPg[None],
+        JPa=st.JPa[None], bg_lin=torch.zeros(1, 3, dtype=torch.float64),
+        ba_lin=torch.zeros(1, 3, dtype=torch.float64), dT=t([dT]), info=t(info9[None]),
+        info_walk=t(walk[None]), mask=torch.ones(1, dtype=torch.bool))
+
+    def two(a, fill=0.0):  # a column 0 that observes nothing
+        return torch.cat([torch.full_like(a, fill), a], dim=1)
+
+    obs0 = two(p1.point_obs)
+    obs0[:, 0, 2] = -1.0
+    problem = p1._replace(
+        frames=gn.FrameStates(Rwb=t(np.stack([Ri, np.eye(3)])), twb=t(np.stack([ti, np.zeros(3)])),
+                              vel=t(np.stack([vi, vi])), bg=torch.zeros(2, 3, dtype=torch.float64),
+                              ba=torch.zeros(2, 3, dtype=torch.float64)),
+        pose_fixed=torch.tensor([True, False]), vel_fixed=torch.tensor([True, False]),
+        point_obs=obs0, point_obs_mask=two(p1.point_obs_mask, False),
+        line_obs=two(p1.line_obs), line_obs_stereo=two(p1.line_obs_stereo, False),
+        line_obs_mask=two(p1.line_obs_mask, False), line_obs_sigma=two(p1.line_obs_sigma, 0.8),
+        imu=imu)
+
+    def move(x):
+        if not torch.is_tensor(x):
+            return x
+        return x.to(device, dtype) if x.is_floating_point() else x.to(device)
+
+    return (problem._replace(frames=gn.FrameStates(*map(move, problem.frames)),
+                             imu=gn.IMUFactors(*map(move, imu)),
+                             **{k: move(getattr(problem, k)) for k in gn.BAProblem._fields
+                                if k not in ("frames", "imu")}), intr, tj)
+
+
+@pytest.mark.cuda
+def test_vi_tracking_solve_on_the_card_vs_cpu_f64(dev):
+    """The F=2 VI solve in float32 on the card against the same function in
+    float64 on the CPU: chip_smoke.py's pose gates (t 2e-3, R 1e-3, inlier
+    agreement 0.98, counts within 2 %), the velocity within 1e-2 m/s, the
+    true pose within 5e-3 m; no kernel P launch."""
+    from airslam_tpu_torch.backend import windows
+
+    want_p, intr, tj = _vi_tracking_problem(torch.float64, "cpu")
+    got_p, _, _ = _vi_tracking_problem(torch.float32, dev)
+    before = pose_gn.pose_only_fast.launches
+    got = windows.pose_only_optimization(got_p, intr, vi_tracking=True)
+    want = windows.pose_only_optimization(want_p, intr, vi_tracking=True)
+    assert pose_gn.pose_only_fast.launches == before
+    def frame1(res):  # frame 1's pose and inlier columns, on the CPU in float64
+        out, p_in, l_in, n = res
+        frames = gn.FrameStates(*(x[1:].double().cpu() for x in out.frames))
+        return out._replace(frames=frames), p_in[:, 1:].cpu(), l_in[:, 1:].cpu(), n.cpu()
+
+    a = chip_smoke.pose_agreement(frame1(got), frame1(want))
+    g = chip_smoke.POSE_GATES
+    assert a["t"] <= g["t"] and a["R"] <= g["R"], a
+    assert a["inlier_agree"] >= g["inlier_agree"] and a["count_rel"] <= g["count_rel"], a
+    dv = float((got[0].frames.vel[1].double().cpu() - want[0].frames.vel[1]).abs().max())
+    assert dv <= 1e-2, dv
+    assert np.linalg.norm(got[0].frames.twb[1].double().cpu().numpy() - tj) < g["t_true"]
+
+
+def _init_inputs():
+    """Inputs of the IMU initialization over ten keyframes 0.4 s apart on a
+    smooth 6-dof trajectory (float64 numpy, 200 Hz IMU with biases), seeded
+    as ``Map.initialize_imu`` seeds them (closed-form gyro bias, velocities
+    and gravity), all on the CPU in float64."""
+    from scipy.spatial.transform import Rotation
+
+    from airslam_tpu_torch.backend import windows
+    from airslam_tpu_torch.core.imu import ImuData, Preintegration
+    from airslam_tpu_torch.slam.map import preintegration_information
+
+    bg, ba, gw = np.array([0.01, -0.015, 0.02]), np.array([0.03, -0.02, 0.05]), 9.81
+    times = np.arange(0, 3.6 + 1e-9, 0.005)
+
+    def pose(t):
+        p = np.array([0.5 * np.sin(0.8 * t) + 0.25 * t, 0.3 * np.sin(0.6 * t + 1.0),
+                      0.2 * np.sin(0.5 * t)])
+        rv = np.array([0.1 * np.sin(0.3 * t), 0.1 * np.sin(0.4 * t), 0.2 * np.sin(0.25 * t)])
+        return Rotation.from_rotvec(rv).as_matrix(), p
+
+    R = np.stack([pose(t)[0] for t in times])
+    p = np.stack([pose(t)[1] for t in times])
+    h = 1e-4
+    acc_w = np.stack([(pose(t + h)[1] - 2 * pose(t)[1] + pose(t - h)[1]) / h ** 2 for t in times])
+    acc = np.einsum("nji,nj->ni", R, acc_w - [0, 0, -gw]) + ba
+    gyr = np.stack([Rotation.from_matrix(R[i].T @ R[i + 1]).as_rotvec() / 0.005
+                    for i in range(len(times) - 1)] + [np.zeros(3)]) + bg
+    gyr[-1] = gyr[-2]
+    kf = np.arange(0, len(times), 80)
+    pres = []
+    for a, b in zip(kf[:-1], kf[1:]):
+        pre = Preintegration(noise=VI_NOISE, dtype=torch.float64, device="cpu")
+        pre.add_batch([ImuData(times[i], gyr[i], acc[i]) for i in range(a, b + 1)],
+                      times[a], times[b])
+        pres.append(pre)
+
+    def stack(key):
+        return torch.stack([getattr(q.state, key) for q in pres])
+
+    Rwb, twb = torch.as_tensor(R[kf]), torch.as_tensor(p[kf])
+    dbg = windows.compute_gyr_bias(Rwb, stack("dR"), stack("JRg")).numpy()
+    for q in pres:
+        q.set_bias(dbg, np.zeros(3))
+    vels, gravity = windows.compute_velocity(Rwb, twb, stack("dP"), stack("dV"), stack("dT"), gw)
+    preint = {k: stack(k) for k in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa", "dT")}
+    preint["info"] = torch.as_tensor(np.stack([preintegration_information(q.state.cov)[0]
+                                               for q in pres]))
+    z = torch.zeros(3, dtype=torch.float64)
+    args = (Rwb, twb, vels, torch.as_tensor(dbg), z, windows.gravity_to_rwg(gravity), preint, gw,
+            torch.as_tensor(dbg), z)
+    return args, bg, ba
+
+
+@pytest.mark.cuda
+def test_imu_initialization_on_the_card_vs_cpu_f64(dev):
+    """``imu_initialization``'s 200 LM iterations in float32 on the card
+    (the information matrices from the noise floors reach about 1e8)
+    against float64 on the CPU: velocities within 1e-2 m/s, the gyro bias
+    within 5e-4 rad/s, the acc bias within 2e-2 m/s², Rwg within 1e-3; the
+    card's gyro bias within 2e-3 of the truth."""
+    from airslam_tpu_torch.backend import windows
+
+    args, bg_true, _ = _init_inputs()
+    want = windows.imu_initialization(*args)
+
+    def card(x):
+        if isinstance(x, dict):
+            return {k: card(v) for k, v in x.items()}
+        return x.to(dev, torch.float32) if torch.is_tensor(x) else x
+
+    got = windows.imu_initialization(*(card(a) for a in args))
+    gaps = [float((g.double().cpu() - w).abs().max()) for g, w in zip(got, want)]
+    assert gaps[0] <= 1e-2 and gaps[1] <= 5e-4 and gaps[2] <= 2e-2 and gaps[3] <= 1e-3, gaps
+    assert np.abs(got[1].double().cpu().numpy() - bg_true).max() <= 2e-3

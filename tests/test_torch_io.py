@@ -79,7 +79,7 @@ def test_superglue_config_parses_but_the_matcher_waits():
     assert cfg.sinkhorn_iterations == config.SG_SINKHORN_ITERS
     from airslam_tpu_torch.frontend.matcher import PointMatcher
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         PointMatcher(cfg, device="cpu")
 
 
@@ -213,15 +213,64 @@ def test_map_file_written_by_jax_loads_in_the_port_and_goes_on(line_maps, tmp_pa
     _assert_map_equal(got, jser.load_map(again)[0])
 
 
+def _preintegrations():
+    """One preintegration of each package over the same two batches of rows,
+    with a bias set and a bias update."""
+    from airslam_tpu.core.imu import ImuData as JImuData, Preintegration as JPreintegration
+    from airslam_tpu_torch.core.imu import ImuData, Preintegration
+
+    rng = np.random.RandomState(8)
+    stamps = np.arange(30) * 0.005
+    gyr, acc = rng.randn(30, 3) * 0.1, rng.randn(30, 3) + [0, 0, 9.81]
+    noise = (1e-3, 1e-2, 1e-5, 1e-4)
+    ours = Preintegration(noise=noise, dtype=torch.float64, device="cpu")
+    theirs = JPreintegration(noise=noise)
+    for pre, cls in ((ours, ImuData), (theirs, JImuData)):
+        for lo, hi in ((0, 16), (15, 30)):
+            pre.add_batch([cls(*r) for r in zip(stamps[lo:hi], gyr[lo:hi], acc[lo:hi])],
+                          stamps[lo], stamps[hi - 1])
+        pre.set_bias([1e-3, 0.0, -2e-3], [0.01, 0.02, 0.0])
+        pre.update_bias([2e-3, 0.0, -2e-3], [0.01, 0.02, 0.01])
+    return ours, theirs
+
+
+def _assert_preintegration_equal(a, b):
+    for name in ("noise_diag", "walk_diag", "bg", "ba", "start_time", "end_time"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+    for name in ("_rows_dt", "_rows_acc", "_rows_gyr"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                      np.asarray(getattr(b, name)), err_msg=name)
+    for x, y in zip(a.state, b.state):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=0, atol=1e-12)
+
+
 def test_preintegration_state_waits(line_maps, tmp_path):
-    _, tm = line_maps
-    kf = tm.keyframes[tm.keyframe_ids[-1]]
-    kf.preintegration = object()
+    """A keyframe's preintegration goes into the map file (it waited for the
+    stereo-inertial slice until now) and comes back in both directions: the
+    port's file read by the JAX package and the JAX package's by the port,
+    with the rows, noise values, biases and times equal and the integrated
+    state within 1e-12; the port restores it in the map's dtype on its
+    device. The bias update (dbg, dba) is not part of the schema, in either
+    package."""
+    jm, tm = line_maps
+    fid = tm.keyframe_ids[-1]
+    ours, theirs = _preintegrations()
+    tm.keyframes[fid].preintegration = ours
+    jm.keyframes[fid].preintegration = theirs
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-            serialization.save_map(tm, str(tmp_path / "x.bin"))
+        serialization.save_map(tm, str(tmp_path / "port.bin"))
+        jser.save_map(jm, str(tmp_path / "jax.bin"))
+        got_j = jser.load_map(str(tmp_path / "port.bin"))[0].keyframes[fid].preintegration
+        got_t = serialization.load_map(str(tmp_path / "jax.bin"), camera=Camera(), device="cpu",
+                                       dtype=torch.float64)[0].keyframes[fid].preintegration
     finally:
-        kf.preintegration = None
+        tm.keyframes[fid].preintegration = jm.keyframes[fid].preintegration = None
+    theirs.update_bias(theirs.bg, theirs.ba)
+    _assert_preintegration_equal(got_j, theirs)
+    _assert_preintegration_equal(got_t, ours)
+    assert got_t.dtype == torch.float64 and got_t.device.type == "cpu"
+    assert got_t.valid() and got_t.dT == pytest.approx(ours.dT, abs=1e-15)
+    np.testing.assert_array_equal(got_t.dbg, np.zeros(3))
 
 
 def _write_asl(root, n, shape=(48, 64), imu=False):
@@ -262,11 +311,37 @@ def test_asl_dataset_loader_equals_jax(tmp_path):
 
 
 def test_asl_dataset_with_an_imu_csv_waits(tmp_path):
+    """An ASL tree with ``imu0/data.csv`` read with the IMU (it waited for the
+    stereo-inertial slice until now): the frames outside the IMU's time range
+    dropped and each frame's rows since the previous frame, with the first
+    sample past it, equal to the JAX Dataset's; without ``use_imu`` the csv is
+    not read."""
+    from airslam_tpu.io.dataset import Dataset as JDataset
+
     root = tmp_path / "mav0"
-    _write_asl(root, 2, imu=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        dataset.Dataset(str(root), use_imu=True)
-    assert len(dataset.Dataset(str(root))) == 1  # not asked for: not read
+    _write_asl(root, 6, imu=True)
+    t0 = 1403636579000000000
+    rng = np.random.RandomState(3)
+    with open(root / "imu0" / "data.csv", "a") as f:
+        # 200 Hz from just after frame 0 to just before frame 4
+        for i in range(38):
+            stamp = t0 + 10_000_000 + i * 5_000_000
+            f.write(",".join([str(stamp)] + [repr(float(v)) for v in rng.randn(6)]) + "\n")
+    ours, theirs = dataset.Dataset(str(root), use_imu=True), JDataset(str(root), use_imu=True)
+    assert ours.use_imu and theirs.use_imu
+    assert ours.timestamps == theirs.timestamps and ours.left_paths == theirs.left_paths
+    assert len(ours) == 3  # frames 1, 2, 3: frame 0 before the rows, 4 after, 5 has no right view
+    assert [len(b) for b in ours.imu_batches] == [len(b) for b in theirs.imu_batches]
+    assert ours.imu_batches[0] == [] and len(ours.imu_batches[1]) > 5
+    for ob, tb in zip(ours.imu_batches, theirs.imu_batches):
+        for a, b in zip(ob, tb):
+            assert a.timestamp == b.timestamp
+            np.testing.assert_array_equal(a.gyr, b.gyr)
+            np.testing.assert_array_equal(a.acc, b.acc)
+    assert ours.imu_batches[1][-1].timestamp > ours.timestamps[1]  # the first sample past
+    assert ours.get(2)[3] is ours.imu_batches[2]
+    vision = dataset.Dataset(str(root))
+    assert len(vision) == 5 and all(b == [] for b in vision.imu_batches)
 
 
 def test_vo_cli_on_a_rendered_sequence(tmp_path):
@@ -305,3 +380,78 @@ def test_vo_cli_on_a_rendered_sequence(tmp_path):
              "--config_path", "x", "--camera_config_path", "x", "--dataroot", "x",
              "--saving_dir", str(out)], env=env, cwd=REPO, capture_output=True, text=True)
         assert bad.returncode != 0 and "no CUDA device" in bad.stderr
+
+
+def _vo_cli():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "visual_odometry_torch", os.path.join(REPO, "apps", "visual_odometry_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_vo_cli_builds_float32_networks_by_default(tmp_path):
+    """The port's CLI builds its networks in float32 unless ``--dtype bf16``
+    is given, as the JAX CLI builds them (FeatureDetector/PointMatcher at
+    their f32 default); the geometry is float32 either way."""
+    cli = _vo_cli()
+    root = tmp_path / "mav0"
+    _write_asl(root, 2)
+    base = ["--config_path", os.path.join(REPO, "configs", "visual_odometry", "vo_euroc.yaml"),
+            "--camera_config_path", os.path.join(REPO, "configs", "camera", "synth_stereo.yaml"),
+            "--dataroot", str(root), "--saving_dir", str(tmp_path / "out"), "--device", "cpu"]
+    assert cli.parse_args(base).dtype == "f32"
+    for extra, want in (([], torch.float32), (["--dtype", "bf16"], torch.bfloat16)):
+        builder, data, device = cli.build(cli.parse_args(base + extra))
+        nets = (builder.detector.plnet, builder.detector.loi, builder.detector.superpoint,
+                builder.matcher.model)
+        assert builder.detector.config.dtype == builder.matcher.config.dtype == want
+        assert all(net.dtype == want for net in nets if hasattr(net, "dtype"))
+        assert builder.dtype == torch.float32 and device.type == "cpu" and len(data) == 1
+
+
+def test_vo_cli_stereo_inertial_on_a_rendered_sequence(tmp_path):
+    """``apps/make_synth_dataset.py`` renders 3 frames with their 200 Hz IMU
+    rows; the port's CLI runs them on the CPU with
+    ``configs/camera/synth_stereo_imu.yaml`` (``use_imu: 1``): the dataset
+    hands the rows between frames to the builder, the keyframes after the
+    first carry their preintegration into the map file, and both packages
+    load it. 0.1 s of motion initializes no IMU (3 s and 10 keyframes)."""
+    from airslam_tpu.io.dataset import Dataset as JDataset
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+    data = tmp_path / "ds"
+    subprocess.run([sys.executable, os.path.join(REPO, "apps", "make_synth_dataset.py"),
+                    "--out", str(data), "--frames", "3", "--texture", "0.1", "--seed", "3"],
+                   check=True, env=env, cwd=REPO, capture_output=True)
+    mav0 = data / "SYNTH_01" / "mav0"
+    out = tmp_path / "out"
+    run = subprocess.run(
+        [sys.executable, os.path.join(REPO, "apps", "visual_odometry_torch.py"),
+         "--config_path", os.path.join(REPO, "configs", "visual_odometry", "vo_euroc.yaml"),
+         "--camera_config_path", os.path.join(REPO, "configs", "camera",
+                                              "synth_stereo_imu.yaml"),
+         "--dataroot", str(mav0), "--saving_dir", str(out), "--max_frames", "3",
+         "--device", "cpu"],
+        env=env, cwd=REPO, capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "dataset: 3 frames on cpu" in run.stdout and "imu initialized: False" in run.stdout
+    ours = dataset.Dataset(str(mav0), use_imu=True)
+    theirs = JDataset(str(mav0), use_imu=True)
+    assert [len(b) for b in ours.imu_batches] == [len(b) for b in theirs.imu_batches]
+    assert len(ours.imu_batches[1]) > 10  # 0.05 s at 200 Hz, both ends and one past
+    assert len(trajectory.load_tum(str(out / "trajectory_v0.txt"))) == 3
+    m, _ = serialization.load_map(str(out / "AirSLAM_mapv0.bin"), device="cpu")
+    jm, _ = jser.load_map(str(out / "AirSLAM_mapv0.bin"))
+    assert m.keyframe_ids == jm.keyframe_ids and len(m.keyframe_ids) >= 2
+    assert m.camera.use_imu and not m.imu_initialized
+    for fid in m.keyframe_ids[1:]:
+        ours_pre, theirs_pre = m.keyframes[fid].preintegration, jm.keyframes[fid].preintegration
+        assert ours_pre.valid() and theirs_pre.valid()
+        assert ours_pre.dT == pytest.approx(theirs_pre.dT, abs=1e-6)
+        np.testing.assert_array_equal(np.asarray(ours_pre._rows_dt),
+                                      np.asarray(theirs_pre._rows_dt))
+    assert m.keyframes[m.keyframe_ids[0]].preintegration is None
+    m.check_map()

@@ -12,6 +12,7 @@ import torch
 from airslam_tpu.pipelines.map_builder import KeyframeConfig as JKeyframeConfig
 from airslam_tpu.pipelines.map_builder import MapBuilder as JMapBuilder
 from airslam_tpu_torch.core.camera import Intrinsics
+from airslam_tpu_torch.core.imu import ImuData
 from airslam_tpu_torch.frontend.detector import FrameFeatures
 from airslam_tpu_torch.io import publisher as pub
 from airslam_tpu_torch.ops.match import Matches
@@ -248,19 +249,33 @@ def test_publisher_gets_every_tracked_frame():
 
 
 def test_what_waits_raises_and_names_its_queue():
+    """An IMU camera runs the VI arm (it raised until the stereo-inertial
+    slice): the rows between frames are preintegrated and handed to the
+    keyframe, the second keyframe's insertion runs the local BA and an IMU
+    initialization attempt (which waits for 3 s and 10 keyframes), and once
+    the IMU runs the window carries IMU factors with velocities and biases
+    free. What still waits raises and names its ROADMAP item."""
     rendered = _rendered(2)
     cam = Camera()
     cam.use_imu = True
+    cam.gyr_noise, cam.acc_noise, cam.gyr_walk, cam.acc_walk = 1e-3, 1e-2, 1e-5, 1e-4
     tb = MapBuilder(cam, None, Matcher(), device="cpu", dtype=torch.float64,
-                    kf_config=KeyframeConfig(min_init_stereo_feature=50))
+                    kf_config=KeyframeConfig(min_init_stereo_feature=50, min_num_match=1000))
     tb.track_features(0.0, *rendered[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        tb.map.insert_keyframe(tb.last_keyframe)
-    tb.map.imu_initialized = True
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        tb.map._build_problem([tb.last_keyframe], np.ones(1, bool),
-                              [p for p in tb.map.mappoints.values() if p.is_valid], [])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
+    rows = [ImuData(0.005 * i, np.zeros(3), np.array([0.0, 0.0, 9.81])) for i in range(22)]
+    tb.track_features(0.1, *rendered[1], imu_batch=rows)
+    m = tb.map
+    assert m.keyframe_ids == [0, 1] and not m.imu_initialized
+    kf = m.keyframes[1]
+    assert tb.preintegration is None and kf.preintegration.valid()
+    assert kf.preintegration.dT == pytest.approx(0.1) and kf.preintegration.dtype == torch.float64
+    m.imu_initialized = True
+    frames = [m.keyframes[1], m.keyframes[0]]
+    problem, _ = m._build_problem(frames, np.array([False, True]),
+                                  [p for p in m.mappoints.values() if p.is_valid], [])
+    assert problem.imu is not None and problem.imu.idx_i.tolist() == [1]
+    assert problem.imu.idx_j.tolist() == [0] and problem.vel_fixed.tolist() == [False, True]
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         tb._solve_pnp_jax(None, [])
     assert (tmap.WINDOW_SIZE, tmap.MAX_FIXED_FRAMES) == (5, 10)
     assert tmap._bucket(65) == 128 and tmap._pow2_bucket(9) == 16

@@ -6,6 +6,7 @@ run float64 on the same numpy-seeded problems (those of tests/test_backend.py);
 each test states its tolerance. One test runs the port in float32, as on the
 card, against the f64 JAX result at the ``PARITY_TPU.json`` gates."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -189,12 +190,37 @@ def test_assemble_and_solve_step_vs_jax(robust):
 
 
 def test_imu_branch_raises_and_names_its_queue():
+    """The IMU branch runs (it raised until the stereo-inertial slice): the
+    line scene with IMU factors between consecutive frames, velocities and
+    biases free, one step and the cost against the JAX package's to 1e-8,
+    the system grown from F·6 to F·15 + 2 dims."""
     prob, scene = _scene_with_line()
-    ours = _port(prob)._replace(imu=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        gn._assemble_and_solve(ours, _intr(scene["intr"]), gn.BAConfig(), 1e-3, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        gn.total_cost(ours, _intr(scene["intr"]), gn.BAConfig(), True)
+    f = prob.frames.Rwb.shape[0]
+    rng = np.random.RandomState(2)
+    k = f - 1
+    imu = jgn.IMUFactors(
+        idx_i=jnp.arange(k, dtype=jnp.int32), idx_j=jnp.arange(1, f, dtype=jnp.int32),
+        dR=jnp.asarray(np.tile(np.eye(3), (k, 1, 1))), dV=jnp.asarray(rng.randn(k, 3) * 0.01),
+        dP=jnp.asarray(rng.randn(k, 3) * 0.05),
+        JRg=jnp.asarray(rng.randn(k, 3, 3) * 0.01), JVg=jnp.asarray(rng.randn(k, 3, 3) * 0.01),
+        JVa=jnp.asarray(rng.randn(k, 3, 3) * 0.01), JPg=jnp.asarray(rng.randn(k, 3, 3) * 0.01),
+        JPa=jnp.asarray(rng.randn(k, 3, 3) * 0.01),
+        bg_lin=jnp.zeros((k, 3)), ba_lin=jnp.zeros((k, 3)), dT=jnp.full((k,), 0.25),
+        info=jnp.asarray(np.tile(np.eye(9) * 50.0, (k, 1, 1))),
+        info_walk=jnp.asarray(np.tile(np.eye(6) * 1e2, (k, 1, 1))), mask=jnp.ones(k, bool))
+    prob = prob._replace(imu=imu, vel_fixed=jnp.zeros(f, bool))
+    ours, intr, cfg = _port(prob), _intr(scene["intr"]), gn.BAConfig()
+    # the JAX reference compiled whole: one XLA program, not one per operation
+    want = jax.jit(jgn._assemble_and_solve, static_argnums=(4,))(
+        prob, scene["intr"], jgn.BAConfig(), 1e-3, True)
+    got = gn._assemble_and_solve(ours, intr, cfg, torch.tensor(1e-3, dtype=F64), True)
+    for w, g, name in zip(want, got, ("dx_frames", "dg", "dp", "dl")):
+        assert g.shape == np.asarray(w).shape, name
+        assert _gap(w, g) <= 1e-8, name
+    assert float(got[0][:, 6:].abs().max()) > 0  # velocities and biases move
+    c_want = float(jax.jit(jgn.total_cost, static_argnums=(3,))(
+        prob, scene["intr"], jgn.BAConfig(), True))
+    assert abs(float(gn.total_cost(ours, intr, cfg, True)) - c_want) <= 1e-8 * c_want
     assert (gn.POSE_DIM, gn.FRAME_DIM, gn.GRAV_DIM) == (jgn.POSE_DIM, jgn.FRAME_DIM, jgn.GRAV_DIM)
 
 

@@ -64,6 +64,22 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms on for the block, the caller's
+    setting restored after: ``index_add_`` on a CUDA tensor then sums in a
+    fixed (sorted-key) order instead of by atomics, so two runs give the same
+    bits. Wraps only scatter-adds (a cuBLAS product under the switch needs a
+    workspace setting)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn)
+
+
 class FrameStates(NamedTuple):
     Rwb: torch.Tensor  # (F, 3, 3)
     twb: torch.Tensor  # (F, 3)

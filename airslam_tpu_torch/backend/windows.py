@@ -22,13 +22,14 @@ kernel's plain version when they are on the CPU. ``_pose_only_fast`` is the
 autodiff form of the same solve: the independent check on the kernel's
 analytic Jacobian columns. The VI tracking layout goes to
 ``_pose_only_fast_vi`` (plain PyTorch: the JAX package has no kernel for it);
-any other problem to the general dense solver. The pose graph is not ported
-yet (ROADMAP A.4, stage 2).
+any other problem to the general dense solver. :func:`pose_graph_optimization`
+(:490-~560) ↔ the refinement's pose graph (map_refiner.cc:463-591): a dense
+LM over 6F unknowns with relative-pose residuals.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -403,6 +404,93 @@ def _pose_only_general(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConf
 
     out = problem._replace(point_obs_mask=base_p_mask, line_obs_mask=base_l_mask)
     return out, p_in, l_in, p_in.sum() + l_in.sum()
+
+
+# ---------------------------------------------------------------------------
+# Pose graph
+# ---------------------------------------------------------------------------
+
+
+class PoseGraphProblem(NamedTuple):
+    Rwb: torch.Tensor  # (F, 3, 3)
+    twb: torch.Tensor  # (F, 3)
+    fixed: torch.Tensor  # (F,) bool
+    edge_i: torch.Tensor  # (E,) int64
+    edge_j: torch.Tensor  # (E,)
+    R_meas: torch.Tensor  # (E, 3, 3) relative T_i⁻¹ T_j measurement
+    t_meas: torch.Tensor  # (E, 3)
+    mask: torch.Tensor  # (E,) bool
+
+
+def _pose_graph_cost(p: PoseGraphProblem, Rwb, twb):
+    i, j = p.edge_i, p.edge_j
+    r = torch.func.vmap(res.relative_pose_residual)(Rwb[i], twb[i], Rwb[j], twb[j],
+                                                    p.R_meas, p.t_meas)
+    return torch.where(p.mask, (r * r).sum(-1), torch.zeros_like(r[:, 0])).sum()
+
+
+def pose_graph_optimization(p: PoseGraphProblem, iterations: int = 20) -> PoseGraphProblem:
+    """Dense LM over 6F unknowns with relative-pose residuals, the first
+    pose(s) held by ``fixed``; accept/reject on the device, no read-back
+    inside the loop. Each edge's 12×12 block goes into the (6F)² system by
+    one ``index_add_`` over a flattened index, in a fixed order
+    (``gn.deterministic``)."""
+    f = p.Rwb.shape[0]
+    D = f * 6
+    dtype, dev = p.twb.dtype, p.twb.device
+    free = (~p.fixed).to(dtype)
+    i, j = p.edge_i, p.edge_j
+    ar = torch.arange(6, device=dev)
+    cols = torch.cat([i[:, None] * 6 + ar, j[:, None] * 6 + ar], dim=1)  # (E, 12)
+    key = (cols[:, :, None] * D + cols[:, None, :]).reshape(-1)
+    cm = torch.cat([free[i][:, None].expand(-1, 6), free[j][:, None].expand(-1, 6)], dim=1)
+    w = p.mask.to(dtype)
+
+    def edge(Ri, ti, Rj, tj, Rm, tm):
+        def fe(delta):
+            Ri2, ti2 = res.retract_pose(Ri, ti, delta[0:6])
+            Rj2, tj2 = res.retract_pose(Rj, tj, delta[6:12])
+            r = res.relative_pose_residual(Ri2, ti2, Rj2, tj2, Rm, tm)
+            return r, r
+
+        J, (r, _) = gn._jac_with_value(fe, 12, dtype, dev)
+        return r, J.to(dtype)
+
+    def solve_once(Rwb, twb, lam):
+        r, J = torch.func.vmap(edge)(Rwb[i], twb[i], Rwb[j], twb[j], p.R_meas, p.t_meas)
+        J = J * cm[:, None, :] * w[:, None, None]
+        r = r * w[:, None]
+        Hk = torch.einsum("eri,erj->eij", J, J)
+        bk = -torch.einsum("eri,er->ei", J, r)
+        H = torch.zeros(D * D, dtype=dtype, device=dev)
+        b = torch.zeros(D, dtype=dtype, device=dev)
+        with gn.deterministic():
+            H.index_add_(0, key, Hk.reshape(-1))
+            b.index_add_(0, cols.reshape(-1), bk.reshape(-1))
+        H = H.reshape(D, D) + torch.diag(lam * torch.ones(D, dtype=dtype, device=dev))
+        H = H + torch.diag((torch.diagonal(H) < 1e-10).to(dtype))
+        dx = gn.solve_spd(H, b).reshape(f, 6)
+        # a factorization that failed gives NaN: the cost gate rejects the
+        # step, and zeroing keeps the rejected candidate finite
+        dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+        return torch.func.vmap(res.retract_pose)(Rwb, twb, dx)
+
+    with gn.full_f32():
+        Rwb, twb = p.Rwb, p.twb
+        cost = _pose_graph_cost(p, Rwb, twb)
+        lam = torch.full((), 1e-5, dtype=cost.dtype, device=dev)
+        nu = torch.full((), 2.0, dtype=cost.dtype, device=dev)
+        two = torch.full_like(nu, 2.0)
+        for _ in range(iterations):
+            Rn, tn = solve_once(Rwb, twb, lam)
+            new_cost = _pose_graph_cost(p, Rn, tn)
+            accept = new_cost < cost
+            Rwb = torch.where(accept, Rn, Rwb)
+            twb = torch.where(accept, tn, twb)
+            lam = torch.where(accept, lam / 3.0, lam * nu)
+            nu = torch.where(accept, two, nu * 2.0)
+            cost = torch.where(accept, new_cost, cost)
+    return p._replace(Rwb=Rwb, twb=twb)
 
 
 # ---------------------------------------------------------------------------

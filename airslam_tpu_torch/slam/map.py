@@ -17,9 +17,13 @@ dtype, and each pulls its result to the host once. The preintegration
 information matrices are inverted on the host in numpy, from the state's
 values, as the JAX package does.
 
-Global BA, ``apply_pose_corrections``, ``search_by_projection`` and
-``export_text`` (map refinement, ROADMAP A.4; relocalization, A.5) are not
-ported yet.
+The map refinement's part (stage 2) is here too: the global BA over every
+keyframe (the dense window program up to ``DENSE_BA_MAX_FRAMES`` keyframes,
+the sparse observation-list solver of ``backend/global_ba.py`` past it), the
+pose-graph corrections, the whole covisibility rebuild, single-landmark
+triangulation, the representative descriptor, the text export and the map
+scale. ``search_by_projection`` (relocalization, ROADMAP A.5) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -190,6 +194,9 @@ class Map:
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
 
+    def triangulate_mappoint(self, mpt: Mappoint) -> bool:
+        return self.triangulate_mappoints_batch([mpt]) > 0
+
     def triangulate_mappoints_batch(self, mpts, max_obs: int = 8) -> int:
         """Triangulate many mappoints in ONE call: observations padded to
         (B_bucket, max_obs) grids, batched midpoint solve (a per-landmark call,
@@ -228,6 +235,11 @@ class Map:
                 good += 1
         return good
 
+    def triangulate_mapline_by_mappoints(self, mpl: Mapline) -> bool:
+        """Robust 3D line from the mappoints lying on the observed 2D lines
+        (map.cc:416-504)."""
+        return self.triangulate_maplines_by_mappoints_batch([mpl]) > 0
+
     def triangulate_maplines_by_mappoints_batch(self, mpls, max_pts: int = 64) -> int:
         """Fit many maplines from their supporting mappoints in ONE batched
         call (map.cc:416-504 runs per line). The point gather stays in numpy;
@@ -265,6 +277,10 @@ class Map:
                 mpl.set_endpoints(ends[b])
                 good += 1
         return good
+
+    def update_mapline_endpoints(self, mpl: Mapline):
+        """Refresh one line's endpoints after BA moved it (map.cc:192-340)."""
+        self.update_maplines_endpoints_batch([mpl])
 
     def update_maplines_endpoints_batch(self, mpls):
         """Endpoint maintenance after BA moved the infinite lines
@@ -582,6 +598,280 @@ class Map:
         self.update_maplines_endpoints_batch(refresh)
 
     # ------------------------------------------------------------------
+    # global BA (g2o_optimization.cc:1488-1959)
+    # ------------------------------------------------------------------
+
+    # beyond this many keyframes the dense (P, F) grid formulation gives way
+    # to the sparse observation-list solver (backend/global_ba.py)
+    DENSE_BA_MAX_FRAMES = 64
+
+    def global_bundle_adjustment(self, iters1: int = 50, iters2: int = 40):
+        """Full-map BA over every keyframe and landmark (``GlobalBA``): robust
+        pass → outlier rejection → second pass, the oldest keyframe fixed.
+        Up to ``DENSE_BA_MAX_FRAMES`` keyframes it runs the dense window
+        program; past it the sparse observation-list solver."""
+        if len(self.keyframes) < 2:
+            return
+        frames = [self.keyframes[fid] for fid in reversed(self.keyframe_ids)]
+        pose_fixed = np.zeros(len(frames), bool)
+        pose_fixed[-1] = True  # oldest keyframe (newest-first ordering)
+        mpts = [m for m in self.mappoints.values() if m.is_valid and m.observers]
+        mpls = [l for l in self.maplines.values() if l.is_valid and l.observers]
+        if len(frames) > self.DENSE_BA_MAX_FRAMES:
+            self._sparse_global_ba(frames, pose_fixed, mpts, mpls, iters1, iters2)
+            return
+        problem, layout = self._build_problem(frames, pose_fixed, mpts, mpls,
+                                              pad_frames=_bucket(len(frames), 8))
+        if problem is None:
+            return
+        out, p_in, l_in = windows.local_ba(problem, self._intr, self.ba_config,
+                                           iters1=iters1, iters2=iters2)
+        self._write_back(out, p_in, l_in, frames, pose_fixed, mpts, mpls, layout)
+
+    def _sparse_global_ba(self, frames, pose_fixed, mpts, mpls, iters1, iters2,
+                          max_obs: Optional[int] = None):
+        """Map-scale GlobalBA on the sparse solver; with the IMU initialized
+        the keyframe preintegration chain joins the problem (15 dof a frame,
+        gravity pinned).
+
+        ``max_obs`` (None = auto): the width of the per-landmark Schur
+        pairing table. The auto rule takes the real maximum observation
+        count, bucketed to multiples of 8 with a ceiling of 64, so the pairing
+        is exact on typical maps (a fixed cap of 16 leaves about 3e-2 of pose
+        error on dense-coverage scenes: the truncated pairing disagrees with
+        the full-gradient landmark blocks). Landmarks past 64 keep their
+        first 64 observations in the pairing; every observation still adds
+        its gradient and is gated."""
+        from airslam_tpu_torch.backend import global_ba as gba
+
+        prob, layout = self._build_sparse_problem(frames, pose_fixed, mpts, mpls,
+                                                  max_obs=max_obs)
+        if prob is None:
+            return
+        out, p_in, l_in = gba.global_ba(prob, self._intr, self.ba_config,
+                                        iters1=iters1, iters2=iters2)
+        self._write_back_sparse(out, p_in, l_in, frames, pose_fixed, mpts, mpls, layout)
+
+    def _build_sparse_problem(self, frames, pose_fixed, mpts, mpls,
+                              max_obs: Optional[int] = None):
+        """The ``SparseBAProblem`` of these frames and landmarks on the map's
+        device: observation lists padded to buckets (points to 256, lines to
+        64), the observation tables, the body poses, and with the IMU running
+        the velocities, biases and preintegration factors. Returns (problem,
+        (frame_index, real point observations, real line observations))."""
+        from airslam_tpu_torch.backend import global_ba as gba
+
+        f = len(frames)
+        p_real, l_real = len(mpts), len(mpls)
+        if p_real == 0 and l_real == 0:
+            return None, None
+        frame_index = {fr.frame_id: k for k, fr in enumerate(frames)}
+        if max_obs is None:
+            widest = 1
+            for lm in list(mpts) + list(mpls):
+                widest = max(widest, sum(1 for fid in lm.observers if fid in frame_index))
+            max_obs = min(_bucket(widest, 8), 64)
+
+        points = np.zeros((max(p_real, 1), 3))
+        pobs_pidx, pobs_fidx, pobs = [], [], []
+        for j, mpt in enumerate(mpts):
+            points[j] = mpt.position
+            for fid, idx in mpt.observers.items():
+                k = frame_index.get(fid)
+                if k is None:
+                    continue
+                kf = self.keyframes.get(fid) or frames[k]
+                pobs_pidx.append(j)
+                pobs_fidx.append(k)
+                pobs.append(kf.keypoint_position(idx))
+        n_real = len(pobs)
+        N = _bucket(max(n_real, 1), 256)
+        pobs_arr = np.zeros((N, 3))
+        pobs_arr[:, 2] = -1.0
+        if n_real:
+            pobs_arr[:n_real] = np.asarray(pobs)
+        ppidx = np.zeros(N, np.int64)
+        pfidx = np.zeros(N, np.int64)
+        ppidx[:n_real] = pobs_pidx
+        pfidx[:n_real] = pobs_fidx
+        pmask = np.zeros(N, bool)
+        pmask[:n_real] = True
+
+        lines = np.tile(np.array([1.0, 0, 0, 0, 1.0, 0]), (max(l_real, 1), 1))
+        lobs_lidx, lobs_fidx, lobs, lster, lsig = [], [], [], [], []
+        for j, mpl in enumerate(mpls):
+            lines[j] = mpl.line3d
+            sig = 0.1 if len(mpl.observers) > 3 else 0.001  # map.cc:724
+            for fid, idx in mpl.observers.items():
+                k = frame_index.get(fid)
+                if k is None:
+                    continue
+                kf = self.keyframes.get(fid) or frames[k]
+                row = np.zeros(8)
+                row[0:4] = kf.lines[idx]
+                stereo = bool(kf.lines_right_valid[idx])
+                if stereo:
+                    row[4:8] = kf.lines_right[idx]
+                lobs_lidx.append(j)
+                lobs_fidx.append(k)
+                lobs.append(row)
+                lster.append(stereo)
+                lsig.append(sig)
+        m_real = len(lobs)
+        M = _bucket(max(m_real, 1), 64)
+        lobs_arr = np.zeros((M, 8))
+        if m_real:
+            lobs_arr[:m_real] = np.asarray(lobs)
+        llidx = np.zeros(M, np.int64)
+        lfidx = np.zeros(M, np.int64)
+        llidx[:m_real] = lobs_lidx
+        lfidx[:m_real] = lobs_fidx
+        lmask = np.zeros(M, bool)
+        lmask[:m_real] = True
+        lster_arr = np.zeros(M, bool)
+        lster_arr[:m_real] = lster
+        lsig_arr = np.full(M, 0.001)
+        lsig_arr[:m_real] = lsig
+
+        ptable = gba.build_obs_table(points.shape[0], ppidx, pmask, N, max_obs)
+        ltable = gba.build_obs_table(lines.shape[0], llidx, lmask, M, max_obs)
+
+        Tcb = self.camera.Tcb if hasattr(self.camera, "Tcb") else np.eye(4)
+        Rwb = np.tile(np.eye(3), (f, 1, 1))
+        twb = np.zeros((f, 3))
+        for k, fr in enumerate(frames):
+            Twb = fr.Twc @ Tcb
+            Rwb[k] = Twb[:3, :3]
+            twb[k] = Twb[:3, 3]
+
+        t, dev = self._tensor, self.device
+
+        def idx(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+        def flag(a):
+            return torch.as_tensor(a, device=dev)
+
+        vi = {}
+        if self.imu_initialized:
+            imu = self._imu_factors(frames)
+            if imu is not None:
+                vi = dict(vel=t(np.stack([fr.velocity for fr in frames])),
+                          bg=t(np.stack([fr.bg for fr in frames])),
+                          ba=t(np.stack([fr.ba for fr in frames])),
+                          vel_fixed=flag(pose_fixed), Rwg=t(self.Rwg), imu=imu)
+        prob = gba.SparseBAProblem(
+            Rwb=t(Rwb), twb=t(twb), pose_fixed=flag(pose_fixed), points=t(points),
+            pobs_pidx=idx(ppidx), pobs_fidx=idx(pfidx), pobs=t(pobs_arr),
+            pobs_mask=flag(pmask), point_obs_table=idx(ptable),
+            lines=t(lines), lobs_lidx=idx(llidx), lobs_fidx=idx(lfidx), lobs=t(lobs_arr),
+            lobs_stereo=flag(lster_arr), lobs_mask=flag(lmask), lobs_sigma=t(lsig_arr),
+            line_obs_table=idx(ltable), Rcb=t(Tcb[:3, :3]), tcb=t(Tcb[:3, 3]),
+            g_value=self.g_value, **vi)
+        return prob, (frame_index, n_real, m_real)
+
+    def _write_back_sparse(self, out, p_in, l_in, frames, pose_fixed, mpts, mpls, layout):
+        frame_index, n_real, m_real = layout
+        Tcb = self.camera.Tcb if hasattr(self.camera, "Tcb") else np.eye(4)
+        Tbc = np.linalg.inv(Tcb)
+
+        def host(a):
+            return None if a is None else a.double().cpu().numpy()
+
+        # the whole state is pulled once
+        Rwb, twb, vel, bgs, bas, pts, lns = (host(a) for a in (
+            out.Rwb, out.twb, out.vel, out.bg, out.ba, out.points, out.lines))
+        p_in, l_in = p_in.cpu().numpy(), l_in.cpu().numpy()
+        pidx, fidx = out.pobs_pidx.cpu().numpy(), out.pobs_fidx.cpu().numpy()
+        lidx, lfidx = out.lobs_lidx.cpu().numpy(), out.lobs_fidx.cpu().numpy()
+        for k, fr in enumerate(frames):
+            if pose_fixed[k]:
+                continue
+            Twb = np.eye(4)
+            Twb[:3, :3] = Rwb[k]
+            Twb[:3, 3] = twb[k]
+            fr.Twc = Twb @ Tbc
+            if vel is not None:
+                fr.velocity = vel[k]
+                fr.bg = bgs[k]
+                fr.ba = bas[k]
+
+        inv_frame = {k: fid for fid, k in frame_index.items()}
+        for j, mpt in enumerate(mpts):
+            mpt.set_position(pts[j])
+        for oi in range(n_real):
+            if p_in[oi]:
+                continue
+            mpt = mpts[pidx[oi]]
+            fid = inv_frame[fidx[oi]]
+            if fid in mpt.observers:
+                kf = self.keyframes.get(fid)
+                if kf is not None:
+                    idx = mpt.observers[fid]
+                    kf.mappoint_ids[idx] = -1
+                    kf.track_ids[idx] = -1
+                mpt.remove_observer(fid)
+        for mpt in mpts:
+            if len(mpt.observers) == 0:
+                mpt.set_bad()
+
+        for j, mpl in enumerate(mpls):
+            mpl.set_line3d(lns[j])
+        for oi in range(m_real):
+            if l_in[oi]:
+                continue
+            mpl = mpls[lidx[oi]]
+            fid = inv_frame[lfidx[oi]]
+            if fid in mpl.observers:
+                kf = self.keyframes.get(fid)
+                if kf is not None:
+                    idx = mpl.observers[fid]
+                    kf.mapline_ids[idx] = -1
+                    kf.line_track_ids[idx] = -1
+                mpl.remove_observer(fid)
+        refresh = []
+        for mpl in mpls:
+            if len(mpl.observers) == 0:
+                mpl.set_bad()
+            else:
+                refresh.append(mpl)
+        self.update_maplines_endpoints_batch(refresh)
+
+    def apply_pose_corrections(self, corrections):
+        """Move keyframes to their corrected poses and every landmark with
+        its first observer's correction T_new · T_old⁻¹ (map_refiner.cc:540-591).
+        Host work in float64."""
+        old_poses = {fid: self.keyframes[fid].Twc.copy() for fid in corrections}
+        for fid, Twc_new in corrections.items():
+            self.keyframes[fid].set_pose(Twc_new)
+        for mpt in self.mappoints.values():
+            if not mpt.is_valid or not mpt.observers:
+                continue
+            first = min(mpt.observers)
+            if first in corrections:
+                A = corrections[first] @ np.linalg.inv(old_poses[first])
+                mpt.position = A[:3, :3] @ mpt.position + A[:3, 3]
+        for mpl in self.maplines.values():
+            if not mpl.is_valid or not mpl.observers:
+                continue
+            first = min(mpl.observers)
+            if first in corrections:
+                A = corrections[first] @ np.linalg.inv(old_poses[first])
+                mpl.line3d = lie.line_transform(
+                    torch.as_tensor(A[:3, :3]), torch.as_tensor(A[:3, 3]),
+                    torch.as_tensor(np.asarray(mpl.line3d, np.float64))).numpy()
+                if mpl.endpoints_valid:
+                    e = mpl.endpoints
+                    mpl.endpoints = np.concatenate(
+                        [A[:3, :3] @ e[:3] + A[:3, 3], A[:3, :3] @ e[3:] + A[:3, 3]])
+
+    def update_covisibility_graph(self):
+        """Rebuild the whole covisibility graph (map.cc:1385-1418)."""
+        self.covisibility = {}
+        for fid in self.keyframe_ids:
+            self._update_covisibility(self.keyframes[fid])
+
+    # ------------------------------------------------------------------
     # covisibility (map.cc:1385-1425)
     # ------------------------------------------------------------------
 
@@ -744,6 +1034,60 @@ class Map:
         """[(timestamp, Twc)] in keyframe order."""
         return [(self.keyframes[fid].timestamp, self.keyframes[fid].Twc)
                 for fid in self.keyframe_ids]
+
+    def update_mappoint_descriptor(self, mpt: Mappoint) -> bool:
+        """Representative descriptor = the observation with the least median
+        distance to the others (``Map::UpdateMappointDescriptor``,
+        map.cc:506-554)."""
+        descs = []
+        for fid, idx in mpt.observers.items():
+            kf = self.keyframes.get(fid)
+            if kf is not None and idx >= 0:
+                descs.append(kf.kp_desc[idx])
+        if not descs:
+            return False
+        if len(descs) <= 2:
+            mpt.descriptor = np.asarray(descs[0]).copy()
+            return True
+        d = np.stack(descs)
+        dist = 1.0 - d @ d.T  # DescriptorDistance, utils.cc:15-17
+        mpt.descriptor = d[int(np.argmin(np.median(dist, axis=1)))].copy()
+        return True
+
+    def export_text(self, map_root: str):
+        """Plain-text map dump (``Map::SaveMap``, map.cc:1227-1278):
+        frames/<id>.txt with the pose and per-feature (track_id, score, x, y,
+        descriptor) rows, and mappoints.txt with (id, x, y, z)."""
+        import os
+
+        frame_root = os.path.join(map_root, "frames")
+        os.makedirs(frame_root, exist_ok=True)
+        for fid in self.keyframe_ids:
+            kf = self.keyframes[fid]
+            lines = [",".join([str(fid)] + [f"{kf.Twc[i, j]:.6f}"
+                                            for i in range(3) for j in range(4)])]
+            for i in np.nonzero(kf.kp_mask)[0]:
+                row = [str(int(kf.track_ids[i])), f"{kf.kp_scores[i]:.6f}",
+                       f"{kf.keypoints[i, 0]:.3f}", f"{kf.keypoints[i, 1]:.3f}"]
+                row += [f"{v:.6f}" for v in kf.kp_desc[i]]
+                lines.append(",".join(row))
+            with open(os.path.join(frame_root, f"{fid}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        rows = []
+        for mid, mpt in self.mappoints.items():
+            if mpt.is_valid:
+                p = mpt.position
+                rows.append(f"{mid},{p[0]:.6f},{p[1]:.6f},{p[2]:.6f}")
+        with open(os.path.join(map_root, "mappoints.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+
+    def map_scale(self) -> float:
+        """3× the largest per-axis standard deviation of the valid mappoints
+        (``Map::MapScale``, map.cc:1428-1446)."""
+        pts = np.asarray([m.position for m in self.mappoints.values() if m.is_valid])
+        if len(pts) == 0:
+            return 0.0
+        return float(3.0 * pts.std(axis=0).max())
 
     def check_map(self):
         """Consistency assertions (Map::CheckMap, map.cc:1448-1485)."""

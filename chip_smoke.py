@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, vio; ``path`` needs ``slice`` and ``tracking``) and then prints no
+path, vo, vio, refine; ``path`` needs ``slice`` and ``tracking``) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -91,6 +91,27 @@ without a result line):
    initialization and never after. Prints the ms of a VI tracked frame
    before and after the initialization, of the F=2 solve, of
    ``initialize_imu`` and of a vision and a VI ``local_ba``.
+11. ``refine``: stage 2 in float32 against ``tests/data/torch_refine_oracle.npz``
+   (the JAX refiner on the CPU). The corridor loop's map (a) is rebuilt by
+   the port's ``MapBuilder`` on the CPU in float64 and held to the JAX map's
+   digest (keyframe ids, poses and mappoints within 1e-6 m), written as a
+   mapv0 and loaded onto the card in float32. (a) ``MapRefiner.run`` with the
+   identity matcher: the JAX loop pairs (Rlq / tlq within 1e-3 / 1e-3 m), the
+   merged counts, refined keyframes within 0.02 m / 5e-3, ATE within 0.05 m
+   of the truth, kernel P launched once per JAX pose-only solve; word ids on
+   the card equal the CPU's. (b) the drifted map with the pose graph:
+   corrections within 1e-3 of the JAX ones, the ATE falls below a quarter
+   and below 0.03 m. The dense against the sparse global BA: at most twice
+   the JAX package's own float32 gap + 1e-4 m, keyframes and mappoints.
+   ``apps/map_refinement_torch.py --use_flash`` on the mapv0: the JAX CLI's
+   loop and merge counts, trajectory_v1 within 0.02 m of its; its launch
+   counts (set to 0 before it) are the record's ``launches_refine``. The
+   map-scale sparse BA (1,000 keyframes, 100k points, 3 LM iterations, chunk
+   4096): cost below 1e-3 of its start, mean pose error below half; the
+   scene cut to 100 keyframes / 10k points within 1e-3 m of the JAX x64
+   solve; ms per iteration, peak memory and a profiled iteration; the pose
+   graph at 1,000 keyframes; kernel P at 64/128/256/512 points with one
+   masked line against its plain version.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -114,6 +135,7 @@ ORACLE = os.path.join(REPO, "tests", "data", "torch_frontend_oracle.npz")
 TRACKING_ORACLE = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz")
 VO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 VIO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
+REFINE_ORACLE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -147,6 +169,18 @@ FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 0, "bilerp_points_t": 0, "loi_fea
 # the stereo-inertial runs against the JAX MapBuilder's (f64): the VO gates on
 # poses and landmark counts, test_full_vio_pipeline's asserts on the
 # initialized state, and the keyframes' preintegration deltas
+# stage 2 against the JAX refiner: the digest of the f64 rebuilt map (m), loop
+# transforms (rotation entries, m), refined poses (PARITY_TPU.json local_ba_*
+# gates), refined ATE (E2E_TPU.json stage2_refine), pose-graph corrections (m),
+# the dense/sparse gap (≤ factor · the JAX f32 gap + add, m), the map-scale
+# solve (cost ratio, pose-error ratio) and the reduced scene against the JAX
+# x64 solve (m), the CLI's trajectory against the JAX CLI's (m)
+REFINE_GATES = {"digest": 1e-6, "loop_R": 1e-3, "loop_t": 1e-3, "pose_t": 0.02, "pose_R": 5e-3,
+                "ate": 0.05, "correction": 1e-3, "gap_factor": 2.0, "gap_add": 1e-4,
+                "scale_cost": 1e-3, "scale_err": 0.5, "reduced": 1e-3, "cli_t": 0.02}
+MAP_SCALE = (1000, 100_000)  # keyframes, points: tests/test_global_ba.py's map-scale scene
+REDUCED_SCENE = (100, 10_000)
+REFINE_P_SHAPES = ((64, 60), (128, 100), (256, 200), (512, 400))  # padded, matched points
 VIO_GATES = {"bg": 5e-3, "speed": 2.0, "rel_t": 0.05, "preint_rel": 1e-4}
 # f32 operations one row costs, counted from csrc/pose_gn.cu: residuals +
 # six Jacobian columns + the 27 accumulators per LM iteration, and one robust
@@ -325,11 +359,11 @@ def imu_batch(t, gyr, acc, lo, hi):
 
 
 class StreamCamera:
-    """tests/test_vo_pipeline.py's FakeCamera with the stream's IMU noise: a
-    rectified 752×480 pinhole rig (fx = fy = 450, baseline 0.1 m), the body
-    frame the left camera."""
+    """tests/test_vo_pipeline.py's FakeCamera, with the stream's IMU noise
+    when ``noise`` is given: a rectified 752×480 pinhole rig (fx = fy = 450,
+    baseline 0.1 m), the body frame the left camera."""
 
-    def __init__(self, noise):
+    def __init__(self, noise=None):
         self.fx = self.fy = 450.0
         self.cx, self.cy, self.bf = 376.0, 240.0, 45.0
         self.image_width, self.image_height = 752, 480
@@ -338,8 +372,10 @@ class StreamCamera:
         self.min_x_diff = self.bf / self.depth_upper_thr
         self.max_y_diff = 1.0
         self.Tbc = self.Tcb = np.eye(4)
-        self.use_imu, self.g_value = True, 9.81
-        self.gyr_noise, self.acc_noise, self.gyr_walk, self.acc_walk = (float(v) for v in noise)
+        self.use_imu, self.g_value = noise is not None, 9.81
+        if noise is not None:
+            self.gyr_noise, self.acc_noise, self.gyr_walk, self.acc_walk = (
+                float(v) for v in noise)
 
     def intrinsics(self):
         from airslam_tpu_torch.core.camera import Intrinsics
@@ -368,6 +404,117 @@ class IdMatcher:
         return Matches(idx1=torch.as_tensor(np.where(ok, idx, -1)),
                        score=torch.as_tensor(np.where(ok, 1.0, 0.0)), mask=torch.as_tensor(ok))
 
+    def matching_points(self, f0, f1, outlier_rejection=False, threshold=None):
+        """(M, 2) index pairs and (M,) scores, as ``PointMatcher.matching_points``."""
+        m = self.match(f0.keypoints, None, f0.kp_desc, f0.kp_mask,
+                       f1.keypoints, None, f1.kp_desc, f1.kp_mask)
+        i0 = np.nonzero(m.mask.numpy())[0]
+        return (np.stack([i0, m.idx1.numpy()[i0]], -1).astype(np.int32),
+                m.score.numpy()[i0])
+
+
+CORRIDOR_MAX_DEPTH = 6.0  # finite visibility: a revisit shares no covisibility
+K_BUDGET, L_BUDGET = 128, 16  # the stream's keypoint and line slots per frame
+
+
+def corridor_world(n_pts=1500, seed=10):
+    """tests/test_refinement.py's corridor: points along +z and one unit
+    descriptor per point."""
+    rng = np.random.RandomState(seed)
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(1.0, 14.0, n_pts)], axis=-1)
+    desc = rng.randn(n_pts, 256).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    return pts, desc
+
+
+def loop_trajectory(n=30, step=0.4):
+    """Out along +z and back to the start (tests/test_refinement.py)."""
+    out = []
+    for i in range(n):
+        T = np.eye(4)
+        k = i if i < n // 2 else (n - 1 - i)
+        T[:3, 3] = [0.01 * k, 0.0, step * k]
+        out.append(T)
+    return out
+
+
+def render_features(pts, desc, Twc, cam, max_depth=None):
+    """tests/test_vo_pipeline.py's renderer on the port's ``FrameFeatures``:
+    the visible points projected into the stereo pair (at most ``K_BUDGET``,
+    subsampled in a fixed order), no lines or junctions. Returns (left,
+    right, stereo pairs)."""
+    from airslam_tpu_torch.frontend.detector import FrameFeatures
+
+    Rwc, twc = Twc[:3, :3], Twc[:3, 3]
+    pc = (pts - twc) @ Rwc
+    z = pc[:, 2]
+    u = pc[:, 0] / z * cam.fx + cam.cx
+    v = pc[:, 1] / z * cam.fy + cam.cy
+    ur = u - cam.bf / z
+    vis = (z > 0.5) & (u >= 5) & (u < 747) & (v >= 5) & (v < 475) & (ur >= 0)
+    if max_depth is not None:
+        vis &= z < max_depth
+    vis_idx = np.nonzero(vis)[0]
+    if len(vis_idx) > K_BUDGET:
+        vis_idx = vis_idx[:: len(vis_idx) // K_BUDGET + 1][:K_BUDGET]
+    k = len(vis_idx)
+
+    def pad(a, shape):
+        out = np.zeros(shape, np.float32)
+        out[:k] = a
+        return out
+
+    left = FrameFeatures(
+        keypoints=pad(np.stack([u[vis_idx], v[vis_idx]], -1), (K_BUDGET, 2)),
+        kp_scores=pad(np.ones(k), (K_BUDGET,)), kp_desc=pad(desc[vis_idx], (K_BUDGET, 256)),
+        kp_mask=np.arange(K_BUDGET) < k,
+        lines=np.zeros((L_BUDGET, 4), np.float32), line_scores=np.zeros(L_BUDGET, np.float32),
+        line_mask=np.zeros(L_BUDGET, bool), junctions=np.zeros((8, 2), np.float32),
+        junc_scores=np.zeros(8, np.float32), junc_desc=np.zeros((8, 256), np.float32),
+        junc_mask=np.zeros(8, bool))
+    right = left._replace(keypoints=pad(np.stack([ur[vis_idx], v[vis_idx]], -1), (K_BUDGET, 2)))
+    return left, right, np.stack([np.arange(k), np.arange(k)], -1).astype(np.int32)
+
+
+def drift_T(s, max_drift=0.22, max_yaw_deg=2.0):
+    """tests/test_pose_graph_refinement.py's drift: s in [0, 1] → a
+    translation ramp along +x/+z and a small yaw, ~``max_drift`` m at s = 1."""
+    T = np.eye(4)
+    a = np.deg2rad(max_yaw_deg) * s
+    T[:3, :3] = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    T[:3, 3] = [0.7 * max_drift * s, 0.15 * max_drift * s, 0.7 * max_drift * s]
+    return T
+
+
+def corridor_map(device="cpu", dtype=None, drifted=False):
+    """The corridor loop's map (a), or with ``drifted`` the drifted map (b),
+    built by the port's ``MapBuilder`` over the rendered feature stream
+    (tests/test_refinement.py's and tests/test_pose_graph_refinement.py's
+    fixtures: keyframe config min_init_stereo_feature 50, max_num_match 200,
+    tracking_point_rate 0.95). Map (b) then takes the drift through
+    ``apply_pose_corrections``. Returns (map, clean keyframe poses)."""
+    import torch
+
+    from airslam_tpu_torch.pipelines.map_builder import KeyframeConfig, MapBuilder
+
+    cam = StreamCamera()
+    builder = MapBuilder(cam, detector=None, matcher=IdMatcher(), device=device,
+                         dtype=dtype or torch.float64,
+                         kf_config=KeyframeConfig(min_init_stereo_feature=50, max_num_match=200,
+                                                  tracking_point_rate=0.95))
+    pts, desc = corridor_world()
+    for i, T in enumerate(loop_trajectory()):
+        builder.track_features(i * 0.1, *render_features(pts, desc, T, cam,
+                                                         max_depth=CORRIDOR_MAX_DEPTH))
+    m = builder.map
+    clean = {fid: m.keyframes[fid].Twc.copy() for fid in m.keyframe_ids}
+    if drifted:
+        ids = m.keyframe_ids
+        m.apply_pose_corrections({fid: drift_T(k / (len(ids) - 1)) @ m.keyframes[fid].Twc
+                                  for k, fid in enumerate(ids)})
+    return m, clean
+
 
 def stream_frame(rec, n):
     """Frame ``n`` of the stored stream: (left, right FrameFeatures of numpy
@@ -388,6 +535,70 @@ def stream_frame(rec, n):
         junc_mask=np.zeros(n_junc, bool))
     right = left._replace(keypoints=np.stack([rec["b_ur"][n], kp[:, 1]], -1))
     return left, right, np.stack([np.arange(k), np.arange(k)], -1).astype(np.int32)
+
+
+def map_scale_scene(n_frames, n_points, seed=2, obs_per=6, max_obs=8):
+    """tests/test_global_ba.py::test_map_scale_1000kf_100kpts's scene at any
+    size (numpy): a circle of ``n_frames`` keyframes of radius 30 m with
+    identity rotations, ``n_points`` points each seen by ``obs_per``
+    consecutive keyframes, exact stereo observations, poses perturbed by 2 cm
+    and points by 5 cm, the first keyframe fixed, the observation table
+    ``max_obs`` wide. The intrinsics are the stream camera's."""
+    cam = StreamCamera()
+    F, P = n_frames, n_points
+    rng = np.random.RandomState(seed)
+    th = np.linspace(0, 2 * np.pi, F, endpoint=False)
+    twb = np.stack([30 * np.cos(th), 30 * np.sin(th), np.zeros(F)], -1)
+    pts = twb[rng.randint(0, F, P)] + np.stack(
+        [rng.uniform(-3, 3, P), rng.uniform(-3, 3, P), rng.uniform(4, 9, P)], -1)
+    anchor = rng.randint(0, F - obs_per, P)
+    pidx = np.repeat(np.arange(P, dtype=np.int64), obs_per)
+    fidx = (anchor[:, None] + np.arange(obs_per)[None, :]).astype(np.int64).ravel()
+    rel = pts[pidx] - twb[fidx]  # identity rotations: camera frame = world
+    z = rel[:, 2]
+    u = cam.fx * rel[:, 0] / z + cam.cx
+    v = cam.fy * rel[:, 1] / z + cam.cy
+    ok = (z > 0.5) & (u > -200) & (u < 1000) & (v > -200) & (v < 700)
+    n = len(pidx)
+    table = np.full((P, max_obs), n, np.int64)  # global_ba.build_obs_table, vectorized
+    slot = np.zeros(P, np.int64)
+    for oi in np.nonzero(ok)[0]:
+        if slot[pidx[oi]] < max_obs:
+            table[pidx[oi], slot[pidx[oi]]] = oi
+            slot[pidx[oi]] += 1
+    twb0 = twb + rng.randn(F, 3) * 0.02
+    twb0[0] = twb[0]
+    pts0 = pts + rng.randn(P, 3) * 0.05
+    pose_fixed = np.zeros(F, bool)
+    pose_fixed[0] = True
+    return dict(Rwb=np.tile(np.eye(3), (F, 1, 1)), twb=twb, twb0=twb0, pts=pts, pts0=pts0,
+                pidx=pidx, fidx=fidx, pobs=np.stack([u, v, u - cam.bf / z], -1), ok=ok,
+                table=table, pose_fixed=pose_fixed)
+
+
+def map_scale_problem(scene, dtype, device):
+    """The port's ``SparseBAProblem`` of a :func:`map_scale_scene` (no lines:
+    one masked dummy line)."""
+    import torch
+
+    from airslam_tpu_torch.backend import global_ba as gba
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device).to(dtype)
+
+    def i(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def b(a):
+        return torch.as_tensor(np.asarray(a, bool), device=device)
+
+    return gba.SparseBAProblem(
+        Rwb=f(scene["Rwb"]), twb=f(scene["twb0"]), pose_fixed=b(scene["pose_fixed"]),
+        points=f(scene["pts0"]), pobs_pidx=i(scene["pidx"]), pobs_fidx=i(scene["fidx"]),
+        pobs=f(scene["pobs"]), pobs_mask=b(scene["ok"]), point_obs_table=i(scene["table"]),
+        lines=f([[1.0, 0, 0, 0, 1, 0]]), lobs_lidx=i([0]), lobs_fidx=i([0]),
+        lobs=f(np.zeros((1, 8))), lobs_stereo=b([False]), lobs_mask=b([False]),
+        lobs_sigma=f([0.001]), line_obs_table=i([[1]]), Rcb=f(np.eye(3)), tcb=f(np.zeros(3)))
 
 
 def _rodrigues(v):
@@ -468,6 +679,14 @@ def tracking_problem(seed, n_points, n_lines, n_masked_points=0, mask_lines=Fals
         line_obs_sigma=f(np.full((M, 1), 0.8)),
         Rwg=f(np.eye(3)), gravity_free=f(0.0), imu=None, Rcb=f(np.eye(3)), tcb=f(np.zeros(3)))
     return problem, Intrinsics(fx=fx, fy=fy, cx=cx, cy=cy, bf=bf), twb_t
+
+
+def refine_pose_problem(seed, padded, matched, device="cpu", dtype=None):
+    """A pose-only problem at the shape ``MapRefiner._pose_only`` gives
+    kernel P: ``matched`` points padded to ``padded`` (a power of two, at
+    least 64) with masked zero rows, and one masked line."""
+    return tracking_problem(seed, matched, 1, n_masked_points=padded - matched,
+                            mask_lines=True, device=device, dtype=dtype)
 
 
 def pose_agreement(got, want):
@@ -1320,9 +1539,10 @@ def _timed(module, name, sink):
         setattr(module, name, fn)
 
 
-def _profile_call(fn):
+def _profile_call(fn, top=4):
     """One call of ``fn`` under ``torch.profiler``: (CUDA kernels launched,
-    their summed device ms, the wall ms under the profiler)."""
+    their summed device ms, the wall ms under the profiler, the ``top``
+    kernels by device ms as (name, ms, launches))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1333,8 +1553,14 @@ def _profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by.get(e.name, (0.0, 0))
+            by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    ranked = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    return (sum(v[1] for v in by.values()), sum(v[0] for v in by.values()), wall,
+            [(k[:60], round(v[0], 3), v[1]) for k, v in ranked])
 
 
 def _rel(got, want):
@@ -1501,10 +1727,356 @@ def phase_vio(dev):
                 ("imu_initialization", init_gns[-1], windows.imu_initialization),
                 ("local_ba vision", bas[n_vision - 1], windows.local_ba),
                 ("local_ba VI", bas[-1], windows.local_ba)):
-            n_k, dev_ms, wall = _profile_call(lambda: fn(*args, **kw))
+            n_k, dev_ms, wall, _ = _profile_call(lambda: fn(*args, **kw))
             print(f"VIO profile {label}: {n_k} kernels, device ms={dev_ms:.3f}, wall ms under "
                   f"the profiler={wall:.1f}, device busy share={dev_ms / wall:.4f}")
     return tracked[0][1]
+
+
+def _refine_voc(m, device):
+    """tests/test_refinement.py's vocabulary (k 6, depth 3, seed 1, every
+    third descriptor) trained by the port on the map's descriptors."""
+    from airslam_tpu_torch.loopclosure.vocabulary import train_vocabulary
+
+    desc = np.concatenate([m.keyframes[f].kp_desc[m.keyframes[f].kp_mask]
+                           for f in m.keyframe_ids])
+    return train_vocabulary(desc[::3], k=6, depth=3, seed=1, device=device)
+
+
+def refined_ate(m):
+    """Keyframe position RMSE of a corridor map against the ground truth
+    (``loop_trajectory``) carried into the map's frame by the first
+    keyframe's pose (the builder starts at its initial pose, and every BA
+    keeps the first keyframe fixed)."""
+    truth = loop_trajectory()
+    anchor = m.keyframes[m.keyframe_ids[0]].Twc @ np.linalg.inv(truth[m.keyframe_ids[0]])
+    return _keyframe_rmse(m, {f: anchor @ truth[f] for f in m.keyframe_ids})
+
+
+def _keyframe_rmse(m, ref):
+    return float(np.sqrt(np.mean([np.sum((m.keyframes[f].Twc[:3, 3] - ref[f][:3, 3]) ** 2)
+                                  for f in m.keyframe_ids])))
+
+
+def _dense_sparse(path, dev):
+    """Map (a) through the dense and the sparse global BA (auto table
+    width), float32 on the card. Returns (keyframe gap, mappoint gap, dense
+    ms, sparse ms)."""
+    import torch
+
+    from airslam_tpu_torch.io.serialization import load_map
+
+    maps, ms = [], []
+    for sparse in (False, True):
+        m, _ = load_map(path, device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sparse:
+            frames = [m.keyframes[f] for f in reversed(m.keyframe_ids)]
+            fixed = np.zeros(len(frames), bool)
+            fixed[-1] = True
+            m._sparse_global_ba(frames, fixed,
+                                [p for p in m.mappoints.values() if p.is_valid and p.observers],
+                                [l for l in m.maplines.values() if l.is_valid and l.observers],
+                                50, 40)
+        else:
+            m.global_bundle_adjustment(iters1=50, iters2=40)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        maps.append(m)
+
+    a, b = maps
+    kf = max(float(np.abs(a.keyframes[f].Twc[:3, 3] - b.keyframes[f].Twc[:3, 3]).max())
+             for f in a.keyframe_ids)
+    mp = max(float(np.abs(a.mappoints[i].position - b.mappoints[i].position).max())
+             for i in a.mappoints if a.mappoints[i].is_valid and b.mappoints[i].is_valid)
+    return kf, mp, ms[0], ms[1]
+
+
+def _pose_graph_chain(n, dev):
+    """A 1,000-keyframe pose graph: a circle of radius 30 m with odometry
+    edges measured with noise (seed 7) and ten loop edges, the first pose
+    fixed, the chain integrated from the noisy odometry."""
+    import torch
+
+    from airslam_tpu_torch.backend import windows
+
+    rng = np.random.RandomState(7)
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    R = np.stack([_rodrigues(np.array([0.0, 0.0, a])) for a in th])
+    t = np.stack([30 * np.cos(th), 30 * np.sin(th), np.zeros(n)], -1)
+    ei = list(range(n - 1)) + [int(k) for k in rng.randint(0, n // 2, 10)]
+    ej = list(range(1, n)) + [int(k) + n // 2 for k in rng.randint(0, n // 2, 10)]
+    Rm = np.stack([R[a].T @ R[b] @ _rodrigues(rng.randn(3) * 1e-3) for a, b in zip(ei, ej)])
+    tm = np.stack([R[a].T @ (t[b] - t[a]) + rng.randn(3) * 5e-3 for a, b in zip(ei, ej)])
+    R0, t0 = [R[0]], [t[0]]
+    for k in range(n - 1):  # dead reckoning from the noisy odometry
+        R0.append(R0[-1] @ Rm[k])
+        t0.append(t0[-1] + R0[-2] @ tm[k])
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a), device=dev).float()
+
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    return windows.PoseGraphProblem(
+        Rwb=f(np.stack(R0)), twb=f(np.stack(t0)), fixed=torch.as_tensor(fixed, device=dev),
+        edge_i=torch.as_tensor(ei, device=dev), edge_j=torch.as_tensor(ej, device=dev),
+        R_meas=f(Rm), t_meas=f(tm), mask=torch.ones(len(ei), dtype=torch.bool, device=dev))
+
+
+def phase_refine(dev):
+    """Stage 2 on the card, float32, against the stored JAX refiner
+    (``tests/data/torch_refine_oracle.npz``). Returns (launch counts of the
+    refinement CLI's run, kernel P's ms at the refinement's shapes)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from airslam_tpu_torch.backend import gn, global_ba as gba, pose_gn, windows
+    from airslam_tpu_torch.io.serialization import load_map, save_map
+    from airslam_tpu_torch.loopclosure.vocabulary import train_vocabulary
+    from airslam_tpu_torch.pipelines.map_refiner import MapRefiner
+
+    z = np.load(REFINE_ORACLE)
+    g = REFINE_GATES
+    counted = _counted()
+    t_phase = time.perf_counter()
+
+    # map (a), rebuilt by the port's builder on the CPU in float64, against
+    # the JAX map's digest before any refinement
+    t0 = time.perf_counter()
+    m64, clean = corridor_map()
+    build_s = time.perf_counter() - t0
+    ids = m64.keyframe_ids
+    _require(ids == z["a_kf_ids"].tolist(), f"refine: keyframes {ids}, JAX {z['a_kf_ids']}")
+    d_kf = float(np.abs(np.stack([m64.keyframes[f].Twc for f in ids]) - z["a_kf_Twc"]).max())
+    valid = sorted(i for i, p in m64.mappoints.items() if p.is_valid)
+    _require(valid == z["a_mp_ids"].tolist(), "refine: the rebuilt map's mappoints differ")
+    d_mp = float(np.abs(np.stack([m64.mappoints[i].position for i in valid])
+                        - z["a_mp_pos"]).max())
+    _require(max(d_kf, d_mp) <= g["digest"], f"refine: the rebuilt map is {d_kf:.2e} / "
+             f"{d_mp:.2e} m off the JAX map")
+    print(f"refine: map (a) rebuilt on the CPU in float64 in {build_s:.1f} s: {len(ids)} "
+          f"keyframes, {len(valid)} mappoints, poses within {d_kf:.2e} m and mappoints within "
+          f"{d_mp:.2e} m of the JAX map (gate {g['digest']})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mapv0 = os.path.join(tmp, "AirSLAM_mapv0.bin")
+        save_map(m64, mapv0)
+        voc = _refine_voc(m64, dev)
+        _require(np.array_equal(voc.weights.cpu().numpy(), z["a_voc_weights"]),
+                 "refine: the vocabulary is not the JAX one")
+        desc = np.concatenate([m64.keyframes[f].kp_desc for f in ids])
+        flips = int((voc.transform(desc)[0] != _refine_voc(m64, "cpu").transform(desc)[0]).sum())
+        _require(flips == 0, f"refine: {flips} word ids differ between the card and the CPU")
+
+        # (a) the corridor loop, float32 on the card
+        m, _ = load_map(mapv0, device=dev, dtype=torch.float32)
+        refiner = MapRefiner(m, IdMatcher(), voc)
+        for fn in counted.values():
+            fn.launches = 0
+        n_loops = refiner.run(pose_graph_min_mappoints=10 ** 9)
+        launches_a = {k: fn.launches for k, fn in counted.items()}
+        loops = [[l.query_id, l.loop_id] for l in refiner.loop_pairs]
+        _require(loops == z["a_loop"].tolist(), f"refine (a): loops {loops}, JAX "
+                 f"{z['a_loop'].tolist()}")
+        dR = float(np.abs(np.stack([l.Rlq for l in refiner.loop_pairs]) - z["a_Rlq"]).max())
+        dt = float(np.abs(np.stack([l.tlq for l in refiner.loop_pairs]) - z["a_tlq"]).max())
+        _require(dR <= g["loop_R"] and dt <= g["loop_t"],
+                 f"refine (a): loop transforms {dR:.2e} / {dt:.2e} m off")
+        merged = [refiner.n_merged_mappoints, refiner.n_merged_maplines]
+        _require(merged == z["a_n_merged"].tolist(), f"refine (a): merged {merged}, JAX "
+                 f"{z['a_n_merged'].tolist()}")
+        Twc = np.stack([m.keyframes[f].Twc for f in m.keyframe_ids])
+        pt = float(np.abs(Twc[:, :3, 3] - z["a_refined_Twc"][:, :3, 3]).max())
+        pR = float(np.abs(Twc[:, :3, :3] - z["a_refined_Twc"][:, :3, :3]).max())
+        ate = refined_ate(m)
+        _require(pt <= g["pose_t"] and pR <= g["pose_R"] and ate <= g["ate"],
+                 f"refine (a): refined poses {pt:.2e} m / {pR:.2e}, ATE {ate:.3e} m")
+        n_p = launches_a["pose_only_fast"]
+        _require(n_p == int(z["a_n_pose_only"]) == refiner.n_pose_only,
+                 f"refine (a): kernel P launched {n_p} times, the JAX refiner solved "
+                 f"{int(z['a_n_pose_only'])}")
+        print(f"refine (a) f32: loops {loops} (JAX equal) Rlq within {dR:.2e} tlq within "
+              f"{dt:.2e} m; merged {merged} (JAX equal); refined keyframes within {pt:.2e} m / "
+              f"{pR:.2e} of the JAX ones, ATE {ate:.4e} m (gate {g['ate']}); P launches {n_p} "
+              f"(JAX pose-only solves {int(z['a_n_pose_only'])}); stage ms "
+              + " ".join(f"{k}={v:.1f}" for k, v in refiner.stage_ms.items()))
+
+        # (b) the drifted map, pose graph on
+        m, _ = load_map(mapv0, device=dev, dtype=torch.float32)
+        m.apply_pose_corrections({f: drift_T(k / (len(ids) - 1)) @ m.keyframes[f].Twc
+                                  for k, f in enumerate(ids)})
+        ate_b = [_keyframe_rmse(m, clean)]
+        corrections = {}
+        apply = m.apply_pose_corrections
+
+        def record(c):
+            corrections.update(c)
+            apply(c)
+            ate_b.append(_keyframe_rmse(m, clean))
+
+        m.apply_pose_corrections = record
+        refiner_b = MapRefiner(m, IdMatcher(), voc)
+        p0 = counted["pose_only_fast"].launches
+        refiner_b.run(pose_graph_min_mappoints=1)
+        ate_b.append(_keyframe_rmse(m, clean))
+        loops_b = [[l.query_id, l.loop_id] for l in refiner_b.loop_pairs]
+        _require(refiner_b.pose_graph_ran and loops_b == z["b_loop"].tolist(),
+                 f"refine (b): pose graph ran {refiner_b.pose_graph_ran}, loops {loops_b}")
+        dc = float(np.abs(np.stack([corrections[f] for f in ids]) - z["b_corrections"]).max())
+        _require(dc <= g["correction"], f"refine (b): corrections {dc:.2e} off the JAX ones")
+        _require(ate_b[2] < 0.25 * ate_b[0] and ate_b[2] < 0.03,
+                 f"refine (b): ATE {ate_b[0]:.3e} -> {ate_b[2]:.3e} m")
+        n_pb = counted["pose_only_fast"].launches - p0
+        _require(n_pb == int(z["b_n_pose_only"]), f"refine (b): P launched {n_pb} times")
+        print(f"refine (b) f32: loops {loops_b}; pose-graph corrections within {dc:.2e} of the "
+              f"JAX ones (gate {g['correction']}); ATE before / after the pose graph / after the "
+              f"run {ate_b[0]:.4e} / {ate_b[1]:.4e} / {ate_b[2]:.4e} m (JAX "
+              + " / ".join(f"{v:.4e}" for v in z["b_ate"]) + f"); P launches {n_pb}; stage ms "
+              + " ".join(f"{k}={v:.1f}" for k, v in refiner_b.stage_ms.items()))
+
+        # dense against sparse global BA on map (a), float32
+        kf_gap, mp_gap, dense_ms, sparse_ms = _dense_sparse(mapv0, dev)
+        jkf, jmp = (float(v) for v in z["c_gap_f32"])
+        lim_kf, lim_mp = (g["gap_factor"] * v + g["gap_add"] for v in (jkf, jmp))
+        _require(kf_gap <= lim_kf and mp_gap <= lim_mp,
+                 f"refine: dense vs sparse global BA {kf_gap:.3e} / {mp_gap:.3e} m apart "
+                 f"(limits {lim_kf:.3e} / {lim_mp:.3e})")
+        print(f"refine: dense vs sparse global BA (50 + 40, f32): keyframes {kf_gap:.3e} m, "
+              f"mappoints {mp_gap:.3e} m apart (JAX f32 {jkf:.3e} / {jmp:.3e}; limits "
+              f"{lim_kf:.3e} / {lim_mp:.3e}); dense {dense_ms:.1f} ms, sparse "
+              f"{sparse_ms:.1f} ms")
+
+        # the refinement CLI with the fused attention: the entry point a user
+        # calls, on map (a)'s mapv0, against the JAX CLI's stored run
+        sys.path.insert(0, os.path.join(REPO, "apps"))
+        import map_refinement_torch
+
+        voc_path = os.path.join(tmp, "voc.npz")
+        train_vocabulary(np.concatenate([m64.keyframes[f].kp_desc[m64.keyframes[f].kp_mask]
+                                         for f in ids]), k=10).save(voc_path)
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli = map_refinement_torch.main([
+            "--config_path", os.path.join(REPO, "configs", "map_refinement", "mr_euroc.yaml"),
+            "--map_root", tmp, "--voc_path", voc_path, "--device", str(dev), "--use_flash"])
+        cli_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        got = [len(cli.loop_pairs), cli.n_merged_mappoints, cli.n_merged_maplines]
+        _require(got == z["e_counts"].tolist(), f"refine CLI: loops/merged {got}, JAX CLI "
+                 f"{z['e_counts'].tolist()}")
+        traj = np.loadtxt(os.path.join(tmp, "trajectory_v1.txt"))
+        ct = float(np.abs(traj[:, 1:4] - z["e_traj_v1"][:, 1:4]).max())
+        _require(ct <= g["cli_t"], f"refine CLI: trajectory_v1 {ct:.3e} m off the JAX CLI's")
+        _require(launches["pose_only_fast"] == cli.n_pose_only > 0 and launches["flash_mha"] > 0,
+                 f"refine CLI: launches {launches}, pose-only solves {cli.n_pose_only}")
+        _require(os.path.exists(os.path.join(tmp, "AirSLAM_mapv1.bin")),
+                 "refine CLI: no AirSLAM_mapv1.bin")
+        back, dbs = load_map(os.path.join(tmp, "AirSLAM_mapv1.bin"), device=dev)
+        _require("point" in dbs and back.keyframe_ids == ids, "refine CLI: mapv1 did not load")
+        print(f"refine CLI (apps/map_refinement_torch.py --use_flash, f32): {cli_s:.1f} s wall; "
+              f"loops/merged {got} (JAX CLI equal); trajectory_v1 within {ct:.3e} m of the JAX "
+              f"CLI's; launches {launches}; stage ms "
+              + " ".join(f"{k}={v:.1f}" for k, v in cli.stage_ms.items()))
+
+    # the map-scale sparse BA: tests/test_global_ba.py's 1,000-keyframe scene
+    intr = StreamCamera().intrinsics()
+    cfg = gn.BAConfig()
+    sc = map_scale_scene(*MAP_SCALE)
+    t0 = time.perf_counter()
+    prob = map_scale_problem(sc, torch.float32, dev)
+    host_s = time.perf_counter() - t0
+    twb_true = torch.as_tensor(sc["twb"], device=dev).float()
+    with gn.full_f32():
+        cost0 = float(gba._total_cost(prob, intr, cfg, False))
+    err0 = float((prob.twb - twb_true).abs().mean())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = gba.optimize(prob, intr, cfg, iterations=3, robust=False, chunk=4096)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3 / 3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    with gn.full_f32():
+        cost1 = float(gba._total_cost(out, intr, cfg, False))
+    err1 = float((out.twb - twb_true).abs().mean())
+    _require(cost1 < g["scale_cost"] * cost0 and err1 < g["scale_err"] * err0,
+             f"refine map scale: cost {cost0:.4e} -> {cost1:.4e}, pose error {err0:.4e} -> "
+             f"{err1:.4e} m")
+    again = gba.optimize(prob, intr, cfg, iterations=3, robust=False, chunk=4096)
+    rerun = float((again.twb - out.twb).abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gba.optimize(prob, intr, cfg, iterations=1, robust=False, chunk=4096)
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) * 1e3
+    n_k, dev_ms, wall, top = _profile_call(
+        lambda: gba.optimize(prob, intr, cfg, iterations=1, robust=False, chunk=4096))
+    print(f"refine map scale (f32, {MAP_SCALE[0]} keyframes, {MAP_SCALE[1]} points, "
+          f"{int(sc['ok'].sum())} of {len(sc['ok'])} observations valid, 3 LM iterations, "
+          f"chunk 4096, table width 8): cost {cost0:.4e} -> {cost1:.4e} (gate < "
+          f"{g['scale_cost']} of its start), mean pose error {err0:.4e} -> {err1:.4e} m (gate < "
+          f"{g['scale_err']}); ms per iteration {first_ms:.1f} (first call) {iter_ms:.1f} "
+          f"(warm); peak memory above the problem {peak:.0f} MiB; problem built on the host in "
+          f"{host_s:.1f} s; two runs {rerun:.3e} apart; one iteration under the profiler: "
+          f"{n_k} kernels, device {dev_ms:.1f} ms of {wall:.1f} ms wall (busy "
+          f"{dev_ms / wall:.3f}), top kernels {top}")
+
+    # the same scene cut to 100 keyframes and 10k points, against the JAX x64 solve
+    sc = map_scale_scene(*REDUCED_SCENE)
+    out = gba.optimize(map_scale_problem(sc, torch.float32, dev), intr, cfg, iterations=3,
+                       robust=False, chunk=4096)
+    rt = float(np.abs(out.twb.double().cpu().numpy() - z["d_twb"]).max())
+    rp = float(np.abs(out.points.double().cpu().numpy() - z["d_points"]).max())
+    _require(max(rt, rp) <= g["reduced"], f"refine reduced scene: {rt:.3e} / {rp:.3e} m off "
+             "the JAX x64 solve")
+    print(f"refine reduced scene {REDUCED_SCENE}: poses within {rt:.3e} m, points within "
+          f"{rp:.3e} m of the JAX x64 solve (gate {g['reduced']})")
+
+    # the pose graph at 1,000 keyframes
+    pg = _pose_graph_chain(MAP_SCALE[0], dev)
+    c0 = float(windows._pose_graph_cost(pg, pg.Rwb, pg.twb))
+    windows.pose_graph_optimization(pg, iterations=2)  # first use of the solver's kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg_out = windows.pose_graph_optimization(pg, iterations=20)
+    torch.cuda.synchronize()
+    pg_ms = (time.perf_counter() - t0) * 1e3
+    c1 = float(windows._pose_graph_cost(pg, pg_out.Rwb, pg_out.twb))
+    _require(np.isfinite(c1) and c1 < c0, f"refine pose graph: cost {c0:.4e} -> {c1:.4e}")
+    print(f"refine pose graph ({MAP_SCALE[0]} keyframes, {pg.edge_i.shape[0]} edges, 20 LM "
+          f"iterations, f32): {pg_ms:.1f} ms, cost {c0:.4e} -> {c1:.4e}")
+
+    # kernel P at the refinement's shapes against its plain version
+    p_ms, report = {}, []
+    for padded, matched in REFINE_P_SHAPES:
+        problem, pintr, twb_true = refine_pose_problem(13, padded, matched, device=dev)
+        got = pose_gn.pose_only_fast(problem, pintr, cfg)
+        want = pose_gn.pose_only_fast_plain(problem, pintr, cfg)
+        a = pose_agreement(got, want)
+        pgate = POSE_GATES
+        t_true = float(np.linalg.norm(got[0].frames.twb[0].double().cpu().numpy() - twb_true))
+        _require(a["t"] <= pgate["t"] and a["R"] <= pgate["R"] and a["inlier_agree"]
+                 >= pgate["inlier_agree"] and a["count_rel"] <= pgate["count_rel"]
+                 and t_true < pgate["t_true"], f"kernel P at {padded} points: {a}, {t_true:.2e}")
+        n_bytes, n_flops, chain = _pose_work(problem, 3, 10)
+        bound, by = _bound_ms(n_bytes, n_flops)
+        p_ms[padded] = _time_ms(lambda: pose_gn.pose_only_fast(problem, pintr, cfg), iters=20)
+        plain = _eager_ms(lambda: pose_gn.pose_only_fast_plain(problem, pintr, cfg), iters=2,
+                          warmup=1)
+        report.append(f"{padded} points ({matched} matched): dt={a['t']:.2e} dR={a['R']:.2e} "
+                      f"inlier_agree={a['inlier_agree']:.4f} t_true={t_true:.2e} "
+                      f"ms={p_ms[padded]:.5f} plain_ms={plain:.3f}(eager) bound_ms={bound:.6f} "
+                      f"({by})")
+    print("kernel P at the refinement's shapes (1 masked line): " + "; ".join(report))
+    print(f"refine: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, p_ms
 
 
 def tracking_builder_like(builder):
@@ -1719,7 +2291,7 @@ def main() -> int:
                  "t": lambda: phase_kernel_bt(dev, "T"), "l": lambda: phase_kernel_loi(dev),
                  "p": lambda: phase_kernel_p(dev),
                  "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev),
-                 "vio": lambda: phase_vio(dev)}
+                 "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev)}
         for name in short:
             if name in only:
                 short[name]()
@@ -1742,14 +2314,19 @@ def main() -> int:
     phase_path(dev, steps, builders, frames, grids_np)
     launches = phase_vo(dev)
     vi_launches = phase_vio(dev)
+    refine_launches, refine_p_ms = phase_refine(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_vi_frame"] = vi_launches[k["name"]]
+        k["launches_refine"] = refine_launches[k["name"]]
+        if k["name"] == "pose_only_fast":
+            k["refine_ms"] = refine_p_ms
         if k["name"] in ("bilerp_points", "bilerp_points_t"):
             k["on_path"] = f"inside loi_features ({launches['loi_features']} per tracked frame)"
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame",
+            "launches_refine", "refine_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,7 +59,37 @@ geometry), in ``tests/data/torch_vio_oracle.npz``:
     keyframe at which the IMU initialized, Rwg, every keyframe's Twc,
     velocity and biases, the full-rate trajectory and the landmark counts.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio]
+Refinement oracle
+-----------------
+Stage 2 of the JAX package on feature-stream maps, in
+``tests/data/torch_refine_oracle.npz`` (outputs only, no map):
+(a) the corridor loop of tests/test_refinement.py (``corridor_world``,
+    ``loop_trajectory``, ``render_features``, FakeMatcher; float64
+    geometry), saved and reloaded as the test does, then ``MapRefiner.run``
+    with the test's vocabulary (k 6, depth 3, seed 1, every third
+    descriptor) and the pose graph off. Kept: a digest of the mapv0
+    (keyframe ids and poses, valid mappoint ids and positions), the
+    vocabulary's weights, the loop pairs (query, loop, Rlq, tlq), the merged
+    mappoint and mapline counts, the refined keyframe poses (trajectory_v1)
+    and the number of pose-only solves.
+(b) the same map with tests/test_pose_graph_refinement.py's drift injected,
+    refined with the pose-graph branch taken: the loop pairs, the pose
+    graph's corrections (keyframe poses), the pose-only solve count and the
+    keyframe ATE against the clean poses before, after the pose graph and
+    after the whole run.
+(c) the gap between the JAX package's own dense and sparse global BA
+    (50 + 40 iterations, the sparse one with the auto table width) on
+    map (a)'s mapv0, computed in float32 (x64 off, as on the TPU), for the
+    keyframe positions and the mappoints; the float64 gap beside it.
+(d) tests/test_global_ba.py's map-scale scene cut to 100 keyframes and 10k
+    points (``chip_smoke.map_scale_scene``), 3 LM iterations of the sparse
+    solver in float64 (chunk 4096): the cost before and after, the poses and
+    the points.
+(e) ``apps/map_refinement.py --device cpu`` (the JAX CLI: LightGlue, float32)
+    on map (a)'s mapv0 with a vocabulary trained on every descriptor (k 10,
+    auto depth): its loop and merge counts and trajectory_v1.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -85,6 +115,8 @@ CAMERA = {"fx": 450.0, "fy": 450.0, "cx": 376.0, "cy": 240.0, "baseline": 0.11,
           "image_height": 480, "image_width": 752}
 OUT_VO = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 OUT_VIO = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
+OUT_REFINE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
+REDUCED_SCENE = (100, 10_000)  # keyframes, points of the reduced map-scale scene
 # configs/camera/synth_stereo_imu.yaml:35-40
 IMU_NODE = {"rate_hz": 200.0, "gyroscope_noise_density": 0.001,
             "gyroscope_random_walk": 1.0e-05, "accelerometer_noise_density": 0.01,
@@ -446,6 +478,198 @@ def write_frontend_oracle():
     print(f"oracle written: {OUT} ({os.path.getsize(OUT)} bytes)")
 
 
+def _keyframe_ate(m, ref_poses):
+    """Keyframe position RMSE against ``ref_poses`` (no alignment)."""
+    err = [np.linalg.norm(m.keyframes[f].Twc[:3, 3] - ref_poses[f][:3, 3])
+           for f in m.keyframe_ids]
+    return float(np.sqrt(np.mean(np.square(err))))
+
+
+def _refine_voc(m):
+    """tests/test_refinement.py's vocabulary for a map."""
+    from airslam_tpu.loopclosure.vocabulary import train_vocabulary
+
+    all_desc = np.concatenate([m.keyframes[f].kp_desc[m.keyframes[f].kp_mask]
+                               for f in m.keyframe_ids])
+    return train_vocabulary(all_desc[::3], k=6, depth=3, seed=1)
+
+
+def _counting_refiner(m, voc):
+    """A JAX ``MapRefiner`` that counts its pose-only solves."""
+    from airslam_tpu.pipelines.map_refiner import MapRefiner
+    from tests.test_vo_pipeline import FakeMatcher
+
+    r = MapRefiner(m, FakeMatcher(), voc)
+    r.n_pose_only = 0
+    solve = r._pose_only
+
+    def counted(*args):
+        r.n_pose_only += 1
+        return solve(*args)
+
+    r._pose_only = counted
+    return r
+
+
+def _dense_sparse_gap(path):
+    """Max keyframe-position and mappoint gaps between the JAX dense and
+    sparse global BA on the map at ``path``, in the process's float type."""
+    import copy
+
+    from airslam_tpu.io.serialization import load_map
+
+    base, _ = load_map(path)
+    dense, sparse = copy.deepcopy(base), copy.deepcopy(base)
+    dense.global_bundle_adjustment(iters1=50, iters2=40)
+    frames = [sparse.keyframes[f] for f in reversed(sparse.keyframe_ids)]
+    fixed = np.zeros(len(frames), bool)
+    fixed[-1] = True
+    sparse._sparse_global_ba(
+        frames, fixed, [p for p in sparse.mappoints.values() if p.is_valid and p.observers],
+        [l for l in sparse.maplines.values() if l.is_valid and l.observers], 50, 40)
+    kf = max(np.abs(dense.keyframes[f].Twc[:3, 3] - sparse.keyframes[f].Twc[:3, 3]).max()
+             for f in dense.keyframe_ids)
+    mp = max(np.abs(dense.mappoints[i].position - sparse.mappoints[i].position).max()
+             for i in dense.mappoints if dense.mappoints[i].is_valid
+             and sparse.mappoints[i].is_valid)
+    return float(kf), float(mp)
+
+
+def write_refine_oracle():
+    import copy
+    import subprocess
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from airslam_tpu.backend import gn, global_ba as gba
+    from airslam_tpu.io.serialization import load_map, save_map
+    from airslam_tpu.loopclosure.vocabulary import train_vocabulary
+    from airslam_tpu.pipelines.map_builder import KeyframeConfig, MapBuilder
+    from tests import test_refinement as tref
+    from tests.test_pose_graph_refinement import _drift_T
+    from tests.synthetic import default_intrinsics
+    from tests.test_vo_pipeline import FakeCamera, FakeMatcher, render_features
+
+    tmp = tempfile.mkdtemp()
+    builder = MapBuilder(FakeCamera(), detector=None, matcher=FakeMatcher(),
+                         kf_config=KeyframeConfig(min_init_stereo_feature=50, max_num_match=200,
+                                                  tracking_point_rate=0.95))
+    pts, desc = tref.corridor_world()
+    rng = np.random.RandomState(11)
+    for i, T in enumerate(tref.loop_trajectory()):
+        builder.track_features(i * 0.1, *render_features(pts, desc, T, FakeCamera(), rng,
+                                                         max_depth=tref.MAX_DEPTH))
+    mapv0 = os.path.join(tmp, "AirSLAM_mapv0.bin")
+    save_map(builder.map, mapv0)
+    blob = {}
+
+    # (a) the corridor loop
+    m, _ = load_map(mapv0)
+    ids = list(m.keyframe_ids)
+    valid = sorted(i for i, p in m.mappoints.items() if p.is_valid)
+    clean = {f: m.keyframes[f].Twc.copy() for f in ids}
+    blob.update(a_kf_ids=np.asarray(ids), a_kf_Twc=np.stack([clean[f] for f in ids]),
+                a_mp_ids=np.asarray(valid),
+                a_mp_pos=np.stack([m.mappoints[i].position for i in valid]))
+    voc = _refine_voc(m)
+    blob["a_voc_weights"] = np.asarray(voc.weights)
+    r = _counting_refiner(m, voc)
+    r.run(pose_graph_min_mappoints=10 ** 9)
+    blob.update(
+        a_loop=np.asarray([[lp.query_id, lp.loop_id] for lp in r.loop_pairs]).reshape(-1, 2),
+        a_Rlq=np.asarray([lp.Rlq for lp in r.loop_pairs]).reshape(-1, 3, 3),
+        a_tlq=np.asarray([lp.tlq for lp in r.loop_pairs]).reshape(-1, 3),
+        a_n_merged=np.asarray([r.n_merged_mappoints, r.n_merged_maplines]),
+        a_refined_ts=np.asarray([m.keyframes[f].timestamp for f in m.keyframe_ids]),
+        a_refined_Twc=np.stack([m.keyframes[f].Twc for f in m.keyframe_ids]),
+        a_n_pose_only=np.asarray(r.n_pose_only))
+    print(f"(a) {len(ids)} keyframes, {len(valid)} mappoints; loops {blob['a_loop'].tolist()}, "
+          f"merged {blob['a_n_merged'].tolist()}, pose-only solves {r.n_pose_only}")
+
+    # (b) the drifted map, pose graph on
+    m, _ = load_map(mapv0)
+    m.apply_pose_corrections({f: _drift_T(k / (len(ids) - 1)) @ m.keyframes[f].Twc
+                              for k, f in enumerate(ids)})
+    ate = [_keyframe_ate(m, clean)]
+    r = _counting_refiner(m, _refine_voc(m))
+    corrections = {}
+    apply = m.apply_pose_corrections
+
+    def record(c):
+        corrections.update(c)
+        apply(c)
+        ate.append(_keyframe_ate(m, clean))
+
+    m.apply_pose_corrections = record
+    r.run(pose_graph_min_mappoints=1)
+    ate.append(_keyframe_ate(m, clean))
+    blob.update(
+        b_loop=np.asarray([[lp.query_id, lp.loop_id] for lp in r.loop_pairs]).reshape(-1, 2),
+        b_corrections=np.stack([corrections[f] for f in ids]),
+        b_ate=np.asarray(ate), b_n_pose_only=np.asarray(r.n_pose_only))
+    print(f"(b) loops {blob['b_loop'].tolist()}, ATE before / after the pose graph / after "
+          f"the run: {ate}")
+
+    # (c) dense against sparse global BA, float32 as on the TPU, float64 beside
+    gap64 = _dense_sparse_gap(mapv0)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        gap32 = _dense_sparse_gap(mapv0)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    blob.update(c_gap_f32=np.asarray(gap32), c_gap_f64=np.asarray(gap64))
+    print(f"(c) dense vs sparse global BA, keyframes / mappoints: f32 {gap32}, f64 {gap64}")
+
+    # (d) the reduced map-scale scene, float64
+    sc = chip_smoke.map_scale_scene(*REDUCED_SCENE)
+    dt = jnp.float64
+    sp = gba.SparseBAProblem(
+        Rwb=jnp.asarray(sc["Rwb"], dt), twb=jnp.asarray(sc["twb0"], dt),
+        pose_fixed=jnp.asarray(sc["pose_fixed"]), points=jnp.asarray(sc["pts0"], dt),
+        pobs_pidx=jnp.asarray(sc["pidx"], jnp.int32), pobs_fidx=jnp.asarray(sc["fidx"], jnp.int32),
+        pobs=jnp.asarray(sc["pobs"], dt), pobs_mask=jnp.asarray(sc["ok"]),
+        point_obs_table=jnp.asarray(sc["table"], jnp.int32),
+        lines=jnp.asarray([[1.0, 0, 0, 0, 1, 0]], dt), lobs_lidx=jnp.zeros(1, jnp.int32),
+        lobs_fidx=jnp.zeros(1, jnp.int32), lobs=jnp.zeros((1, 8), dt),
+        lobs_stereo=jnp.zeros(1, bool), lobs_mask=jnp.zeros(1, bool),
+        lobs_sigma=jnp.full((1,), 0.001, dt), line_obs_table=jnp.full((1, 1), 1, jnp.int32),
+        Rcb=jnp.eye(3, dtype=dt), tcb=jnp.zeros(3, dt))
+    intr, cfg = default_intrinsics(dt), gn.BAConfig()
+    cost0 = float(gba._total_cost(sp, intr, cfg, False))
+    out = gba.optimize(sp, intr, cfg, iterations=3, robust=False, chunk=4096)
+    blob.update(d_cost=np.asarray([cost0, float(gba._total_cost(out, intr, cfg, False))]),
+                d_twb=np.asarray(out.twb), d_points=np.asarray(out.points, np.float32))
+    print(f"(d) {REDUCED_SCENE} scene, {int(sc['ok'].sum())} observations: cost "
+          f"{blob['d_cost'].tolist()}")
+
+    # (e) the JAX CLI on map (a)'s mapv0
+    m, _ = load_map(mapv0)
+    all_desc = np.concatenate([m.keyframes[f].kp_desc[m.keyframes[f].kp_mask] for f in ids])
+    voc_path = os.path.join(tmp, "voc.npz")
+    train_vocabulary(all_desc, k=10).save(voc_path)
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "apps", "map_refinement.py"), "--config_path",
+         os.path.join(REPO, "configs", "map_refinement", "mr_euroc.yaml"), "--map_root", tmp,
+         "--voc_path", voc_path, "--device", "cpu"], capture_output=True, text=True,
+        check=True, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    counts = {}
+    for ln in res.stdout.splitlines():
+        if ln.startswith("loop pairs:"):
+            counts["loops"] = int(ln.split()[-1])
+        if ln.startswith("merged mappoints:"):
+            counts["points"], counts["lines"] = int(ln.split()[2]), int(ln.split()[-1])
+    blob.update(e_counts=np.asarray([counts["loops"], counts["points"], counts["lines"]]),
+                e_traj_v1=np.loadtxt(os.path.join(tmp, "trajectory_v1.txt")))
+    print(f"(e) the JAX CLI: loops {counts['loops']}, merged {counts['points']} / "
+          f"{counts['lines']}")
+
+    np.savez_compressed(OUT_REFINE, **blob)
+    print(f"oracle written: {OUT_REFINE} ({os.path.getsize(OUT_REFINE)} bytes)")
+
+
 def main():
     import jax
 
@@ -460,6 +684,8 @@ def main():
         write_vo_oracle()
     if which in ("all", "vio"):
         write_vio_oracle()
+    if which in ("all", "refine"):
+        write_refine_oracle()
 
 
 if __name__ == "__main__":

@@ -227,6 +227,25 @@ def test_pose_kernel_vs_plain(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("padded,matched", [(64, 60), (512, 400)])
+def test_pose_kernel_at_the_refinement_shapes(dev, padded, matched):
+    """Kernel P at the shapes of ``MapRefiner._pose_only``: the loop's matched
+    mappoints padded to a power of two (at least 64), one masked line; held
+    to its plain version under chip_smoke.py's gates."""
+    problem, intr, twb_true = chip_smoke.refine_pose_problem(13, padded, matched, device=dev)
+    before = pose_gn.pose_only_fast.launches
+    got = pose_gn.pose_only_fast(problem, intr, gn.BAConfig())
+    assert pose_gn.pose_only_fast.launches == before + 1
+    want = pose_gn.pose_only_fast_plain(problem, intr, gn.BAConfig())
+    a = chip_smoke.pose_agreement(got, want)
+    g = chip_smoke.POSE_GATES
+    assert a["t"] <= g["t"] and a["R"] <= g["R"], a
+    assert a["inlier_agree"] >= g["inlier_agree"] and a["count_rel"] <= g["count_rel"], a
+    assert not bool(got[1][matched:].any()) and not bool(got[2].any())
+    assert np.linalg.norm(got[0].frames.twb[0].double().cpu().numpy() - twb_true) < g["t_true"]
+
+
+@pytest.mark.cuda
 def test_pose_kernel_fixed_pose_and_f64_problem(dev):
     """A fixed pose comes back bit-unchanged; a float64 problem is solved in
     float32 and handed back in its own type."""

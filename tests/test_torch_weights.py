@@ -142,7 +142,8 @@ def test_port_imports_no_jax():
     jax, flax or the JAX package."""
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "profile_torch_frontend.py"),
-             os.path.join(REPO, "apps", "visual_odometry_torch.py")]
+             os.path.join(REPO, "apps", "visual_odometry_torch.py"),
+             os.path.join(REPO, "apps", "map_refinement_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "airslam_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     walked = {os.path.relpath(f, os.path.join(REPO, "airslam_tpu_torch")) for f in files}
@@ -152,7 +153,9 @@ def test_port_imports_no_jax():
                 "core/lie.py", "backend/residuals.py", "backend/gn.py", "backend/windows.py",
                 "backend/pose_gn.py", "models/superpoint.py", "frontend/lines.py",
                 "slam/landmarks.py", "slam/frame.py", "slam/map.py",
-                "pipelines/map_builder.py", "entry.py"):
+                "pipelines/map_builder.py", "entry.py", "utils/native.py",
+                "loopclosure/vocabulary.py", "loopclosure/database.py", "backend/global_ba.py",
+                "pipelines/map_refiner.py"):
         assert mod in walked, mod
     assert len(files) > 37
     for path in files:

@@ -144,3 +144,28 @@ def lightglue_from_flax(tree) -> Dict[str, torch.Tensor]:
             _dense(c[name], f"cross_blocks.{i}.{name}", sd)
         update(c["update"], f"cross_blocks.{i}.update")
     return sd
+
+
+def superglue_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``SuperGlue`` params (``superglue.npz``: ``kenc``, ``self{i}``,
+    ``cross{i}``, ``final_proj``, ``bin_score``; 273 arrays) →
+    ``state_dict`` of :class:`models.superglue.SuperGlue`."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    k = p["kenc"]
+    for i in range(4):
+        _dense(k[f"fc{i}"], f"kenc.fc.{i}", sd)
+        sd[f"kenc.ln.{i}.weight"] = _t(k[f"ln{i}"]["scale"])
+        sd[f"kenc.ln.{i}.bias"] = _t(k[f"ln{i}"]["bias"])
+    _dense(k["out"], "kenc.out", sd)
+    layers = sum(1 for name in p if name.startswith("self"))
+    for kind in ("self", "cross"):
+        for i in range(layers):
+            node, prefix = p[f"{kind}{i}"], f"{kind}_layers.{i}"
+            for name in ("q", "k", "v", "merge", "mlp1", "mlp2"):
+                _dense(node[name], f"{prefix}.{name}", sd)
+            sd[f"{prefix}.mlp_ln.weight"] = _t(node["mlp_ln"]["scale"])
+            sd[f"{prefix}.mlp_ln.bias"] = _t(node["mlp_ln"]["bias"])
+    _dense(p["final_proj"], "final_proj", sd)
+    sd["bin_score"] = _t(p["bin_score"]).reshape(())
+    return sd

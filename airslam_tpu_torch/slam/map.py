@@ -22,8 +22,8 @@ keyframe (the dense window program up to ``DENSE_BA_MAX_FRAMES`` keyframes,
 the sparse observation-list solver of ``backend/global_ba.py`` past it), the
 pose-graph corrections, the whole covisibility rebuild, single-landmark
 triangulation, the representative descriptor, the text export and the map
-scale. ``search_by_projection`` (relocalization, ROADMAP A.5) is not ported
-yet.
+scale. Relocalization's (stage 3) projection search ``search_by_projection``
+is here as well.
 """
 
 from __future__ import annotations
@@ -1053,6 +1053,42 @@ class Map:
         dist = 1.0 - d @ d.T  # DescriptorDistance, utils.cc:15-17
         mpt.descriptor = d[int(np.argmin(np.median(dist, axis=1)))].copy()
         return True
+
+    def search_by_projection(self, frame: Frame, mpts, thr: int = 1,
+                             dist_thr: float = 0.35, ratio_thr: float = 0.6):
+        """Projection-guided match search (``Map::SearchByProjection``,
+        map.cc:945-998): project each valid mappoint into the frame, find the
+        keypoints within r = 15·thr px (the native radius search), accept the
+        best descriptor match under the distance and Lowe-ratio gates.
+        Returns [(keypoint_idx, mappoint)]."""
+        from airslam_tpu_torch.utils import native
+
+        cam = self.camera
+        Rwc = frame.Twc[:3, :3]
+        twc = frame.Twc[:3, 3]
+        r = 15.0 * thr
+        good = []
+        kp32 = frame.keypoints.astype(np.float32)
+        for mpt in mpts:
+            if mpt is None or not mpt.is_valid or mpt.descriptor is None:
+                continue
+            pc = Rwc.T @ (mpt.position - twc)
+            if pc[2] <= 0:
+                continue
+            u = pc[0] / pc[2] * cam.fx + cam.cx
+            v = pc[1] / pc[2] * cam.fy + cam.cy
+            if not (0 < u < cam.image_width and 0 < v < cam.image_height):
+                continue
+            cand = native.radius_search(kp32, frame.kp_mask, float(u), float(v), r)
+            if len(cand) == 0:
+                continue
+            dists = native.descriptor_distances(mpt.descriptor, frame.kp_desc[cand])
+            order = np.argsort(dists)
+            best = float(dists[order[0]])
+            second = float(dists[order[1]]) if len(order) > 1 else 4.0
+            if best < dist_thr and best < ratio_thr * second:
+                good.append((int(cand[order[0]]), mpt))
+        return good
 
     def export_text(self, map_root: str):
         """Plain-text map dump (``Map::SaveMap``, map.cc:1227-1278):

@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, vio, refine; ``path`` needs ``slice`` and ``tracking``) and then prints no
+path, vo, vio, refine, reloc; ``path`` needs ``slice`` and ``tracking``) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -112,6 +112,22 @@ without a result line):
    solve; ms per iteration, peak memory and a profiled iteration; the pose
    graph at 1,000 keyframes; kernel P at 64/128/256/512 points with one
    masked line against its plain version.
+12. ``reloc``: stage 3 in float32 against ``tests/data/torch_reloc_oracle.npz``
+   (the JAX VO, refinement and relocalization CLIs on the CPU over the
+   rendered 40-frame loop). ``loi_features`` with one view (the mono query)
+   under phase ``l``'s gates and kernel F at (3, 4, 400, 64) and (8, 4, 400,
+   64), f32 and bf16, under phase ``f``'s, with their times. Then
+   ``apps/relocalization_torch.py --use_flash`` on the stored mapv1 and its
+   10 novel-view queries: recall ≥ 0.8 and ≥ the JAX run's − 0.1, the
+   accepted poses' aligned ATE ≤ 0.05 m, every query both accept within
+   0.02 m / 5e-3 of the JAX pose; the launch counts (set to 0 before the run,
+   the record's ``launches_reloc``): R, B and T 0, ``loi_features`` once per
+   query, F 36 per LightGlue call and P once per pose refinement; ms per
+   query and per stage (detect, match, PnP, refine). SuperGlue (``matcher:
+   1``) behind the port's detector on the frontend pairs against the stored
+   JAX matches (agreement ≥ 0.9, count delta ≤ 0.1). The device PnP on
+   tests/test_pnp.py's three cases under that test's tolerances, and the
+   same draws on the card and the CPU in float64 within 1e-6.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -136,6 +152,7 @@ TRACKING_ORACLE = os.path.join(REPO, "tests", "data", "torch_tracking_oracle.npz
 VO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 VIO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 REFINE_ORACLE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
+RELOC_ORACLE = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -182,6 +199,13 @@ MAP_SCALE = (1000, 100_000)  # keyframes, points: tests/test_global_ba.py's map-
 REDUCED_SCENE = (100, 10_000)
 REFINE_P_SHAPES = ((64, 60), (128, 100), (256, 200), (512, 400))  # padded, matched points
 VIO_GATES = {"bg": 5e-3, "speed": 2.0, "rel_t": 0.05, "preint_rel": 1e-4}
+# stage 3 against the JAX relocalizer: recall (E2E_TPU.json's gate, and at
+# most 0.1 below the JAX run's), the accepted poses' aligned ATE (m), the
+# poses both accept (PARITY_TPU.json local_ba_* gates: m, max abs of R),
+# SuperGlue's agreement and count delta (PARITY_TPU.json superglue_*)
+RELOC_GATES = {"recall": 0.8, "recall_drop": 0.1, "ate": 0.05, "pose_t": 0.02, "pose_R": 5e-3,
+               "sg_agree": 0.9, "sg_count": 0.1}
+RELOC_F_BATCHES = (3, 8)  # LightGlue's top-3 batch and matcher recovery's (up to 8)
 # f32 operations one row costs, counted from csrc/pose_gn.cu: residuals +
 # six Jacobian columns + the 27 accumulators per LM iteration, and one robust
 # cost evaluation (the trial cost, a round's first cost, the relabel)
@@ -259,6 +283,81 @@ def oracle_pairs():
     refs = [{k[len(f"p{i}_"):]: z[k] for k in z.files if k.startswith(f"p{i}_")}
             for i in range(frames.shape[0])]
     return frames, refs
+
+
+def superglue_agreement(z, detector, matcher):
+    """The port's detector and ``matcher`` (SuperGlue) on the frontend
+    oracle's 3 pairs against the stored JAX matches of the relocalization
+    oracle, as ``scripts/verify_tpu.py:299-320`` compares them: per pair the
+    share of JAX matches that a port match reproduces with both ends within
+    1.5 px; and the summed match counts (port, JAX)."""
+    frames, _ = oracle_pairs()
+    agree, n_port, n_jax = [], 0, 0
+    for i in range(frames.shape[0]):
+        f = detector.detect(frames[i])
+        views = [type(f)(*(t[v] for t in f)) for v in (0, 1)]
+        pairs, _ = matcher.matching_points(views[0], views[1])
+        kp0, kp1 = (v.keypoints.float().cpu().numpy() for v in views)
+        mt = np.concatenate([kp0[pairs[:, 0]], kp1[pairs[:, 1]]], -1)
+        mc = z[f"sg{i}_pairs"]
+        n_port, n_jax = n_port + len(mt), n_jax + len(mc)
+        if len(mc) and len(mt):
+            d0 = np.linalg.norm(mc[:, None, 0:2] - mt[None, :, 0:2], axis=-1)
+            d1 = np.linalg.norm(mc[:, None, 2:4] - mt[None, :, 2:4], axis=-1)
+            agree.append(float((np.maximum(d0, d1).min(axis=1) <= 1.5).mean()))
+        else:
+            agree.append(1.0 if len(mc) == len(mt) else 0.0)
+    return agree, n_port, n_jax
+
+
+def reloc_oracle():
+    """The stored JAX stage-3 run (``tests/data/torch_reloc_oracle.npz``)."""
+    return np.load(RELOC_ORACLE)
+
+
+def write_reloc_tree(z, root, queries=None):
+    """The stored refined map, its vocabularies and the query images as the
+    JAX CLIs left them: ``root/map/{AirSLAM_mapv1.bin, point_voc.npz,
+    junction_voc.npz}``, ``root/queries/<stamp>.png`` (the queries of the
+    indices ``queries``, all by default) and ``root/gt_tum.txt``. Returns
+    (map root, query folder, query names)."""
+    import lzma
+
+    map_root, qdir = os.path.join(root, "map"), os.path.join(root, "queries")
+    os.makedirs(map_root, exist_ok=True)
+    os.makedirs(qdir, exist_ok=True)
+    files = {"AirSLAM_mapv1.bin": lzma.decompress(z["mapv1_xz"].tobytes()),
+             "point_voc.npz": z["point_voc"].tobytes(),
+             "junction_voc.npz": z["junction_voc"].tobytes()}
+    for name, data in files.items():
+        with open(os.path.join(map_root, name), "wb") as f:
+            f.write(data)
+    with open(os.path.join(root, "gt_tum.txt"), "wb") as f:
+        f.write(z["gt_tum"].tobytes())
+    names = [str(n) for n in z["query_names"]]
+    for i in (range(len(names)) if queries is None else queries):
+        with open(os.path.join(qdir, names[i]), "wb") as f:
+            f.write(z[f"q{i}_png"].tobytes())
+    return map_root, qdir, names
+
+
+def reloc_ate(trajectory, gt):
+    """Sim(3)-aligned ATE (evo_ape -as, the port's ``io.trajectory.ate_rmse``)
+    of [(t, Twc)] against the ground truth [(t, Twc)], each pose paired with
+    the ground-truth stamp within 0.02 s (scripts/verify_tpu_e2e.py's
+    ``_ate_vs_rows``). Returns (ATE m, pairs)."""
+    from airslam_tpu_torch.io.trajectory import ate_rmse
+
+    stamps = np.asarray([t for t, _ in gt])
+    est, ref = [], []
+    for t, T in trajectory:
+        j = int(np.argmin(np.abs(stamps - t)))
+        if abs(stamps[j] - t) < 0.02:
+            est.append((t, T))
+            ref.append(gt[j])
+    if len(est) < 3:
+        return float("inf"), len(est)
+    return ate_rmse(est, ref, align=True), len(est)
 
 
 def euroc_grids():
@@ -705,6 +804,14 @@ def pose_agreement(got, want):
 # ---------------------------------------------------------------------------
 # chip phases
 # ---------------------------------------------------------------------------
+
+
+def card():
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def _require(cond, msg):
@@ -2079,6 +2186,263 @@ def phase_refine(dev):
     return launches, p_ms
 
 
+def pnp_case(n=100, n_out=0, noise=0.0, seed=0):
+    """tests/test_pnp.py's ``make_case`` in numpy alone (the same draws from
+    the same seed): a known pose, ``n`` points in front of it, pixel noise
+    and ``n_out`` gross outliers, padded to 128. Returns (intrinsics, Rcw,
+    tcw, points, uv, mask, outlier indices or None)."""
+    from airslam_tpu_torch.core.camera import Intrinsics
+
+    rng = np.random.RandomState(seed)
+    Rcw = _rodrigues(rng.randn(3) * 0.3)
+    tcw = rng.randn(3) * 0.5 + [0, 0, 1.0]
+    pw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(3, 10, n)], -1)
+    pc = pw @ Rcw.T + tcw
+    pw, pc = pw[pc[:, 2] > 0.5], pc[pc[:, 2] > 0.5]
+    uv = np.stack([pc[:, 0] / pc[:, 2] * 450 + 376, pc[:, 1] / pc[:, 2] * 450 + 240], -1)
+    if noise > 0:
+        uv += rng.randn(*uv.shape) * noise
+    idx = None
+    if n_out:
+        idx = rng.choice(len(uv), n_out, replace=False)
+        uv[idx] += rng.uniform(80, 300, (n_out, 2)) * np.sign(rng.randn(n_out, 2))
+    pts_p, uv_p, m = np.zeros((128, 3)), np.zeros((128, 2)), np.zeros(128, bool)
+    k = min(len(uv), 128)
+    pts_p[:k], uv_p[:k], m[:k] = pw[:k], uv[:k], True
+    # tests/synthetic.default_intrinsics: fx = fy = 450, (376, 240), bf = 450 · 0.1
+    return (Intrinsics(450.0, 450.0, 376.0, 240.0, 45.0), Rcw, tcw, pts_p, uv_p, m, idx)
+
+
+# test_pnp.py's three cases: (make_case arguments, seed of the draws, valid
+# entries kept)
+PNP_CASES = {"exact": (dict(), 0, None),
+             "outliers_and_noise": (dict(n_out=25, noise=0.5, seed=1), 1, None),
+             "too_few_points": (dict(), 2, 5)}
+
+
+def pnp_named(name):
+    """(case, seed of the draws) of test_pnp.py's case ``name``, the mask cut
+    to its first valid entries where the case keeps fewer than the minimal
+    set."""
+    kw, seed, keep = PNP_CASES[name]
+    case = pnp_case(**kw)
+    if keep is not None:
+        case = case[:5] + (case[5] & (np.arange(len(case[5])) < keep),) + case[6:]
+    return case, seed
+
+
+def _pnp_check(name, R, t, inl, ok, case):
+    """tests/test_pnp.py's assertions of case ``name``."""
+    _, Rcw, tcw, _, _, m, out_idx = case
+    if name == "too_few_points":
+        return bool(np.isfinite(t).all())
+    rot = float(np.arccos(np.clip((np.trace(R.T @ Rcw) - 1) / 2, -1, 1)))
+    terr = float(np.abs(t - tcw).max())
+    if name == "exact":
+        return bool(ok) and terr < 1e-3 and rot < 1e-3 and int(inl.sum()) == int(m.sum())
+    return bool(ok) and terr < 0.05 and rot < 0.01 and not inl[out_idx].any()
+
+
+def phase_reloc(dev):
+    """Stage 3 on the card, float32, against the stored JAX relocalizer
+    (``tests/data/torch_reloc_oracle.npz``). Returns the launch counts of the
+    relocalization CLI's run."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from airslam_tpu_torch.backend import pnp
+    from airslam_tpu_torch.frontend.detector import FeatureDetector
+    from airslam_tpu_torch.frontend.matcher import PointMatcher
+    from airslam_tpu_torch.io.config import SG_SINKHORN_ITERS, RelocalizationConfigs
+    from airslam_tpu_torch.io.trajectory import load_tum
+    from airslam_tpu_torch.loopclosure.database import Database
+    from airslam_tpu_torch.ops import bilerp
+    from airslam_tpu_torch.ops.attention import flash_mha, flash_mha_plain
+    from airslam_tpu_torch.pipelines.map_user import MapUser
+
+    t_phase = time.perf_counter()
+    g = RELOC_GATES
+    z = reloc_oracle()
+    on = card()
+    f32, bf = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(9)
+
+    # loi_features with one view: the mono query's stage-1 head
+    notes = []
+    for map_dtype in (f32, bf):
+        ops = loi_inputs(rng, 1, 512, 300, map_dtype, dev)
+        for out_dtype in (f32, bf):
+            got = bilerp.loi_features(*ops, out_dtype=out_dtype)
+            want = bilerp.loi_features_plain(*ops, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            label = f"maps {str(map_dtype)[6:]} -> {str(out_dtype)[6:]}"
+            _require(got.shape == want.shape == (1, 512, 496) and got.dtype == out_dtype,
+                     f"reloc kernel LOI V=1 ({label}): output {tuple(got.shape)} {got.dtype}")
+            err, tol, ok = loi_gate(got, want, ops[0])
+            _require(ok, f"reloc kernel LOI V=1 ({label}): {err} > {tol}")
+            notes.append(f"{label}: {err:.3e}" if out_dtype == f32 else f"{label}: {err} ulp")
+    ops = loi_inputs(rng, 1, 512, 300, f32, dev)
+    bound, by = _bound_ms(*_loi_work(ops, bilerp.loi_features(*ops)))
+    print("reloc kernel LOI V=1 (1 view, 512 lines, 300 junctions): " + "; ".join(notes)
+          + f"; f32 ms={_time_ms(lambda: bilerp.loi_features(*ops)):.5f} "
+          f"eager_ms={_eager_ms(lambda: bilerp.loi_features(*ops)):.5f} "
+          f"plain_ms={_time_ms(lambda: bilerp.loi_features_plain(*ops)):.5f} "
+          f"bound_ms={bound:.6f} ({by}) (phase l's gates) on {on}")
+
+    # kernel F at the top-3 batch and matcher recovery's batch of up to 8
+    for batch in RELOC_F_BATCHES:
+        for label, dtype, size in (("f32", f32, 4), ("bf16", bf, 2)):
+            q, k, v, mask = _attention_inputs(rng, (batch,), 4, 400, 400, 64, dtype, dtype, dev,
+                                              388)
+            got = flash_mha(q, k, v, mask)
+            again = flash_mha(q, k, v, mask)
+            want = flash_mha_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = (FLASH_GATES["f32"] if label == "f32"
+                   else FLASH_GATES["bf16_rel"] * float(want.float().abs().max()))
+            _require(torch.equal(got, again) and err <= tol,
+                     f"reloc kernel F ({batch}, 4, 400, 64) {label}: {err:.3e} > {tol:.3e} or "
+                     "two runs differ")
+            bias = mask[:, None, None, :]
+            bound, by = flash_attention_bound(batch, 4, 400, 400, 64, size)
+            print(f"reloc kernel F {label} ({batch}, 4, 400, 64): err={err:.2e} (gate "
+                  f"{tol:.2e}) ms={_time_ms(lambda: flash_mha(q, k, v, mask)):.5f} "
+                  f"eager_ms={_eager_ms(lambda: flash_mha(q, k, v, mask)):.5f} "
+                  f"plain_ms={_time_ms(lambda: flash_mha_plain(q, k, v, mask)):.5f} "
+                  f"sdpa_ms={_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)):.5f} "
+                  f"bound_ms={bound:.6f} ({by}) on {on}")
+
+    # the relocalization CLI with the fused attention on the stored map
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import relocalization_torch
+
+    counted = _counted()
+    stages = {"detect": [], "match": [], "pnp": [], "refine": [], "bow": [], "recover": [],
+              "junction_score": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        map_root, qdir, names = write_reloc_tree(z, tmp)
+        traj_path = os.path.join(tmp, "reloc.txt")
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with _no_tf32("f32"), _timed(FeatureDetector, "detect", stages["detect"]), \
+                _timed(PointMatcher, "matching_points_batched", stages["match"]), \
+                _timed(MapUser, "_solve_pnp", stages["pnp"]), \
+                _timed(MapUser, "_refine_pose", stages["refine"]), \
+                _timed(Database, "frame_to_bow", stages["bow"]), \
+                _timed(MapUser, "_recover_matches", stages["recover"]), \
+                _timed(MapUser, "_junction_score", stages["junction_score"]):
+            _, records = relocalization_torch.main([
+                "--config_path", os.path.join(REPO, "configs", "relocalization",
+                                              "reloc_euroc.yaml"),
+                "--map_root", map_root, "--query_folder", qdir, "--traj_path", traj_path,
+                "--device", str(dev), "--use_flash", "--diagnose"])
+        cli_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        traj = load_tum(traj_path)
+        gt = load_tum(os.path.join(tmp, "gt_tum.txt"))
+        np.savetxt(os.path.join(tmp, "jax.txt"), z["cli_traj"], fmt="%.9f")
+        jax_traj = load_tum(os.path.join(tmp, "jax.txt"))
+    _require([r[0] for r in records] == names, f"reloc CLI: queries {[r[0] for r in records]}")
+    ok = np.asarray([bool(r[1]) for r in records])
+    recall, jax_recall = float(ok.mean()), float(np.asarray(z["ok"]).mean())
+    ate, n_pairs = reloc_ate(traj, gt)
+    jax_ate, _ = reloc_ate(jax_traj, gt)
+    both = [i for i in range(len(names)) if ok[i] and bool(z["ok"][i])]
+    dt = max((float(np.abs(records[i][2][:3, 3] - z["Twc"][i][:3, 3]).max()) for i in both),
+             default=0.0)
+    dR = max((float(np.abs(records[i][2][:3, :3] - z["Twc"][i][:3, :3]).max()) for i in both),
+             default=0.0)
+    _require(recall >= g["recall"] and recall >= jax_recall - g["recall_drop"],
+             f"reloc CLI: recall {recall} (JAX {jax_recall})")
+    _require(n_pairs == int(ok.sum()) and ate <= g["ate"],
+             f"reloc CLI: ATE {ate:.4e} m over {n_pairs} poses")
+    _require(dt <= g["pose_t"] and dR <= g["pose_R"],
+             f"reloc CLI: poses {dt:.3e} m / {dR:.3e} off the JAX run's")
+    n_match, n_refine = len(stages["match"]), len(stages["refine"])
+    want_launches = {"remap": 0, "bilerp_points": 0, "bilerp_points_t": 0,
+                     "loi_features": len(records), "flash_mha": 36 * n_match,
+                     "pose_only_fast": n_refine}
+    _require(launches == want_launches and n_refine > 0 and n_match >= len(records),
+             f"reloc CLI: launches {launches}, expected {want_launches}")
+    per_query = [r[4] for r in records]
+
+    def ms(name):
+        v = [s[0] for s in stages[name]]
+        return f"{name}={np.median(v):.2f} ms (x{len(v)}, {sum(v) / len(records):.2f} per query)"
+
+    # ms per query (after the first) that no timed stage covers: retrieval,
+    # grouping and the match bookkeeping on the host
+    rest = np.median(per_query[1:]) - sum(np.median([s[0] for s in v]) * len(v) / len(records)
+                                          for v in stages.values())
+
+    print(f"reloc CLI (apps/relocalization_torch.py --use_flash, f32): {cli_s:.1f} s wall with "
+          f"the model loads; recall {recall:.3f} (JAX {jax_recall:.3f}, gates >= {g['recall']} "
+          f"and >= JAX - {g['recall_drop']}); ATE {ate:.5f} m over {n_pairs} poses (gate "
+          f"{g['ate']}; the JAX CLI's {jax_ate:.5f} m); {len(both)} queries both "
+          f"accept within {dt:.3e} m / {dR:.3e} of the JAX poses (gates {g['pose_t']} / "
+          f"{g['pose_R']}); launches {launches} ({n_match} LightGlue calls, {n_refine} pose "
+          f"refinements); ms per query first {per_query[0]:.1f} median "
+          f"{np.median(per_query[1:]):.1f}; per stage, median per call: "
+          + ", ".join(ms(k) for k in stages) + f"; the rest about {rest:.1f} ms a query; "
+          f"on {on}")
+
+    # SuperGlue behind the port's detector on the frontend oracle's pairs
+    cfg = RelocalizationConfigs.load(os.path.join(REPO, "configs", "relocalization",
+                                                  "reloc_euroc.yaml"))
+    det = FeatureDetector(dataclasses.replace(cfg.detector, dtype=f32), device=dev)
+    sg = PointMatcher(dataclasses.replace(cfg.matcher, matcher=1, dtype=f32,
+                                          sinkhorn_iterations=SG_SINKHORN_ITERS), device=dev)
+    with _no_tf32("f32"):
+        agree, n_port, n_jax = superglue_agreement(z, det, sg)
+        frames, _ = oracle_pairs()
+        f = det.detect(frames[0])
+        views = [type(f)(*(t[v] for t in f)) for v in (0, 1)]
+        sg_ms = _eager_ms(lambda: sg.matching_points(*views), iters=10, warmup=2)
+    count_rel = abs(n_port - n_jax) / max(n_jax, 1)
+    _require(np.mean(agree) >= g["sg_agree"] and count_rel <= g["sg_count"],
+             f"reloc SuperGlue: agreement {agree}, count delta {count_rel:.4f}")
+    print(f"reloc SuperGlue (matcher 1, Sinkhorn {SG_SINKHORN_ITERS}, f32, behind the port's "
+          "detector): agreement " + " ".join(f"{a:.4f}" for a in agree)
+          + f" (gate mean >= {g['sg_agree']}), matches {n_port} against JAX {n_jax} (delta "
+          f"{count_rel:.4f}, gate <= {g['sg_count']}); ms per pair {sg_ms:.3f} on {on}")
+
+    # the device PnP: tests/test_pnp.py's cases, then the same draws on the
+    # CPU and the card in float64
+    report = []
+    for name in PNP_CASES:
+        case, seed = pnp_named(name)
+        intr, _, _, pts, uv, mask, _ = case
+        t = [torch.as_tensor(a, device=dev) for a in (pts, uv, mask)]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        R, tt, inl, okp = pnp.solve_pnp_ransac(*t, intr, generator=gen)
+        _require(_pnp_check(name, R.cpu().numpy(), tt.cpu().numpy(), inl.cpu().numpy(),
+                            bool(okp), case), f"reloc device PnP ({name}) misses test_pnp.py")
+        samples = pnp.draw_samples(torch.as_tensor(mask), 128,
+                                   torch.Generator().manual_seed(seed))
+        on_card = pnp.solve_pnp_ransac(*t, intr, samples=samples)
+        on_cpu = pnp.solve_pnp_ransac(*(torch.as_tensor(a) for a in (pts, uv, mask)), intr,
+                                      samples=samples)
+        gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card[:2], on_cpu[:2]))
+        # five valid points leave the DLT's null space more than one
+        # dimension: there the two SVDs may pick different vectors
+        _require(name == "too_few_points" or (gap <= 1e-6 and torch.equal(on_card[2].cpu(),
+                                                                         on_cpu[2])),
+                 f"reloc device PnP ({name}): card and CPU {gap:.3e} apart")
+        t32 = [x.float() if x.is_floating_point() else x for x in t]
+        gen = torch.Generator(device=dev)
+        report.append(f"{name}: ok={bool(okp)} card/CPU f64 gap {gap:.2e} ms f32 "
+                      f"{_eager_ms(lambda: pnp.solve_pnp_ransac(*t32, intr, generator=gen), iters=20, warmup=3):.3f}")
+    print("reloc device PnP (test_pnp.py's cases and tolerances; 128 hypotheses, 5 GN steps): "
+          + "; ".join(report) + f" on {on}")
+    print(f"reloc: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def tracking_builder_like(builder):
     """A fresh ``MapBuilder`` on ``builder``'s camera, detector and matcher
     (the networks stay loaded and warm)."""
@@ -2270,9 +2634,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = torch.device("cuda", 0)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     from airslam_tpu_torch.ops import cuda_build
 
@@ -2291,7 +2653,8 @@ def main() -> int:
                  "t": lambda: phase_kernel_bt(dev, "T"), "l": lambda: phase_kernel_loi(dev),
                  "p": lambda: phase_kernel_p(dev),
                  "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev),
-                 "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev)}
+                 "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev),
+                 "reloc": lambda: phase_reloc(dev)}
         for name in short:
             if name in only:
                 short[name]()
@@ -2315,10 +2678,12 @@ def main() -> int:
     launches = phase_vo(dev)
     vi_launches = phase_vio(dev)
     refine_launches, refine_p_ms = phase_refine(dev)
+    reloc_launches = phase_reloc(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_vi_frame"] = vi_launches[k["name"]]
         k["launches_refine"] = refine_launches[k["name"]]
+        k["launches_reloc"] = reloc_launches[k["name"]]
         if k["name"] == "pose_only_fast":
             k["refine_ms"] = refine_p_ms
         if k["name"] in ("bilerp_points", "bilerp_points_t"):
@@ -2326,7 +2691,7 @@ def main() -> int:
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame",
-            "launches_refine", "refine_ms")
+            "launches_refine", "launches_reloc", "refine_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

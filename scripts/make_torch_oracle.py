@@ -89,7 +89,29 @@ Stage 2 of the JAX package on feature-stream maps, in
     on map (a)'s mapv0 with a vocabulary trained on every descriptor (k 10,
     auto depth): its loop and merge counts and trajectory_v1.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine]
+Relocalization oracle
+---------------------
+Stage 3 of the JAX package through its CLIs, on the rendered sequence of
+``scripts/verify_tpu_e2e.py:149-151`` (``apps/make_synth_dataset.py --frames
+40 --stride 2 --traj loop --hard_queries 10``; 20 frames leave the JAX
+relocalizer at recall 5 / 10, below the 0.8 gate): ``apps/visual_odometry.py
+--device cpu`` over the whole sequence (``vo_euroc.yaml``,
+``synth_stereo.yaml``), ``apps/map_refinement.py`` (``mr_euroc.yaml``, the
+point vocabulary trained from the map) and ``apps/relocalization.py
+--diagnose`` (``reloc_euroc.yaml``) on the 10 novel-view queries of
+``hard0/data``. ``tests/data/torch_reloc_oracle.npz`` keeps the mapv1 and both
+vocabularies (bytes, compressed), the query PNGs (bytes), ``hard0/gt_tum.txt``,
+the CLI's recall line, trajectory and per-query diagnostics, and from the
+same relocalizer run in process (the CLI's set-up, float32 as the CLI runs):
+per query ``ok``, ``Twc``, ``last_stats`` (JSON) and the deputies of the top-3
+match in order, and the JAX detector's features of the first
+``N_RELOC_FEATS`` queries. Then SuperGlue: the JAX detector (the stage-3
+configuration, float32) on both views of the 3 frontend-oracle pairs and the
+JAX ``PointMatcher(matcher=1)`` (``superglue.npz``, Sinkhorn 20) on them: the
+pixel coordinates of each accepted match (kp0 xy, kp1 xy) and its score,
+which ``scripts/verify_tpu.py``'s SuperGlue gates compare.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -99,6 +121,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -116,6 +139,11 @@ CAMERA = {"fx": 450.0, "fy": 450.0, "cx": 376.0, "cy": 240.0, "baseline": 0.11,
 OUT_VO = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 OUT_VIO = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 OUT_REFINE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
+OUT_RELOC = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
+RELOC_FRAMES = 40  # apps/make_synth_dataset.py --frames (stride 2, loop, 10 hard queries)
+N_RELOC_FEATS = 2  # queries whose JAX detector features are kept
+FEATURE_FIELDS = ("keypoints", "kp_scores", "kp_desc", "kp_mask", "lines", "line_scores",
+                  "line_mask", "junctions", "junc_scores", "junc_desc", "junc_mask")
 REDUCED_SCENE = (100, 10_000)  # keyframes, points of the reduced map-scale scene
 # configs/camera/synth_stereo_imu.yaml:35-40
 IMU_NODE = {"rate_hz": 200.0, "gyroscope_noise_density": 0.001,
@@ -670,6 +698,173 @@ def write_refine_oracle():
     print(f"oracle written: {OUT_REFINE} ({os.path.getsize(OUT_REFINE)} bytes)")
 
 
+def _jax_reloc_user(map_root, cfg_path):
+    """The JAX relocalization CLI's set-up (apps/relocalization.py:391-429)
+    in this process: map, databases, f32 networks, MapUser."""
+    from airslam_tpu.frontend.detector import FeatureDetector
+    from airslam_tpu.frontend.matcher import PointMatcher
+    from airslam_tpu.io.config import RelocalizationConfigs
+    from airslam_tpu.io.serialization import load_map
+    from airslam_tpu.loopclosure.database import Database
+    from airslam_tpu.loopclosure.vocabulary import Vocabulary
+    from airslam_tpu.models.weights import load_default_frontend
+    from airslam_tpu.pipelines.map_user import MapUser
+
+    cfg = RelocalizationConfigs.load(cfg_path)
+    m, dbs = load_map(os.path.join(map_root, "AirSLAM_mapv1.bin"))
+    point_db = Database(Vocabulary.load(os.path.join(map_root, "point_voc.npz")))
+    point_db.load_state_dict(dbs["point"])
+    junction_db = None
+    if os.path.exists(os.path.join(map_root, "junction_voc.npz")):
+        junction_db = Database(Vocabulary.load(os.path.join(map_root, "junction_voc.npz")))
+        if "junction" in dbs:
+            junction_db.load_state_dict(dbs["junction"])
+    det_params, mat_params = load_default_frontend(cfg.detector.use_superpoint,
+                                                   cfg.matcher.matcher)
+    return MapUser(m, FeatureDetector(cfg.detector, params=det_params),
+                   PointMatcher(cfg.matcher, params=mat_params), point_db, junction_db,
+                   min_inlier_num=cfg.min_inlier_num, pose_refinement=cfg.pose_refinement)
+
+
+def _superglue_oracle(blob):
+    """The JAX detector (stage-3 configuration) and SuperGlue on the 3
+    frontend-oracle pairs: each accepted match's coordinates and score."""
+    import dataclasses
+
+    from airslam_tpu.frontend.detector import FeatureDetector
+    from airslam_tpu.frontend.matcher import PointMatcher
+    from airslam_tpu.io.config import RelocalizationConfigs
+    from airslam_tpu.models.weights import load_default_frontend
+
+    cfg = RelocalizationConfigs.load(os.path.join(REPO, "configs", "relocalization",
+                                                  "reloc_euroc.yaml"))
+    det_params, sg_params = load_default_frontend(False, 1)
+    det = FeatureDetector(cfg.detector, params=det_params)
+    sg = PointMatcher(dataclasses.replace(cfg.matcher, matcher=1, sinkhorn_iterations=20),
+                      params=sg_params)
+    frames = np.load(OUT)["frames_u8"].astype(np.float32) / np.float32(255.0)
+    for i in range(frames.shape[0]):
+        f = det.detect(frames[i], detect_junctions=True)
+        m = sg.match(*(np.asarray(getattr(f, k)[v]) for v in (0, 1)
+                       for k in ("keypoints", "kp_scores", "kp_desc", "kp_mask")))
+        ok = np.asarray(m.mask)
+        kp0, kp1 = np.asarray(f.keypoints[0]), np.asarray(f.keypoints[1])
+        blob[f"sg{i}_pairs"] = np.concatenate([kp0[ok], kp1[np.asarray(m.idx1)[ok]]], -1)
+        blob[f"sg{i}_score"] = np.asarray(m.score)[ok]
+        print(f"superglue pair {i}: {int(ok.sum())} matches")
+
+
+def write_reloc_oracle():
+    import json
+    import lzma
+    import shutil
+    import subprocess
+    import tempfile
+
+    import cv2
+
+    from airslam_tpu.io.trajectory import load_tum
+
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+
+    def run(args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable] + args, cwd=REPO, capture_output=True, text=True,
+                             env=env)
+        if res.returncode:
+            raise RuntimeError(f"{args[0]} failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        print(f"{args[0]}: {time.perf_counter() - t0:.1f} s")
+        return res.stdout
+
+    run(["apps/make_synth_dataset.py", "--out", os.path.join(tmp, "ds"), "--frames",
+         str(RELOC_FRAMES), "--stride", "2", "--traj", "loop", "--hard_queries", "10"])
+    mav0 = os.path.join(tmp, "ds", "SYNTH_01", "mav0")
+    vo_dir, map_root = os.path.join(tmp, "vo"), os.path.join(tmp, "map")
+    run(["apps/visual_odometry.py", "--config_path",
+         "configs/visual_odometry/vo_euroc.yaml", "--camera_config_path",
+         "configs/camera/synth_stereo.yaml", "--dataroot", mav0, "--saving_dir", vo_dir,
+         "--device", "cpu"])
+    os.makedirs(map_root)
+    shutil.copy(os.path.join(vo_dir, "AirSLAM_mapv0.bin"), map_root)
+    voc_shared = os.path.join(tmp, "point_voc_shared.npz")
+    run(["apps/map_refinement.py", "--config_path", "configs/map_refinement/mr_euroc.yaml",
+         "--map_root", map_root, "--voc_path", voc_shared, "--device", "cpu"])
+    shutil.copy(voc_shared, os.path.join(map_root, "point_voc.npz"))
+    qdir = os.path.join(mav0, "hard0", "data")
+    cfg_path = os.path.join(REPO, "configs", "relocalization", "reloc_euroc.yaml")
+    traj = os.path.join(tmp, "reloc.txt")
+    out = run(["apps/relocalization.py", "--config_path", cfg_path, "--map_root", map_root,
+               "--query_folder", qdir, "--traj_path", traj, "--diagnose", "--device", "cpu"])
+    diag = [ln for ln in out.splitlines() if ln.startswith("diag ")]
+    recall = [ln for ln in out.splitlines() if ln.startswith("recall:")][-1]
+    print(recall)
+
+    def read(path):
+        with open(path, "rb") as f:
+            return np.frombuffer(f.read(), np.uint8)
+
+    names = sorted(os.listdir(qdir), key=lambda n: float(os.path.splitext(n)[0]))
+    # the mapv1 pickle, LZMA-compressed: its dictionary reaches the mappoint
+    # descriptors' copies of keyframe rows
+    blob = {"mapv1_xz": np.frombuffer(lzma.compress(
+                read(os.path.join(map_root, "AirSLAM_mapv1.bin")).tobytes(),
+                preset=9 | lzma.PRESET_EXTREME), np.uint8),
+            "point_voc": read(os.path.join(map_root, "point_voc.npz")),
+            "junction_voc": read(os.path.join(map_root, "junction_voc.npz")),
+            "query_names": np.asarray(names),
+            "gt_tum": read(os.path.join(mav0, "hard0", "gt_tum.txt")),
+            "cli_recall": np.asarray(recall), "cli_diag": np.asarray(diag),
+            "cli_traj": np.loadtxt(traj, ndmin=2)}
+    for i, n in enumerate(names):
+        blob[f"q{i}_png"] = read(os.path.join(qdir, n))
+
+    # the same relocalizer in this process: Twc of every query, last_stats,
+    # the deputies of the top-3 match and the detector's features
+    user = _jax_reloc_user(map_root, cfg_path)
+    detect, batched = user.detector.detect, user.matcher.matching_points_batched
+    seen = {}
+
+    def detect_rec(images, detect_junctions=False):
+        f = detect(images, detect_junctions)
+        seen["feats"] = f
+        return f
+
+    def batched_rec(pairs, *a, **k):
+        seen.setdefault("deputies", [kf.frame_id for _, kf in pairs])
+        return batched(pairs, *a, **k)
+
+    user.detector.detect, user.matcher.matching_points_batched = detect_rec, batched_rec
+    ok_all, Twc_all, stats_all, dep_all = [], [], [], []
+    for i, n in enumerate(names):
+        img = cv2.imread(os.path.join(qdir, n), cv2.IMREAD_GRAYSCALE)
+        seen.clear()
+        ok, Twc = user.relocalize_image(img.astype(np.float32) / 255.0)
+        ok_all.append(bool(ok))
+        Twc_all.append(np.asarray(Twc, np.float64))
+        stats_all.append(json.dumps(user.last_stats, default=lambda o: o.item()))
+        dep_all.append(seen.get("deputies", []))
+        if i < N_RELOC_FEATS:
+            for k in FEATURE_FIELDS:
+                blob[f"q{i}_{k}"] = np.asarray(getattr(seen["feats"], k)[0])
+        same = diag[i].split(" ok=")[1].startswith(str(bool(ok)))
+        print(f"query {i} {n}: ok={ok} stats={stats_all[-1]} deputies={dep_all[-1]}"
+              f"{'' if same else ' (the CLI decided otherwise)'}")
+    blob.update(ok=np.asarray(ok_all), Twc=np.stack(Twc_all), stats=np.asarray(stats_all),
+                deputies=np.asarray([d + [-1] * (3 - len(d)) for d in dep_all]))
+    acc = [i for i, ok in enumerate(ok_all) if ok]
+    if len(acc) == len(blob["cli_traj"]):
+        d = max((float(np.abs(Twc_all[i][:3, 3] - blob["cli_traj"][j, 1:4]).max())
+                 for j, i in enumerate(acc)), default=0.0)
+        print(f"in-process poses against the CLI's trajectory: {d:.3e} m")
+    gt = {round(t, 6): T for t, T in load_tum(os.path.join(mav0, "hard0", "gt_tum.txt"))}
+    print(f"gt stamps {len(gt)}")
+
+    _superglue_oracle(blob)
+    np.savez_compressed(OUT_RELOC, **blob)
+    print(f"oracle written: {OUT_RELOC} ({os.path.getsize(OUT_RELOC)} bytes)")
+
+
 def main():
     import jax
 
@@ -686,6 +881,10 @@ def main():
         write_vio_oracle()
     if which in ("all", "refine"):
         write_refine_oracle()
+    if which in ("all", "reloc"):
+        # float32, as the JAX CLIs run (they enable no x64)
+        jax.config.update("jax_enable_x64", False)
+        write_reloc_oracle()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (R, B, T, loi_features, P, F) against their plain
-PyTorch versions, and the stereo-inertial solves (plain PyTorch) in float32
-on the card against float64 on the CPU.
+PyTorch versions, the stereo-inertial solves (plain PyTorch) in float32
+on the card against float64 on the CPU, and the device RANSAC PnP on the
+card against the CPU.
 
 The kernel tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 without one. Where JAX (which ``tests/conftest.py`` imports) is not
@@ -293,7 +294,9 @@ def test_wrappers_refuse_non_cuda_devices():
     ((), 4, 1024, 1024, 64, 1000, None),  # the engine's limit, unbatched
     ((3,), 2, 77, 300, 32, 290, None),    # odd sizes, the other head dimension
     ((2,), 4, 130, 65, 64, 60, 1),        # one batch entry with every key masked
-], ids=["path", "1024", "odd", "all-masked"])
+    ((3,), 4, 400, 400, 64, 388, None),   # relocalization's top-3 batch
+    ((8,), 4, 400, 400, 64, 388, None),   # relocalization's matcher recovery (up to 8)
+], ids=["path", "1024", "odd", "all-masked", "reloc-top3", "reloc-recovery"])
 @pytest.mark.parametrize("types", ["f32", "bf16", "mixed"])
 def test_flash_kernel_equals_plain(dev, lead, h, nq, nk, d, n_valid, dead, types):
     """f32 ≤ 1e-5 abs (sum orders); with bf16 anywhere ≤ 2e-2 of the output's
@@ -629,3 +632,29 @@ def test_imu_initialization_on_the_card_vs_cpu_f64(dev):
     gaps = [float((g.double().cpu() - w).abs().max()) for g, w in zip(got, want)]
     assert gaps[0] <= 1e-2 and gaps[1] <= 5e-4 and gaps[2] <= 2e-2 and gaps[3] <= 1e-3, gaps
     assert np.abs(got[1].double().cpu().numpy() - bg_true).max() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(chip_smoke.PNP_CASES))
+def test_device_pnp_on_the_card(dev, name):
+    """``backend/pnp.solve_pnp_ransac`` on the card: tests/test_pnp.py's case
+    under its tolerances with a CUDA generator, and in float64 with the same
+    minimal sets as the CPU within 1e-6 (the degenerate five-point case
+    only finite)."""
+    from airslam_tpu_torch.backend import pnp
+
+    case, seed = chip_smoke.pnp_named(name)
+    intr, _, _, pts, uv, m, _ = case
+    t = [torch.as_tensor(a, device=dev) for a in (pts, uv, m)]
+    R, tt, inl, ok = pnp.solve_pnp_ransac(*t, intr,
+                                          generator=torch.Generator(device=dev).manual_seed(seed))
+    assert chip_smoke._pnp_check(name, R.cpu().numpy(), tt.cpu().numpy(), inl.cpu().numpy(),
+                                 bool(ok), case)
+    if name != "too_few_points":
+        samples = pnp.draw_samples(torch.as_tensor(m), 128, torch.Generator().manual_seed(seed))
+        on_card = pnp.solve_pnp_ransac(*t, intr, samples=samples)
+        on_cpu = pnp.solve_pnp_ransac(*(torch.as_tensor(a) for a in (pts, uv, m)), intr,
+                                      samples=samples)
+        for a, b in zip(on_card[:2], on_cpu[:2]):
+            assert float((a.cpu() - b).abs().max()) <= 1e-6
+        assert torch.equal(on_card[2].cpu(), on_cpu[2])

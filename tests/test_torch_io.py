@@ -75,12 +75,18 @@ def test_config_classes_parse_every_yaml_like_jax(kind, name):
 
 
 def test_superglue_config_parses_but_the_matcher_waits():
+    """``matcher: 1`` parses with the shipped checkpoint's Sinkhorn depth, and
+    the matcher no longer waits: it builds SuperGlue (stage 3) with the
+    SuperGlue decode's threshold and keypoint scale."""
     cfg = config.parse_matcher_config({"point_matcher": {"matcher": 1}})
     assert cfg.sinkhorn_iterations == config.SG_SINKHORN_ITERS
     from airslam_tpu_torch.frontend.matcher import PointMatcher
+    from airslam_tpu_torch.models.superglue import SuperGlue
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        PointMatcher(cfg, device="cpu")
+    matcher = PointMatcher(cfg, device="cpu")
+    assert isinstance(matcher.model, SuperGlue)
+    assert matcher.model.sinkhorn_iterations == config.SG_SINKHORN_ITERS
+    assert (matcher.threshold, matcher.norm_scale) == (0.2, 0.7)
 
 
 def _random_trajectory(n=6, seed=0):

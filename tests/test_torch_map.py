@@ -254,7 +254,8 @@ def test_what_waits_raises_and_names_its_queue():
     keyframe, the second keyframe's insertion runs the local BA and an IMU
     initialization attempt (which waits for 3 s and 10 keyframes), and once
     the IMU runs the window carries IMU factors with velocities and biases
-    free. What still waits raises and names its ROADMAP item."""
+    free. Nothing waits any more: the device PnP of stage 3 runs on the
+    keyframe's matches."""
     rendered = _rendered(2)
     cam = Camera()
     cam.use_imu = True
@@ -275,8 +276,11 @@ def test_what_waits_raises_and_names_its_queue():
                                   [p for p in m.mappoints.values() if p.is_valid], [])
     assert problem.imu is not None and problem.imu.idx_i.tolist() == [1]
     assert problem.imu.idx_j.tolist() == [0] and problem.vel_fixed.tolist() == [False, True]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        tb._solve_pnp_jax(None, [])
+    # nothing waits any more: the device PnP (stage 3) runs on the keyframe's matches
+    matched = [(i, m.mappoints[int(t)]) for i, t in enumerate(kf.mappoint_ids)
+               if t >= 0 and m.mappoints[int(t)].is_valid]
+    Twc, n_pnp = tb._solve_pnp_jax(kf, matched)
+    assert n_pnp >= 8 and np.abs(Twc[:3, 3] - kf.Twc[:3, 3]).max() < 1e-2
     assert (tmap.WINDOW_SIZE, tmap.MAX_FIXED_FRAMES) == (5, 10)
     assert tmap._bucket(65) == 128 and tmap._pow2_bucket(9) == 16
 

@@ -404,8 +404,8 @@ def test_track_features_stops_at_the_second_keyframe(jax_side, port_initialised)
     """``track_features`` runs the whole per-frame logic and no longer stops:
     the second frame becomes the second keyframe, its insertion runs the
     local BA, and the pose lands on the stored JAX VO run's (1e-3 m: f32
-    against f64 geometry). What still waits raises and names its ROADMAP
-    item; the VI arm of the pose-only solve runs."""
+    against f64 geometry). The device PnP runs on the keyframe's matches;
+    the VI arm of the pose-only solve runs."""
     builder = port_initialised(torch.float32)
     f0, f1, stereo, temporal = jax_side[3][1]
     n_before = len(builder._trajectory)
@@ -422,8 +422,6 @@ def test_track_features_stops_at_the_second_keyframe(jax_side, port_initialised)
     np.testing.assert_allclose(frame.Twc[:3, 3], vo["Twc"][1][:3, 3], rtol=0, atol=1e-3)
     np.testing.assert_allclose(frame.Twc[:3, :3], vo["Twc"][1][:3, :3], rtol=0, atol=1e-3)
     builder.map.check_map()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        builder._solve_pnp_jax(None, [])
     # the pose-only solve with the IMU factor to keyframe 0 runs (F=2, the
     # current frame's pose, velocity and biases free): a still IMU against
     # the 0.12 m the camera saw
@@ -435,6 +433,9 @@ def test_track_features_stops_at_the_second_keyframe(jax_side, port_initialised)
     builder.preintegration = pre
     matched = [(i, builder.map.mappoints[int(t)]) for i, t in enumerate(frame.mappoint_ids)
                if t >= 0 and builder.map.mappoints[int(t)].is_valid]
+    # the device-resident RANSAC PnP lands on the keyframe's pose
+    Twc_pnp, n_pnp = builder._solve_pnp_jax(frame, matched)
+    assert n_pnp > 100 and np.abs(Twc_pnp[:3, 3] - frame.Twc[:3, 3]).max() < 1e-2
     n_in, flags = builder._pose_only(frame, matched, imu_ref=builder.map.keyframes[0])
     assert len(flags) == len(matched) > 100 and n_in > builder.kf_config.lost_num_match
     assert np.isfinite(frame.Twc).all() and np.isfinite(frame.velocity).all()

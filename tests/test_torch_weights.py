@@ -143,11 +143,12 @@ def test_port_imports_no_jax():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "profile_torch_frontend.py"),
              os.path.join(REPO, "apps", "visual_odometry_torch.py"),
-             os.path.join(REPO, "apps", "map_refinement_torch.py")]
+             os.path.join(REPO, "apps", "map_refinement_torch.py"),
+             os.path.join(REPO, "apps", "relocalization_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "airslam_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     walked = {os.path.relpath(f, os.path.join(REPO, "airslam_tpu_torch")) for f in files}
-    # every module of the tracking and VO slices is among the walked files
+    # every module of the ported slices is among the walked files
     for mod in ("ops/attention.py", "backend/triangulate.py", "io/config.py", "io/dataset.py",
                 "io/publisher.py", "io/serialization.py", "io/trajectory.py",
                 "core/lie.py", "backend/residuals.py", "backend/gn.py", "backend/windows.py",
@@ -155,7 +156,8 @@ def test_port_imports_no_jax():
                 "slam/landmarks.py", "slam/frame.py", "slam/map.py",
                 "pipelines/map_builder.py", "entry.py", "utils/native.py",
                 "loopclosure/vocabulary.py", "loopclosure/database.py", "backend/global_ba.py",
-                "pipelines/map_refiner.py"):
+                "pipelines/map_refiner.py", "pipelines/map_user.py", "models/superglue.py",
+                "backend/pnp.py", "ops/match.py"):
         assert mod in walked, mod
     assert len(files) > 37
     for path in files:

@@ -51,6 +51,10 @@
 //   unclamped weights extrapolate, drifted past 1e-5 from the plain version).
 //   loi_features forms the interior points s0*t_fwd + s2*t_rev - 0.5 with
 //   explicitly rounded intrinsics, since one ulp there can move a floor.
+//
+// loi_features_backward (kernel B+T', below) is loi_features' gradient for
+// training: f32 maps, atomicAdd scatter into the map gradients, the ramps'
+// gradient from each interior sample's coordinate derivative.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -352,6 +356,126 @@ void launch_loi(const void* loi, const void* thin, const void* aux, const float*
       nt);
 }
 
+// loi_features_backward (B+T'): the gradient of loi_features for training,
+// f32 maps only. No TPU kernel has it: the JAX trainer takes it from XLA's
+// autodiff of the einsum sampler (airslam_tpu/models/plnet.py:428-491).
+//
+// One warp per (view, line), as the forward. The row's gradient g flows
+//   - into the maps: each sample's four taps receive (g * wx) * wy (the
+//     plain version's autograd order) by atomicAdd into zeroed (V, H, W, C)
+//     maps: the endpoints into d_loi through the clamped pair_idx junctions
+//     (lanes over 2 x 32 chunks of 4 channels, a 16-byte load of g each),
+//     the interior points into d_thin / d_aux (lane t < nt, point t);
+//   - into t_fwd / t_rev: point t sits at x = s0*t_fwd[t] + s2*t_rev[t] - 0.5
+//     (likewise y with s1, s3), and with the forward's unclamped weights
+//       d/dx = sum_c g_c (b_c - a_c),  a = wy0 f00 + wy1 f10, b = wy0 f01 + wy1 f11,
+//       d/dy = sum_c g_c (wx0 (f10 - f00) + wx1 (f11 - f01)),
+//     zero along an axis whose two taps clamp onto one texel (floor and clip
+//     carry no gradient; the merged weights' derivatives cancel), so
+//       d t_fwd[t] += dx s0 + dy s1,  d t_rev[t] += dx s2 + dy s3,
+//     summed over both branches, the block's lines in shared memory, then
+//     one atomicAdd per block and ramp entry.
+// Junctions, lines and proposals are data: no gradient. Bound: the dense map gradients the
+// wrapper zeroes dwarf what the kernel touches (V x 128^2 x 136 floats
+// against a few taps per sample), so the memset, not the kernel, is the
+// floor of the whole backward.
+__global__ void __launch_bounds__(kLoiMaxWarps * 32)
+loi_features_backward_kernel(const float* __restrict__ grad, const float* __restrict__ thin,
+                             const float* __restrict__ aux, const float* __restrict__ junc_xy,
+                             const long long* __restrict__ pair_idx,
+                             const float* __restrict__ lines, const float* __restrict__ prop_lines,
+                             const float* __restrict__ t_fwd, const float* __restrict__ t_rev,
+                             float* __restrict__ d_loi, float* __restrict__ d_thin,
+                             float* __restrict__ d_aux, float* __restrict__ d_tf,
+                             float* __restrict__ d_tr, int n_views, int n_lines, int n_junc,
+                             int h, int w, int nt) {
+  __shared__ float acc[2][32];  // this block's d t_fwd, d t_rev
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) acc[i >> 5][i & 31] = 0.0f;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row < static_cast<long long>(n_views) * n_lines) {
+    const long long view = row / n_lines;
+    const long long texels = static_cast<long long>(h) * w;
+    const float* g = grad + row * (2 * kLoiC + 2 * kIntC * nt);
+
+    constexpr int kChunks = kLoiC / 4;  // per endpoint
+    float* dm = d_loi + view * texels * kLoiC;
+    for (int i = lane; i < 2 * kChunks; i += 32) {
+      const int e = i / kChunks;
+      const int ch0 = (i - e * kChunks) * 4;
+      long long j = __ldg(pair_idx + row * 2 + e);
+      j = j < 0 ? 0 : (j >= n_junc ? n_junc - 1 : j);
+      const float* p = junc_xy + (view * n_junc + j) * 2;
+      const Taps t = make_taps<float>(__ldg(p) - 0.5f, __ldg(p + 1) - 0.5f, h, w);
+      const float4 gv = __ldg(reinterpret_cast<const float4*>(g + e * kLoiC + ch0));
+      const float gc[4] = {gv.x, gv.y, gv.z, gv.w};
+      const long long r0 = static_cast<long long>(t.y0) * w, r1 = static_cast<long long>(t.y1) * w;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float g0 = gc[c] * t.wx0, g1 = gc[c] * t.wx1;
+        atomicAdd(dm + (r0 + t.x0) * kLoiC + ch0 + c, g0 * t.wy0);
+        atomicAdd(dm + (r1 + t.x0) * kLoiC + ch0 + c, g0 * t.wy1);
+        atomicAdd(dm + (r0 + t.x1) * kLoiC + ch0 + c, g1 * t.wy0);
+        atomicAdd(dm + (r1 + t.x1) * kLoiC + ch0 + c, g1 * t.wy1);
+      }
+    }
+
+    if (lane < nt) {
+      const float tf = __ldg(t_fwd + lane), tr = __ldg(t_rev + lane);
+      float dtf = 0.0f, dtr = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float* s = (b == 0 ? lines : prop_lines) + row * 4;
+        const float s0 = __ldg(s), s1 = __ldg(s + 1), s2 = __ldg(s + 2), s3 = __ldg(s + 3);
+        const float x = __fsub_rn(__fadd_rn(__fmul_rn(s0, tf), __fmul_rn(s2, tr)), 0.5f);
+        const float y = __fsub_rn(__fadd_rn(__fmul_rn(s1, tf), __fmul_rn(s3, tr)), 0.5f);
+        const Taps t = make_taps<float>(x, y, h, w);
+        const long long r0 = static_cast<long long>(t.y0) * w, r1 = static_cast<long long>(t.y1) * w;
+        const float* gb = g + 2 * kLoiC + b * kIntC * nt + lane;
+        float gc[kIntC];
+#pragma unroll
+        for (int c = 0; c < kIntC; ++c) gc[c] = __ldg(gb + c * nt);
+        float* dmi = (b == 0 ? d_thin : d_aux) + view * texels * kIntC;
+#pragma unroll
+        for (int c = 0; c < kIntC; ++c) {
+          const float g0 = gc[c] * t.wx0, g1 = gc[c] * t.wx1;
+          atomicAdd(dmi + (r0 + t.x0) * kIntC + c, g0 * t.wy0);
+          atomicAdd(dmi + (r1 + t.x0) * kIntC + c, g0 * t.wy1);
+          atomicAdd(dmi + (r0 + t.x1) * kIntC + c, g1 * t.wy0);
+          atomicAdd(dmi + (r1 + t.x1) * kIntC + c, g1 * t.wy1);
+        }
+        const float* fm = (b == 0 ? thin : aux) + view * texels * kIntC;
+        float f00[kIntC], f10[kIntC], f01[kIntC], f11[kIntC];
+        Chunk<float, kIntC>::load(fm + (r0 + t.x0) * kIntC, f00);
+        Chunk<float, kIntC>::load(fm + (r1 + t.x0) * kIntC, f10);
+        Chunk<float, kIntC>::load(fm + (r0 + t.x1) * kIntC, f01);
+        Chunk<float, kIntC>::load(fm + (r1 + t.x1) * kIntC, f11);
+        float dx = 0.0f, dy = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kIntC; ++c) {
+          const float a = t.wy0 * f00[c] + t.wy1 * f10[c];
+          const float bb = t.wy0 * f01[c] + t.wy1 * f11[c];
+          dx += gc[c] * (bb - a);
+          dy += gc[c] * (t.wx0 * (f10[c] - f00[c]) + t.wx1 * (f11[c] - f01[c]));
+        }
+        if (t.x0 == t.x1) dx = 0.0f;
+        if (t.y0 == t.y1) dy = 0.0f;
+        dtf += dx * s0 + dy * s1;
+        dtr += dx * s2 + dy * s3;
+      }
+      atomicAdd(&acc[0][lane], dtf);
+      atomicAdd(&acc[1][lane], dtr);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    atomicAdd(d_tf + i, acc[0][i]);
+    atomicAdd(d_tr + i, acc[1][i]);
+  }
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -398,6 +522,28 @@ extern "C" int airslam_loi_features(const void* loi, const void* thin, const voi
   else
     launch_loi<float, float>(loi, thin, aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
                              out, v, l, j, h, w, nt, warps, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// loi_features_backward: grad (V, L, 256 + 8 * nt) f32 on 16 bytes, the
+// forward's f32 operands (thin / aux maps on 16 bytes; the LOI map is not
+// read), and the zeroed outputs d_loi (V, H, W, 128), d_thin / d_aux
+// (V, H, W, 4), d_tf / d_tr (nt,). Every operand contiguous on the
+// current device, 1 <= nt <= 32, j >= 1. Returns cudaGetLastError().
+extern "C" int airslam_loi_features_backward(const float* grad, const float* thin,
+                                             const float* aux, const float* junc_xy,
+                                             const long long* pair_idx, const float* lines,
+                                             const float* prop_lines, const float* t_fwd,
+                                             const float* t_rev, float* d_loi, float* d_thin,
+                                             float* d_aux, float* d_tf, float* d_tr, int v, int l,
+                                             int j, int h, int w, int nt, void* stream) {
+  if (v == 0 || l == 0) return 0;
+  if (j < 1 || nt < 1 || nt > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(v) * l;
+  const unsigned blocks = static_cast<unsigned>((rows + kLoiWarps - 1) / kLoiWarps);
+  loi_features_backward_kernel<<<blocks, kLoiWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      grad, thin, aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev, d_loi, d_thin, d_aux,
+      d_tf, d_tr, v, l, j, h, w, nt);
   return static_cast<int>(cudaGetLastError());
 }
 

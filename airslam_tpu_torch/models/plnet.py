@@ -80,7 +80,8 @@ class PLNet(nn.Module):
     """Stage 0: backbone + keypoint heads + line heads (plnet.py:175-259).
 
     ``forward(image)``: (B, 1, 512, 512) in [0, 1]. Returns the JAX output
-    dict with NHWC layouts: ``scores`` (B, 512, 512), ``descriptors``
+    dict with NHWC layouts: ``scores`` (B, 512, 512), ``kp_logits``
+    (B, 64, 64, 65) float32, ``descriptors``
     (B, 64, 64, 256), ``junc_heat`` (B, 128, 128), ``junc_offset``
     (B, 128, 128, 2), ``line_pred`` (B, 128, 128, 3, 4), ``line_logit``
     (B, 128, 128, 3), ``loi`` (B, 128, 128, 128), ``loi_thin``/``loi_aux``
@@ -128,6 +129,7 @@ class PLNet(nn.Module):
 
         return {
             "scores": scores,
+            "kp_logits": logits.permute(0, 2, 3, 1),  # (B, 64, 64, 65) for training CE
             "descriptors": desc.permute(0, 2, 3, 1),
             "junc_heat": torch.sigmoid(o["junc_heat"].float())[..., 0],
             "junc_offset": torch.sigmoid(o["junc_off"].float()),
@@ -144,7 +146,10 @@ class LoiHeadS1(nn.Module):
     ``plnet_s1.onnx`` (plnet.py:314-410): endpoint LOI features (2 × 128),
     30 thin samples along the junction line and 30 aux samples along the
     representative proposal (4 channels each, channel-major), a 3-layer MLP
-    plus a residual branch, and a 2-way softmax score."""
+    plus a residual branch, and a 2-way softmax score.
+
+    The interior ramps ``t_fwd``/``t_rev`` are parameters, as in the JAX
+    head: training moves them. They stay float32 whatever ``dtype``."""
 
     n_interior = 30
 
@@ -159,23 +164,32 @@ class LoiHeadS1(nn.Module):
         self.to(dtype)
         # the ONNX graph's f32 sampling ramps (bits set by the checkpoint)
         n = self.n_interior
-        self.register_buffer("t_fwd", torch.arange(1, n + 1, dtype=torch.float32) / (n + 1))
-        self.register_buffer("t_rev", torch.arange(n, 0, -1, dtype=torch.float32) / (n + 1))
+        self.t_fwd = nn.Parameter(torch.arange(1, n + 1, dtype=torch.float32) / (n + 1))
+        self.t_rev = nn.Parameter(torch.arange(n, 0, -1, dtype=torch.float32) / (n + 1))
 
-    def forward(self, lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx):
+    def forward(self, lines, prop_lines, loi, loi_thin, loi_aux, junc_xy=None, pair_idx=None):
         """lines/prop_lines: (V, L, 4) (x1, y1, x2, y2) in 128-grid coords;
         loi (V, 128, 128, 128), loi_thin/aux (V, 128, 128, 4) HWC; ``junc_xy``
         (V, J, 2) the junctions and ``pair_idx`` (V, L, 2) each line's
         endpoint junctions — or the same without the leading V for one view.
-        The LOI map is sampled at the junctions and gathered per line (the
-        JAX head's fast endpoint path, the one its detector runs); every view
-        is sampled in one ``loi_features`` call and the MLP runs once over
-        the V·L rows. Returns (scores (V, L) or (L,), lines)."""
+        With junctions the LOI map is sampled at them and gathered per line
+        (the JAX head's fast endpoint path, the one its detector runs);
+        without, at each line's two endpoints (the path training takes,
+        plnet.py:382-386), passed to the sampler as 2·L junctions and the
+        pairs (i, L + i): JAX samples both paths at ``point − 0.5``. Every
+        view is sampled in one ``loi_features`` call and the MLP runs once
+        over the V·L rows. Returns (scores (V, L) or (L,), lines)."""
         single = lines.ndim == 2
         if single:
-            lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx = (
-                t[None] for t in (lines, prop_lines, loi, loi_thin, loi_aux, junc_xy, pair_idx))
+            lines, prop_lines, loi, loi_thin, loi_aux = (
+                t[None] for t in (lines, prop_lines, loi, loi_thin, loi_aux))
+            if junc_xy is not None:
+                junc_xy, pair_idx = junc_xy[None], pair_idx[None]
         v, n = lines.shape[:2]
+        if junc_xy is None:
+            junc_xy = torch.cat([lines[..., 0:2], lines[..., 2:4]], dim=1).contiguous()
+            ar = torch.arange(n, device=lines.device)
+            pair_idx = torch.stack([ar, ar + n], dim=-1).expand(v, n, 2).contiguous()
         feats = loi_features(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
                              self.t_fwd, self.t_rev, out_dtype=self.dtype).reshape(v * n, -1)
         res_in = feats[:, 2 * LOI_DIM:]  # [thin | aux]

@@ -1,4 +1,4 @@
-"""Checkpoint loading and flax → PyTorch parameter conversion.
+"""Checkpoints: flax → PyTorch parameter conversion and back.
 
 The in-repo checkpoints (``airslam_tpu/checkpoints/*.npz``) are ``/``-flattened
 flax parameter trees, all float32. They are read as plain npz files here,
@@ -10,6 +10,12 @@ without flax, and converted to ``state_dict``s of the port's modules:
 - PLNet's fused convs are concatenated once here, at load time: convPa+convDa
   (one 512-wide 3×3 conv) and the seven trunk heads (one 154-wide 3×3 conv),
   in the channel order of ``airslam_tpu/models/plnet.py``.
+
+The ``*_to_flax`` functions invert them (the fused convs split again), and
+:func:`save_npz` writes the JAX package's ``/``-flattened layout, so a
+checkpoint the port trains loads in the JAX ``FeatureDetector``.
+``AIRSLAM_CHECKPOINT_DIR`` overrides the shipped folder file by file, as in
+the JAX package (``airslam_tpu/models/weights.py:63-71``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,11 @@ BACKBONE_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
 
 
 def checkpoint_path(name: str) -> str:
-    """Path of a shipped checkpoint (the JAX package's checkpoint folder)."""
+    """Path of a checkpoint: in ``AIRSLAM_CHECKPOINT_DIR`` where that holds
+    the file, else the shipped one (the JAX package's checkpoint folder)."""
+    override = os.environ.get("AIRSLAM_CHECKPOINT_DIR")
+    if override and os.path.exists(os.path.join(override, name)):
+        return os.path.join(override, name)
     return os.path.normpath(os.path.join(_CHECKPOINT_DIR, name))
 
 
@@ -47,6 +57,22 @@ def load_npz(path: str) -> Dict[str, Any]:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def save_npz(path: str, tree: Dict[str, Any]):
+    """Write a nested dict of arrays as a ``/``-flattened npz (the JAX
+    package's ``save_params`` layout, compressed)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez_compressed(path, **flat)
 
 
 def _params(tree):
@@ -169,3 +195,58 @@ def superglue_from_flax(tree) -> Dict[str, torch.Tensor]:
     _dense(p["final_proj"], "final_proj", sd)
     sd["bin_score"] = _t(p["bin_score"]).reshape(())
     return sd
+
+
+def _a(t) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().float().cpu().numpy())
+
+
+def _conv_back(w) -> np.ndarray:
+    return np.ascontiguousarray(_a(w).transpose(2, 3, 1, 0))  # OIHW → HWIO
+
+
+def _node(sd, prefix):
+    return {"kernel": _conv_back(sd[prefix + ".weight"]), "bias": _a(sd[prefix + ".bias"])}
+
+
+def _dense_node(sd, prefix):
+    return {"kernel": np.ascontiguousarray(_a(sd[prefix + ".weight"]).T),
+            "bias": _a(sd[prefix + ".bias"])}
+
+
+def plnet_to_flax(sd) -> Dict[str, Any]:
+    """``state_dict`` of :class:`models.plnet.PLNet` → the JAX ``PLNet``
+    params ``{"params": ...}``; the inverse of :func:`plnet_from_flax`, the
+    fused ``convPDa`` and ``heads`` split into their logical convs."""
+    p: Dict[str, Any] = {"backbone": {n: _node(sd, f"backbone.{n}") for n in BACKBONE_CONVS}}
+    pd_k, pd_b = _conv_back(sd["convPDa.weight"]), _a(sd["convPDa.bias"])
+    p["convPa"] = {"kernel": np.ascontiguousarray(pd_k[..., :256]), "bias": pd_b[:256].copy()}
+    p["convDa"] = {"kernel": np.ascontiguousarray(pd_k[..., 256:]), "bias": pd_b[256:].copy()}
+    for name in ("convPb", "convDb"):
+        p[name] = _node(sd, name)
+    p["line_trunk"] = {n: _node(sd, f"line_trunk.{n}") for n in ("fuse0", "fuse2")}
+    hk, hb = _conv_back(sd["heads.weight"]), _a(sd["heads.bias"])
+    i0 = 0
+    for name, f in TRUNK_HEADS:
+        p[name] = {"kernel": np.ascontiguousarray(hk[..., i0:i0 + f]), "bias": hb[i0:i0 + f].copy()}
+        i0 += f
+    return {"params": p}
+
+
+def loi_s1_to_flax(sd) -> Dict[str, Any]:
+    """``state_dict`` of :class:`models.plnet.LoiHeadS1` → the JAX
+    ``LoiHeadS1`` params; the inverse of :func:`loi_s1_from_flax`."""
+    p = {name: _dense_node(sd, name)
+         for name in ("fc2_0", "fc2_2", "fc2_4", "fc2_res", "fc2_head")}
+    p["t_fwd"], p["t_rev"] = _a(sd["t_fwd"]), _a(sd["t_rev"])
+    return {"params": p}
+
+
+def superpoint_to_flax(sd) -> Dict[str, Any]:
+    """``state_dict`` of :class:`models.superpoint.SuperPoint` → the JAX
+    ``SuperPoint`` params; the inverse of :func:`superpoint_from_flax`."""
+    names = sorted({k.split(".")[1] for k in sd if k.startswith("backbone.")})
+    p: Dict[str, Any] = {"backbone": {n: _node(sd, f"backbone.{n}") for n in names}}
+    for name in ("convPa", "convPb", "convDa", "convDb"):
+        p[name] = _node(sd, name)
+    return {"params": p}

@@ -21,6 +21,13 @@ from the JAX CPU einsum branch (``plnet.py:488``), which rounds its rows to
 bf16. :func:`bilerp_plain` and :func:`loi_features_plain` are the plain
 PyTorch versions with the kernels' semantics.
 
+Training differentiates the head's sampling: :func:`loi_features_backward`
+(kernel B+T′) is ``loi_features``' gradient with respect to the three maps
+and the two interior ramps, for float32 maps, and the autograd function
+behind ``loi_features`` on the card. The JAX trainer has no Pallas kernel
+there (it differentiates the f32 einsum sampler with XLA);
+:func:`loi_features_backward_plain` is autograd through the plain version.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -99,8 +106,11 @@ def _lib():
     lib.airslam_loi_features.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                                          + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                                          + [ctypes.c_void_p])
+    lib.airslam_loi_features_backward.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                                                  + [ctypes.c_void_p])
     lib.airslam_loi_features_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.airslam_bilerp, lib.airslam_loi_features, lib.airslam_loi_features_attributes):
+    for fn in (lib.airslam_bilerp, lib.airslam_loi_features, lib.airslam_loi_features_backward,
+               lib.airslam_loi_features_attributes):
         fn.restype = ctypes.c_int
     return lib
 
@@ -167,12 +177,11 @@ def bilerp_points_t(fmap: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tor
     return _launch(fmap, x, y, bilerp_points_t)
 
 
-def _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
-                out_dtype, warps: int = 0) -> torch.Tensor:
-    """Check the operands as :func:`_launch` does, launch ``loi_features``
-    once, and count the launch. ``warps``: lines per block, 1-8 (0: the
-    kernel's default)."""
-    name = "loi_features"
+def _check_loi(name, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd,
+               t_rev):
+    """Check ``loi_features``' operands (device, types, shapes, contiguity,
+    the maps on 16 bytes); raise ``ValueError`` on what the kernels do not
+    take. Returns (V, H, W, J, L, T)."""
     dev = loi.device
     operands = dict(loi=loi, loi_thin=loi_thin, loi_aux=loi_aux, junc_xy=junc_xy,
                     pair_idx=pair_idx, lines=lines, prop_lines=prop_lines, t_fwd=t_fwd,
@@ -184,8 +193,6 @@ def _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_
             loi_thin.dtype == loi_aux.dtype == loi.dtype):
         raise ValueError(f"{name}: maps {loi.dtype}/{loi_thin.dtype}/{loi_aux.dtype} "
                          "(all float32 or all bfloat16)")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: output dtype {out_dtype} (float32 or bfloat16)")
     for k in ("junc_xy", "lines", "prop_lines", "t_fwd", "t_rev"):
         if operands[k].dtype != torch.float32:
             raise ValueError(f"{name}: {k} must be float32, not {operands[k].dtype}")
@@ -212,8 +219,21 @@ def _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_
         raise ValueError(f"{name}: every operand must be contiguous")
     if any(t.data_ptr() % 16 for t in (loi, loi_thin, loi_aux)):
         raise ValueError(f"{name}: the maps must start on 16 bytes")
+    return v, h, w, n_junc, n_lines, nt
+
+
+def _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
+                out_dtype, warps: int = 0) -> torch.Tensor:
+    """Check the operands, launch ``loi_features`` once, and count the
+    launch. ``warps``: lines per block, 1-8 (0: the kernel's default)."""
+    name = "loi_features"
+    v, h, w, n_junc, n_lines, nt = _check_loi(name, loi, loi_thin, loi_aux, junc_xy, pair_idx,
+                                              lines, prop_lines, t_fwd, t_rev)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: output dtype {out_dtype} (float32 or bfloat16)")
     if warps not in range(9):
         raise ValueError(f"{name}: warps={warps} (0-8)")
+    dev = loi.device
     out = torch.empty((v, n_lines, 2 * LOI_C + 2 * INTERIOR_C * nt), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -231,6 +251,76 @@ def _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_
     return out
 
 
+def loi_features_backward_plain(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines,
+                                prop_lines, t_fwd, t_rev):
+    """Plain PyTorch version of :func:`loi_features_backward`: autograd
+    through :func:`loi_features_plain` (its forward included). Returns
+    (d_loi, d_thin, d_aux, d_t_fwd, d_t_rev), float32."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (loi, loi_thin, loi_aux, t_fwd, t_rev)]
+        out = loi_features_plain(leaves[0], leaves[1], leaves[2], junc_xy, pair_idx, lines,
+                                 prop_lines, leaves[3], leaves[4], out_dtype=torch.float32)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=grad.float(), allow_unused=True)
+    return tuple(torch.zeros_like(t) if d is None else d for t, d in zip(leaves, grads))
+
+
+def loi_features_backward(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
+                          t_fwd, t_rev):
+    """Kernel B+T′: the gradient of :func:`loi_features` with respect to the
+    three maps and the two interior ramps, for float32 maps (training).
+    ``grad`` (V, L, 256 + 8·T) float32; the other operands as
+    :func:`loi_features`. Junctions, lines and proposals take no gradient.
+    Returns (d_loi, d_thin, d_aux, d_t_fwd, d_t_rev). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    if loi.device.type == "cpu":
+        return loi_features_backward_plain(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx,
+                                           lines, prop_lines, t_fwd, t_rev)
+    name = "loi_features_backward"
+    v, h, w, n_junc, n_lines, nt = _check_loi(name, loi, loi_thin, loi_aux, junc_xy, pair_idx,
+                                              lines, prop_lines, t_fwd, t_rev)
+    if loi.dtype != torch.float32:
+        raise ValueError(f"{name}: maps {loi.dtype}; the backward takes float32 maps only")
+    shape = (v, n_lines, 2 * LOI_C + 2 * INTERIOR_C * nt)
+    if (grad.dtype != torch.float32 or tuple(grad.shape) != shape or grad.device != loi.device
+            or not grad.is_contiguous() or grad.data_ptr() % 16):
+        raise ValueError(f"{name}: grad {tuple(grad.shape)} {grad.dtype} on {grad.device} must "
+                         f"be a contiguous float32 {shape} on {loi.device}, on 16 bytes")
+    dev = loi.device
+    out = tuple(torch.zeros_like(t) for t in (loi, loi_thin, loi_aux, t_fwd, t_rev))
+    if grad.numel():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _lib().airslam_loi_features_backward(
+                grad.data_ptr(), loi_thin.data_ptr(), loi_aux.data_ptr(), junc_xy.data_ptr(),
+                pair_idx.data_ptr(), lines.data_ptr(), prop_lines.data_ptr(), t_fwd.data_ptr(),
+                t_rev.data_ptr(), *(t.data_ptr() for t in out), v, n_lines, n_junc, h, w, nt,
+                stream)
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        loi_features_backward.launches += 1
+    return out
+
+
+class _LoiFeatures(torch.autograd.Function):
+    """``loi_features`` on the card with kernel B+T′ as its backward."""
+
+    @staticmethod
+    def forward(ctx, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
+                out_dtype):
+        ctx.save_for_backward(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd,
+                              t_rev)
+        return _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd,
+                           t_rev, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:3] + ctx.needs_input_grad[7:9]
+        d = loi_features_backward(grad.float().contiguous(), *ctx.saved_tensors)
+        d_loi, d_thin, d_aux, d_tf, d_tr = (g if n else None for g, n in zip(d, need))
+        return d_loi, d_thin, d_aux, None, None, None, None, d_tf, d_tr, None
+
+
 def loi_features(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev,
                  out_dtype=None) -> torch.Tensor:
     """The stage-1 LOI head's sampling for V views in one launch.
@@ -241,10 +331,16 @@ def loi_features(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t
     (V, L, 4) (x1, y1, x2, y2) in 128-grid coords; ``t_fwd``/``t_rev`` (T,)
     the interior ramps. Returns the MLP's input rows (V, L, 256 + 8·T) in
     ``out_dtype`` (the maps' dtype when None): endpoint 1, endpoint 2, then
-    the thin and the aux samples, each flattened channel-major."""
+    the thin and the aux samples, each flattened channel-major. On the card,
+    when a map or a ramp requires a gradient, the call is differentiable
+    through kernel B+T′ (:func:`loi_features_backward`)."""
     out_dtype = out_dtype or loi.dtype
     if loi.device.type == "cpu":
         return loi_features_plain(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
+                                  t_fwd, t_rev, out_dtype)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (loi, loi_thin, loi_aux, t_fwd, t_rev)):
+        return _LoiFeatures.apply(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
                                   t_fwd, t_rev, out_dtype)
     return _launch_loi(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd,
                        t_rev, out_dtype)
@@ -253,3 +349,4 @@ def loi_features(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t
 bilerp_points.launches = 0
 bilerp_points_t.launches = 0
 loi_features.launches = 0
+loi_features_backward.launches = 0

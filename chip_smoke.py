@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, vio, refine, reloc; ``path`` needs ``slice`` and ``tracking``) and then prints no
+path, vo, vio, refine, reloc, train; ``path`` needs ``slice`` and ``tracking``) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -129,6 +129,31 @@ without a result line):
    tests/test_pnp.py's three cases under that test's tolerances, and the
    same draws on the card and the CPU in float64 within 1e-6.
 
+13. ``train``: detector training. (a) Kernel B+T′ (``loi_features_backward``,
+   the gradient of ``loi_features`` for f32 maps) against autograd through
+   the plain forward at the training shape (8 views, 165 candidates, their
+   330 endpoints as junctions) and the VO path's (2 views, 512 lines, 300
+   junctions, points on and beyond the borders): map gradients within 1e-5
+   of the largest |gradient|, the ramps' within 1e-4 of theirs; the
+   autograd function behind ``loi_features`` gives the same; bf16 maps
+   raise; its time (the zeroed map gradients and the kernel), the plain
+   version's, the bound and the launch floor. (b) One step of each mode
+   (``plnet`` with the LOI head and descriptors, ``superpoint``,
+   ``distill``) from the shipped checkpoints on the stored pairs of
+   ``tests/data/torch_train_oracle.npz`` (the JAX trainer's step on the
+   CPU), f32 with TF32 off: the targets' labels and masks equal, each loss
+   term within 1e-4 relative, each leaf's gradient within 1e-3 relative L2
+   (the stored values and the norm), each leaf's one-step clipped-Adam
+   update within 1e-2 relative L2 on the stored entries whose gradient sign
+   is determined. (c) ``apps/train_plnet_torch.py`` in each mode, 20 steps
+   at batch 8 and 512² from a fresh initialisation (``distill``: the shipped
+   ``plnet_s0.npz`` frozen), every count set to 0 before each run: every
+   loss finite, the last 5 steps' mean below the first 5's, ``loi_features``
+   and kernel B+T′ once per ``plnet`` step (never otherwise), the written
+   checkpoint reloads into the port's ``FeatureDetector`` (through
+   ``AIRSLAM_CHECKPOINT_DIR``), which detects a stored pair; ms per step and
+   images per second.
+
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -153,6 +178,7 @@ VO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 VIO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 REFINE_ORACLE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 RELOC_ORACLE = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
+TRAIN_ORACLE = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -182,7 +208,7 @@ VO_GATES = {"f32": {"t": 0.02, "R": 5e-3, "count_rel": 0.05}, "bf16": {"t": 0.05
 # launches of one tracked frame (no keyframe) of the VO path with use_flash;
 # a stereo-inertial frame before the IMU is initialized launches the same
 FRAME_LAUNCHES = {"remap": 1, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": 1,
-                  "pose_only_fast": 1, "flash_mha": 36}
+                  "pose_only_fast": 1, "flash_mha": 36, "loi_features_backward": 0}
 # the stereo-inertial runs against the JAX MapBuilder's (f64): the VO gates on
 # poses and landmark counts, test_full_vio_pipeline's asserts on the
 # initialized state, and the keyframes' preintegration deltas
@@ -213,6 +239,20 @@ POSE_FLOPS = {"point_iter": 400, "point_cost": 45, "line_iter": 1100, "line_cost
 POSE_THREADS = (64, 128, 256)  # kernel P's block sizes (csrc/pose_gn.cu instantiations)
 FLASH_Q_WARPS = (1, 2, 3, 4)   # kernel F's bf16 query tiles of 16 rows per block
 LOI_WARPS = (1, 2, 4, 8)       # loi_features' lines (one warp each) per block
+# detector training: kernel B+T' against its plain version (map gradients
+# within 1e-5 of the largest |gradient|, the ramps' within 1e-4 of theirs:
+# atomics sum in another order); one step of each mode against the stored
+# JAX step (each loss term relative, each leaf's gradient relative L2 on the
+# stored values and in norm, each leaf's clipped-Adam update relative L2 on
+# the stored values where JAX's gradient is nonzero; where it is exactly zero
+# the port's stays within dead_grad of the leaf's rms, float32 noise of
+# cuDNN's algorithms and not a gradient, and Adam's first step moves no entry
+# by more than lr); the CLI's runs (steps, batch at full width)
+TRAIN_GATES = {"map_grad": 1e-5, "ramp_grad": 1e-4, "term": 1e-4, "grad": 1e-3, "update": 1e-2,
+               "dead_grad": 1e-5, "offsets": 1e-6}
+TRAIN_CLI = {"steps": 20, "batch": 8}
+TRAIN_MODES = {"plnet": [], "superpoint": ["--model", "superpoint"],
+               "distill": ["--model", "superpoint", "--distill"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1222,6 +1262,425 @@ def phase_kernel_loi(dev):
             "library_ms": None}
 
 
+def train_loi_inputs(rng, n_views, device, n_lines=None):
+    """``loi_features``' operands at the training shape: the LOI head's
+    endpoint path over ``n_lines`` candidates (55 segments + 110 decoys),
+    junctions = the 2·L endpoints, pairs (i, L + i); lines on and beyond the
+    borders, proposals jittered ±2 cells; f32 maps (V, 128, 128, C)."""
+    import torch
+
+    n = n_lines or 165
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dt)
+
+    maps = [t(rng.randn(n_views, 128, 128, c).astype(np.float32)) for c in (128, 4, 4)]
+    lines = _border_points(rng, (n_views, n, 4), -1.5, 129.5, 128)
+    props = (lines + rng.uniform(-2, 2, lines.shape)).astype(np.float32)
+    junc = np.concatenate([lines[..., 0:2], lines[..., 2:4]], axis=1)
+    ar = np.arange(n)
+    pairs = np.broadcast_to(np.stack([ar, ar + n], -1), (n_views, n, 2)).astype(np.int64)
+    ramps = (np.arange(1, 31, dtype=np.float32) / 31, np.arange(30, 0, -1, dtype=np.float32) / 31)
+    return (*maps, t(junc), t(pairs, torch.int64), t(lines), t(props), t(ramps[0]), t(ramps[1]))
+
+
+def _loi_backward_work(ops):
+    """(bytes, f32 operations) of one ``loi_features_backward`` call: the
+    row gradient and every small operand read once, the texels of the thin
+    and aux maps its points touch (the coordinate derivative), the three
+    zeroed map gradients and two ramp gradients written once; about 40
+    operations per sample and channel (the scatter's and the derivative's
+    products) and 20 per point for its taps."""
+    loi, thin, aux, junc, pairs, lines, props, t_fwd, t_rev = ops
+    n_views, n_lines = lines.shape[:2]
+    nt = t_fwd.shape[0]
+    row = 2 * 128 + 2 * 4 * nt
+    n_bytes = n_views * n_lines * row * 4 + sum(t.numel() * t.element_size() for t in ops[3:])
+    n_bytes += sum(t.numel() * 4 for t in (loi, thin, aux)) + 2 * nt * 4
+    for v in range(n_views):
+        for seg in (lines[v], props[v]):
+            x = seg[:, 0:1] * t_fwd[None] + seg[:, 2:3] * t_rev[None] - 0.5
+            y = seg[:, 1:2] * t_fwd[None] + seg[:, 3:4] * t_rev[None] - 0.5
+            n_bytes += _distinct_taps(x, y, 128, 128) * 4 * 4
+    return n_bytes, n_views * n_lines * (row * 40 + (2 + 2 * nt) * 20)
+
+
+def phase_kernel_loi_backward(dev):
+    """Kernel B+T′ against autograd through the plain forward, at the
+    training shape (8 views, 165 candidates, the endpoint path) and the VO
+    path's (2 views, 512 lines, 300 junctions); the autograd function
+    behind ``loi_features`` (the training path's launch) gives the plain
+    forward's rows under phase l's gate and the kernel's gradients; times
+    beside the plain version, the bound and the launch floor."""
+    import ctypes
+
+    import torch
+
+    from airslam_tpu_torch.ops import bilerp, cuda_build
+
+    g = TRAIN_GATES
+    rng = np.random.RandomState(5)
+    shapes = {"train (8 views, 165 lines, 330 endpoint junctions)": train_loi_inputs(rng, 8, dev),
+              "VO (2 views, 512 lines, 300 junctions)": loi_inputs(rng, 2, 512, 300,
+                                                                   torch.float32, dev)}
+    notes, worst, grads = [], 0.0, {}
+    for label, ops in shapes.items():
+        v, n = ops[5].shape[:2]
+        grad = torch.as_tensor(rng.randn(v, n, 496).astype(np.float32), device=dev)
+        grads[label] = grad
+        before = bilerp.loi_features_backward.launches
+        got = bilerp.loi_features_backward(grad, *ops)
+        want = bilerp.loi_features_backward_plain(grad, *ops)
+        torch.cuda.synchronize()
+        _require(bilerp.loi_features_backward.launches == before + 1,
+                 f"kernel B+T' ({label}) did not count its launch")
+        errs = []
+        for name, a, b, tol in zip(("d_loi", "d_thin", "d_aux", "d_t_fwd", "d_t_rev"), got, want,
+                                   (g["map_grad"],) * 3 + (g["ramp_grad"],) * 2):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            _require(a.shape == b.shape and err <= tol * scale,
+                     f"kernel B+T' ({label}) {name} disagrees with autograd through the plain "
+                     f"version: {err:.3e} > {tol} x {scale:.3e}")
+            errs.append(f"{name} {err:.2e} ({err / max(scale, 1e-30):.1e} of max)")
+            if name.startswith("d_t"):
+                continue
+            worst = max(worst, err)
+        # through autograd: the function behind loi_features
+        leaves = [t.detach().clone().requires_grad_(True) for t in (ops[0], ops[1], ops[2], ops[7],
+                                                                    ops[8])]
+        out = bilerp.loi_features(leaves[0], leaves[1], leaves[2], *ops[3:7], leaves[3], leaves[4])
+        err, tol, ok = loi_gate(out.detach(),
+                                bilerp.loi_features_plain(*ops, out_dtype=torch.float32), ops[0])
+        _require(ok, f"kernel loi_features ({label}, f32, through the autograd function) "
+                     f"disagrees with its plain version: {err} > {tol}")
+        errs.append(f"forward {err:.2e}")
+        out.backward(grad)
+        for name, leaf, want_g, tol in zip(("d_loi", "d_thin", "d_aux", "d_t_fwd", "d_t_rev"),
+                                           leaves, want, (g["map_grad"],) * 3
+                                           + (g["ramp_grad"],) * 2):
+            _require(float((leaf.grad - want_g).abs().max())
+                     <= tol * float(want_g.abs().max()),
+                     f"kernel B+T' ({label}): autograd through loi_features gave another {name}")
+        notes.append(f"{label}: " + ", ".join(errs))
+    label, ops = next(iter(shapes.items()))
+    try:
+        bilerp.loi_features_backward(grads[label], *(t.to(torch.bfloat16) for t in ops[:3]),
+                                     *ops[3:])
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("kernel B+T' took bf16 maps")
+    print("kernel B+T' (loi_features_backward): " + "; ".join(notes)
+          + f" (gates: maps <= {g['map_grad']} of the largest |gradient|, ramps <= "
+          f"{g['ramp_grad']} of theirs; the autograd function's forward against "
+          f"loi_features_plain <= 1e-5, its gradients the same; bf16 maps raise)")
+
+    lib = cuda_build.library("bilerp")
+    lib.airslam_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.airslam_empty_launch.restype = ctypes.c_int
+
+    def empty():
+        _require(lib.airslam_empty_launch(torch.cuda.current_stream().cuda_stream) == 0,
+                 "the empty kernel did not launch")
+
+    times = {}
+    for label, ops in shapes.items():
+        grad = grads[label]
+        maps_only = torch.zeros_like(ops[0])
+        t = dict(ms=_time_ms(lambda: bilerp.loi_features_backward(grad, *ops)),
+                 eager_ms=_eager_ms(lambda: bilerp.loi_features_backward(grad, *ops)),
+                 plain_ms=_eager_ms(lambda: bilerp.loi_features_backward_plain(grad, *ops),
+                                    iters=20, warmup=3),
+                 zeros_ms=_time_ms(lambda: (maps_only.zero_(),)))
+        t["bound_ms"], t["bound_by"] = _bound_ms(*_loi_backward_work(ops))
+        times[label] = t
+        print(f"kernel B+T' {label}: ms={t['ms']:.5f} (the three zeroed map gradients and the "
+              f"kernel) eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} (eager, "
+              f"autograd through the plain forward, forward included) bound_ms="
+              f"{t['bound_ms']:.6f} ({t['bound_by']}); zeroing the LOI map's gradient alone "
+              f"ms={t['zeros_ms']:.5f}")
+    print(f"empty kernel (launch floor): ms={_time_ms(empty):.5f}")
+    t = times[next(iter(shapes))]
+    return {"name": "loi_features_backward", "route": "cuda",
+            "source": "airslam_tpu_torch/csrc/bilerp.cu",
+            "replaces": "airslam_tpu/models/plnet.py:428",
+            "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+
+
+def train_scene(z, prefix, view):
+    """View ``view`` of a stored pair of the train oracle as a port Scene
+    (batch of one)."""
+    import torch
+
+    from airslam_tpu_torch.frontend.synthgen import Scene
+
+    img = z[f"{prefix}/image"][view].astype(np.float32) / np.float32(65535)
+    return Scene(image=torch.as_tensor(img)[None],
+                 **{f: torch.as_tensor(z[f"{prefix}/{f}"][view])[None]
+                    for f in ("corners", "corner_mask", "segments", "segment_mask")})
+
+
+def _to_dev(scene, dev):
+    return type(scene)(*(t.to(dev) for t in scene))
+
+
+def _leaf_gaps(z, mode, grads, before, after, lr):
+    """Per leaf of the stored step, a dict: ``norm`` the relative gap of the
+    gradient's norm, ``grad`` the relative L2 gap of its stored values,
+    ``update`` the relative L2 gap of the update's stored values where JAX's
+    gradient is nonzero, ``left_out`` the others (``left_out_floor``: the
+    entries under 1e-3 of the leaf's rms, which an earlier gate left out),
+    ``flips`` the gradient's sign flips among the kept entries and
+    ``flip_ratio`` the largest |JAX gradient| / rms among them,
+    ``dead_grad`` the port's largest |gradient| / rms and ``dead_update`` its
+    largest |update| / lr where JAX's gradient is exactly zero, ``moved`` how
+    many of those the port's step moved. ``grads``/``before``/``after``:
+    flat {leaf: array}.
+
+    Adam's first step is ≈ −lr·sign g, so an entry whose sign two float32
+    programs may set differently moves by 2·lr: an exact zero of XLA's (a
+    dead channel) reads up to 1.4e-6 of the leaf's rms under cuDNN's
+    algorithms, so those entries are held by ``TRAIN_GATES["dead_grad"]``
+    instead of the update gate."""
+    gaps = {}
+    for leaf in grads:
+        key = f"{mode}/leaf/{leaf}"
+        idx = z[f"{key}/idx"]
+        g = grads[leaf].reshape(-1)
+        ref_norm = float(z[f"{key}/norm"])
+        want_g, want_u = z[f"{key}/grad"], z[f"{key}/update"]
+        upd = (after[leaf].reshape(-1) - before[leaf].reshape(-1))[idx]
+        dead = want_g == 0
+        keep = ~dead
+        rms = ref_norm / np.sqrt(g.size)
+        flip = keep & (np.sign(g[idx]) != np.sign(want_g))
+        gaps[leaf] = dict(
+            norm=abs(float(np.linalg.norm(g.astype(np.float64))) - ref_norm) / max(ref_norm, 1e-30),
+            grad=_rel_l2(g[idx], want_g), update=_rel_l2(upd[keep], want_u[keep]),
+            left_out=int((~keep).sum()),
+            left_out_floor=int((np.abs(want_g) <= 1e-3 * rms).sum()),
+            flips=int(flip.sum()),
+            flip_ratio=float((np.abs(want_g[flip]) / rms).max(initial=0.0)) if rms else 0.0,
+            dead_grad=float(np.abs(g[idx][dead]).max(initial=0.0)) / rms if rms else 0.0,
+            dead_update=float(np.abs(upd[dead]).max(initial=0.0)) / lr,
+            moved=int((dead & (upd != 0)).sum()))
+    return gaps
+
+
+def _rel_l2(got, want):
+    den = float(np.linalg.norm(want.astype(np.float64)))
+    num = float(np.linalg.norm(got.astype(np.float64) - want))
+    return num / den if den > 0 else num
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + k + "/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def train_oracle_steps(dev):
+    """One step of each mode from the shipped checkpoints on the stored
+    pairs against the stored JAX step (f32, TF32 off, cuDNN's deterministic
+    algorithms). Prints every mode's figures, then raises if a gate failed;
+    returns the printed figures per mode."""
+    import torch
+
+    from airslam_tpu_torch.models import weights as wio
+    from airslam_tpu_torch.models.plnet import LoiHeadS1, PLNet
+    from airslam_tpu_torch.models.superpoint import SuperPoint
+    from airslam_tpu_torch.parallel import train_plnet as tp
+
+    g = TRAIN_GATES
+    z = np.load(TRAIN_ORACLE)
+    s0_tree = wio.load_npz(wio.checkpoint_path("plnet_s0.npz"))
+    sp_tree = wio.load_npz(wio.checkpoint_path("superpoint.npz"))
+    report, failed = {}, []
+    for mode in ("plnet", "superpoint", "distill"):
+        prefix = "plnet" if mode == "plnet" else "superpoint"
+        s0, s1 = (_to_dev(train_scene(z, prefix, v), dev) for v in (0, 1))
+        if mode == "plnet":
+            plnet, loi = PLNet(), LoiHeadS1()
+            plnet.load_state_dict(wio.plnet_from_flax(s0_tree["plnet"]))
+            loi.load_state_dict(wio.loi_s1_from_flax(s0_tree["loi"]))
+            nets = {"plnet": plnet.to(dev), "loi": loi.to(dev)}
+            draws = {k: torch.as_tensor(z[f"plnet/loi/{k}"], device=dev)[None]
+                     for k in ("pos_jitter", "i", "j", "prop_jitter")}
+            draws["i"], draws["j"] = draws["i"].long(), draws["j"].long()
+            tgt = tp.scene_targets(s0)
+            for f in ("kp_label", "junc_heat", "junc_mask", "line_mask"):
+                _require(np.array_equal(getattr(tgt, f)[0].cpu().numpy(),
+                                        z[f"plnet/target/{f}"]),
+                         f"train targets: {f} differs from the JAX targets")
+
+            def loss_fn():
+                return tp.plnet_loss(plnet, loi, s0, s1, draws)
+
+            def to_flax(get):
+                return _flat({"plnet": wio.plnet_to_flax(get(plnet)),
+                              "loi": wio.loi_s1_to_flax(get(loi))})
+        else:
+            sp = SuperPoint()
+            sp.load_state_dict(wio.superpoint_from_flax(sp_tree))
+            nets = {"sp": sp.to(dev)}
+            if mode == "distill":
+                frozen = PLNet()
+                frozen.load_state_dict(wio.plnet_from_flax(s0_tree["plnet"]))
+                frozen.to(dev).eval().requires_grad_(False)
+
+                def loss_fn():
+                    return tp.superpoint_distill_loss(sp, frozen, s0, s1)
+            else:
+                def loss_fn():
+                    return tp.superpoint_loss(sp, s0, s1)
+
+            def to_flax(get):
+                return _flat(wio.superpoint_to_flax(get(sp)))
+        params = [p for net in nets.values() for p in net.parameters()]
+        with _no_tf32("f32"), _pinned_cudnn():
+            loss, terms = loss_fn()
+            opt = tp.ClippedAdam(params, lr=3e-4)
+            before = to_flax(lambda m: {n: p.detach().clone() for n, p in m.named_parameters()})
+            loss.backward()
+            grads = to_flax(lambda m: {n: p.grad.clone() for n, p in m.named_parameters()})
+            norm = opt.clip()
+            opt.adam.step()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        after = to_flax(lambda m: {n: p.detach() for n, p in m.named_parameters()})
+        term_gap = {k: abs(float(v.detach()) - float(z[f"{mode}/term/{k}"]))
+                    / max(abs(float(z[f"{mode}/term/{k}"])), 1e-30) for k, v in terms.items()}
+        _require(set(term_gap) == {k[len(f"{mode}/term/"):] for k in z.files
+                                   if k.startswith(f"{mode}/term/")},
+                 f"train {mode}: the loss has other terms than the JAX step's")
+        gaps = _leaf_gaps(z, mode, grads, before, after, opt.adam.defaults["lr"])
+        worst = {k: max(v[k] for v in gaps.values())
+                 for k in ("norm", "grad", "update", "flip_ratio", "dead_grad", "dead_update")}
+        worst_leaf = {k: max(gaps, key=lambda leaf: gaps[leaf][k]) for k in worst}
+        total = {k: sum(v[k] for v in gaps.values())
+                 for k in ("left_out", "left_out_floor", "flips", "moved")}
+        stored = sum(len(z[f"{mode}/leaf/{k}/idx"]) for k in gaps)
+        report[mode] = dict(terms=max(term_gap.values()), grad_norm=float(norm),
+                            leaves=len(gaps), stored=stored, **worst, **total)
+        print(f"train step {mode} against the stored JAX step (f32, TF32 off, cuDNN "
+              f"deterministic): loss {float(loss.detach()):.6f} (JAX "
+              f"{float(z[f'{mode}/loss']):.6f}); worst term gap {report[mode]['terms']:.2e} (gate "
+              f"{g['term']}); over {len(gaps)} leaves worst gradient gap {worst['grad']:.2e} "
+              f"({worst_leaf['grad']}), norm gap {worst['norm']:.2e} (gate {g['grad']}); worst "
+              f"update gap {worst['update']:.2e} ({worst_leaf['update']}, gate {g['update']}) "
+              f"over the stored entries whose JAX gradient is nonzero: {total['left_out']} of "
+              f"{stored} left out ({total['left_out_floor']} under 1e-3 of the rms), "
+              f"{total['flips']} sign flips kept (largest |g|/rms "
+              f"{worst['flip_ratio']:.2e}); where JAX's gradient is 0 the port's is at most "
+              f"{worst['dead_grad']:.2e} of its rms ({worst_leaf['dead_grad']}, gate "
+              f"{g['dead_grad']}), "
+              f"{total['moved']} moved, by at most {worst['dead_update']:.3f} lr; global "
+              f"gradient norm {float(norm):.4f}")
+        checks = [
+            (all(v <= g["term"] for v in term_gap.values()),
+             f"loss terms {term_gap} beyond {g['term']} relative"),
+            (worst["norm"] <= g["grad"] and worst["grad"] <= g["grad"],
+             f"gradient of {worst_leaf['grad']} / norm of {worst_leaf['norm']} "
+             f"{worst['grad']:.3e} / {worst['norm']:.3e} beyond {g['grad']}"),
+            (worst["update"] <= g["update"],
+             f"clipped-Adam update of {worst_leaf['update']} {worst['update']:.3e} beyond "
+             f"{g['update']}"),
+            (worst["dead_grad"] <= g["dead_grad"],
+             f"gradient of {worst_leaf['dead_grad']} {worst['dead_grad']:.3e} of its rms where "
+             f"JAX's is 0, beyond {g['dead_grad']}"),
+            (worst["dead_update"] <= 1.0,
+             f"{worst_leaf['dead_update']} moved by {worst['dead_update']:.3f} lr where JAX's "
+             f"gradient is 0")]
+        failed += [f"train {mode}: {msg}" for ok, msg in checks if not ok]
+    _require(not failed, "; ".join(failed))
+    return report
+
+
+@contextlib.contextmanager
+def _pinned_cudnn():
+    """cuDNN's deterministic algorithms, no autotuning, while the stored
+    step is compared; restored after."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def phase_train(dev):
+    """Detector training on the card: kernel B+T′, one step of each mode
+    against the stored JAX step, then the training CLI in its three modes
+    at full width. Returns (the kernel record, the launch counts of the
+    ``plnet`` CLI run, launches per step)."""
+    import torch
+
+    from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu_torch.models import weights as wio
+
+    t_phase = time.perf_counter()
+    record = phase_kernel_loi_backward(dev)
+    train_oracle_steps(dev)
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import train_plnet_torch
+
+    counted = _counted()
+    frames, _ = oracle_pairs()
+    steps, batch = TRAIN_CLI["steps"], TRAIN_CLI["batch"]
+    runs = {}
+    for mode, flags in TRAIN_MODES.items():
+        out = os.path.join(train_plnet_torch.DEFAULT_OUT, f"smoke_{mode}")
+        for fn in counted.values():
+            fn.launches = 0
+        rec = train_plnet_torch.main(flags + ["--steps", str(steps), "--batch", str(batch),
+                                              "--device", "cuda", "--out", out,
+                                              "--log_every", "5"])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        losses = np.asarray(rec["losses"])
+        _require(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+                 f"train CLI {mode}: losses {losses}")
+        _require(losses[-5:].mean() < losses[:5].mean(),
+                 f"train CLI {mode}: the last 5 steps' mean loss {losses[-5:].mean():.4f} is not "
+                 f"below the first 5's {losses[:5].mean():.4f}")
+        on_path = 1 if mode == "plnet" else 0
+        want = {k: 0 for k in counted}
+        want["loi_features"] = want["loi_features_backward"] = on_path * steps
+        _require(launches == want, f"train CLI {mode}: launched {launches}, not {want}")
+        # the written checkpoint in the port's detector, on a stored pair
+        os.environ["AIRSLAM_CHECKPOINT_DIR"] = out
+        try:
+            det = FeatureDetector(DetectorConfig(use_superpoint=mode != "plnet"), device=dev)
+            tree = wio.load_npz(rec["ckpt"])
+            net = det.plnet if mode == "plnet" else det.superpoint
+            sd = (wio.plnet_from_flax(tree["plnet"]) if mode == "plnet"
+                  else wio.superpoint_from_flax(tree))
+            _require(all(torch.equal(net.state_dict()[k].cpu(), v) for k, v in sd.items()),
+                     f"train CLI {mode}: the detector did not load the written checkpoint")
+            f = det.detect(frames[0])
+        finally:
+            del os.environ["AIRSLAM_CHECKPOINT_DIR"]
+        _require(all(bool(torch.isfinite(t.float()).all()) for t in f),
+                 f"train CLI {mode}: the reloaded detector gave non-finite features")
+        ms = rec["steady_ms"]
+        runs[mode] = dict(launches=launches, ms=ms)
+        print(f"train CLI {mode} (apps/train_plnet_torch.py, {steps} steps, batch {batch}, 512², "
+              f"fresh init{' + the shipped plnet_s0 frozen' if mode == 'distill' else ''}): "
+              f"loss first 5 {losses[:5].mean():.4f} -> last 5 {losses[-5:].mean():.4f}; "
+              f"first step {rec['first_step_s']:.2f} s; {ms:.1f} ms per step after it, "
+              f"{2 * batch * 1e3 / ms:.1f} images/s; launches {launches}; the checkpoint "
+              f"reloads into FeatureDetector and detects a stored pair")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    plnet_launches = runs["plnet"]["launches"]
+    return record, plnet_launches, {k: v // steps for k, v in plnet_launches.items()}
+
+
 def _pose_work(problem, rounds, iters):
     """(bytes, f32 operations, dependent reductions) of one solve: every
     operand read once and every result written once; the operations the
@@ -1477,13 +1936,14 @@ def phase_kernel_f(dev):
 
 
 def _counted():
-    """The six kernel wrappers, by the name their record carries."""
+    """The seven kernel wrappers, by the name their record carries."""
     from airslam_tpu_torch.backend import pose_gn
     from airslam_tpu_torch.ops import attention, bilerp, remap as remap_mod
 
     return {fn.__name__: fn for fn in (remap_mod.remap, bilerp.bilerp_points,
                                        bilerp.bilerp_points_t, bilerp.loi_features,
-                                       pose_gn.pose_only_fast, attention.flash_mha)}
+                                       pose_gn.pose_only_fast, attention.flash_mha,
+                                       bilerp.loi_features_backward)}
 
 
 def _run_vo(builder, frames, rec, timed_ba=None):
@@ -2366,7 +2826,7 @@ def phase_reloc(dev):
     n_match, n_refine = len(stages["match"]), len(stages["refine"])
     want_launches = {"remap": 0, "bilerp_points": 0, "bilerp_points_t": 0,
                      "loi_features": len(records), "flash_mha": 36 * n_match,
-                     "pose_only_fast": n_refine}
+                     "pose_only_fast": n_refine, "loi_features_backward": 0}
     _require(launches == want_launches and n_refine > 0 and n_match >= len(records),
              f"reloc CLI: launches {launches}, expected {want_launches}")
     per_query = [r[4] for r in records]
@@ -2654,7 +3114,7 @@ def main() -> int:
                  "p": lambda: phase_kernel_p(dev),
                  "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev),
                  "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev),
-                 "reloc": lambda: phase_reloc(dev)}
+                 "reloc": lambda: phase_reloc(dev), "train": lambda: phase_train(dev)}
         for name in short:
             if name in only:
                 short[name]()
@@ -2679,6 +3139,8 @@ def main() -> int:
     vi_launches = phase_vio(dev)
     refine_launches, refine_p_ms = phase_refine(dev)
     reloc_launches = phase_reloc(dev)
+    # the detector trainer: every count set to 0 before each CLI run
+    train_record, train_launches, train_per_step = phase_train(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_vi_frame"] = vi_launches[k["name"]]
@@ -2688,10 +3150,19 @@ def main() -> int:
             k["refine_ms"] = refine_p_ms
         if k["name"] in ("bilerp_points", "bilerp_points_t"):
             k["on_path"] = f"inside loi_features ({launches['loi_features']} per tracked frame)"
+    # kernel B+T' runs on the training path only: its launches are the
+    # plnet CLI run's
+    kernels.append(dict(train_record, launches=train_launches["loi_features_backward"],
+                        launches_vi_frame=vi_launches["loi_features_backward"],
+                        launches_refine=refine_launches["loi_features_backward"],
+                        launches_reloc=reloc_launches["loi_features_backward"],
+                        on_path=f"training ({TRAIN_CLI['steps']} plnet steps)"))
+    for k in kernels:
+        k["launches_train_step"] = train_per_step[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame",
-            "launches_refine", "launches_reloc", "refine_ms")
+            "launches_refine", "launches_reloc", "launches_train_step", "refine_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

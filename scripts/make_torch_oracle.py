@@ -111,7 +111,21 @@ JAX ``PointMatcher(matcher=1)`` (``superglue.npz``, Sinkhorn 20) on them: the
 pixel coordinates of each accepted match (kp0 xy, kp1 xy) and its score,
 which ``scripts/verify_tpu.py``'s SuperGlue gates compare.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc]
+Train oracle
+------------
+One step of each mode of the JAX detector trainer
+(``airslam_tpu/parallel/train_plnet.py``) from the shipped checkpoints,
+batch 1, float32: for ``plnet`` the pair of PRNGKey 0's ``kd`` (augment 1)
+and the LOI draws of its ``kl``; for ``superpoint`` and ``distill`` the pair
+of PRNGKey 1. ``tests/data/torch_train_oracle.npz`` keeps the rendered pairs
+(images rounded to 16 bits, on which both packages compute), their corners,
+segments and masks, view 0's targets, the LOI draws, the loss terms, and per
+parameter leaf the gradient's norm and its values and the one-step
+clipped-Adam update's (lr 3e-4) at 256 fixed indices. The ``jax_*_draws``
+functions rebuild every draw of the trainer from a key, by the port's names,
+for the CPU tests.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -140,6 +154,9 @@ OUT_VO = os.path.join(REPO, "tests", "data", "torch_vo_oracle.npz")
 OUT_VIO = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 OUT_REFINE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 OUT_RELOC = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
+OUT_TRAIN = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
+TRAIN_SEEDS = {"plnet": 0, "superpoint": 1}  # PRNGKey of each mode's pair (distill: superpoint's)
+LEAF_SAMPLES = 256  # gradient / update values kept per leaf (every value of a smaller leaf)
 RELOC_FRAMES = 40  # apps/make_synth_dataset.py --frames (stride 2, loop, 10 hard queries)
 N_RELOC_FEATS = 2  # queries whose JAX detector features are kept
 FEATURE_FIELDS = ("keypoints", "kp_scores", "kp_desc", "kp_mask", "lines", "line_scores",
@@ -865,6 +882,294 @@ def write_reloc_oracle():
     print(f"oracle written: {OUT_RELOC} ({os.path.getsize(OUT_RELOC)} bytes)")
 
 
+# ---------------------------------------------------------------------------
+# detector training: the JAX draws of airslam_tpu/frontend/synthgen.py and
+# parallel/train_plnet.py rebuilt from a key, stage by stage, as the port's
+# draw functions name them (airslam_tpu_torch/frontend/synthgen.py)
+# ---------------------------------------------------------------------------
+
+
+def jax_shape_draws(key, size=512):
+    """The draws of ``synthgen.sample_shapes(key, size)``."""
+    import jax
+    import jax.numpy as jnp
+
+    from airslam_tpu.frontend import synthgen as sg
+
+    u = jax.random.uniform
+    ks = jax.random.split(key, 12)
+    m = 24.0
+    d = {"p1": u(ks[0], (sg.N_SEG, 2), minval=m, maxval=size - m),
+         "p2": u(ks[1], (sg.N_SEG, 2), minval=m, maxval=size - m)}
+    for name, k, n, nv, lo, hi in (("tri", ks[2], sg.N_TRI, 3, 40.0, 110.0),
+                                   ("quad", ks[3], sg.N_QUAD, 4, 50.0, 130.0)):
+        parts = {"center": [], "base": [], "jitter": [], "radius": []}
+        for i in range(n):
+            kc, kr, ka = jax.random.split(jax.random.fold_in(k, i), 3)
+            parts["center"].append(u(kc, (2,), minval=size * 0.2, maxval=size * 0.8))
+            parts["base"].append(u(ka, (), minval=0.0, maxval=6.28))
+            parts["jitter"].append(u(kr, (nv,), minval=-0.35, maxval=0.35))
+            parts["radius"].append(u(jax.random.fold_in(kr, 1), (nv,), minval=lo, maxval=hi))
+        for p, vals in parts.items():
+            d[f"{name}_{p}"] = jnp.stack(vals)
+    d["fill_shade"] = u(ks[4], (sg.N_TRI + sg.N_QUAD,), minval=-0.45, maxval=0.45)
+    d["stroke"] = u(ks[5], (sg.MAX_SEGMENTS,), minval=-0.5, maxval=0.5)
+    k6, k7, k8, k9 = jax.random.split(ks[6], 4)
+    d["checker_on"] = u(k6, ())
+    d["pitch"] = u(k7, (), minval=44.0, maxval=80.0)
+    d["origin"] = u(k8, (2,), minval=-80.0, maxval=0.0)
+    d["delta"] = u(k9, (), minval=0.10, maxval=0.30)
+    d["delta_sign"] = u(jax.random.fold_in(k9, 1), ())
+    return d
+
+
+def jax_affine_draws(key, max_rot=0.35, scale_range=(0.85, 1.15), max_shift=40.0):
+    """The draws of ``synthgen.random_affine(key, ...)``."""
+    import jax
+
+    k1, k2, k3 = jax.random.split(key, 3)
+    u = jax.random.uniform
+    return {"theta": u(k1, (), minval=-max_rot, maxval=max_rot),
+            "scale": u(k2, (), minval=scale_range[0], maxval=scale_range[1]),
+            "shift": u(k3, (2,), minval=-max_shift, maxval=max_shift)}
+
+
+def jax_render_draws(key, size=512):
+    """The draws of ``synthgen.render_from_shapes(key, shapes, size)``."""
+    import jax
+
+    ks = jax.random.split(key, 4)
+    u = jax.random.uniform
+    return {"bg": u(ks[0], (4, 4), minval=0.35, maxval=0.85),
+            "bg_noise": u(ks[1], (32, 32), minval=-0.04, maxval=0.04),
+            "noise": jax.random.normal(ks[2], (size, size))}
+
+
+def jax_augment_draws(key, size=512):
+    """The draws of ``synthgen.photometric_augment(key, img, strength)``;
+    the draws whose bounds scale with the strength stay in [0, 1)."""
+    import jax
+
+    ks = jax.random.split(key, 9)
+    u = jax.random.uniform
+    return {"strength": u(ks[8], (), minval=0.15, maxval=1.0), "brightness": u(ks[0], ()),
+            "gamma": u(ks[1], ()), "contrast": u(ks[2], ()),
+            "center": u(ks[3], (2,), minval=0.3, maxval=0.7), "vignette": u(ks[4], ()),
+            "gradient_dir": jax.random.normal(ks[5], (2,)), "gradient": u(ks[6], ()),
+            "noise": jax.random.normal(ks[7], (size, size))}
+
+
+def jax_scene_draws(key, size=512, augment=0.0):
+    """The draws of ``synthgen.render_scene(key, size, augment)``, by stage."""
+    import jax
+
+    k1, k2 = jax.random.split(key)
+    d = {"shapes": jax_shape_draws(k1, size), "render": jax_render_draws(k2, size)}
+    if augment > 0:
+        d["augment"] = jax_augment_draws(jax.random.fold_in(key, 17), size)
+    return d
+
+
+def jax_pair_draws(key, size=512, augment=0.0):
+    """The draws of ``synthgen.render_pair_with_affine(key, size, augment)``."""
+    import jax
+
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    d = {"shapes": jax_shape_draws(k1, size), "affine": jax_affine_draws(k2),
+         "render0": jax_render_draws(k3, size), "render1": jax_render_draws(k4, size)}
+    if augment > 0:
+        d["augment0"] = jax_augment_draws(jax.random.fold_in(key, 18), size)
+        d["augment1"] = jax_augment_draws(jax.random.fold_in(key, 19), size)
+    return d
+
+
+def jax_loi_draws(key):
+    """The draws of ``train_plnet.detector_loss``'s LOI branch."""
+    import jax
+
+    from airslam_tpu.frontend import synthgen as sg
+    from airslam_tpu.parallel import train_plnet as tp
+
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    s, n = sg.MAX_SEGMENTS, 2 * tp.NEG_PAIRS
+    u = jax.random.uniform
+    return {"pos_jitter": u(k1, (s, 4), minval=-0.4, maxval=0.4),
+            "i": jax.random.randint(k2, (n,), 0, sg.MAX_CORNERS),
+            "j": jax.random.randint(k3, (n,), 0, sg.MAX_CORNERS),
+            "prop_jitter": u(k4, (s + n, 4), minval=-2.0, maxval=2.0)}
+
+
+def batch_draws(draws_list):
+    """Stack per-key draws (nested dicts of arrays) into numpy batches."""
+    first = draws_list[0]
+    if isinstance(first, dict):
+        return {k: batch_draws([d[k] for d in draws_list]) for k in first}
+    return np.stack([np.asarray(d) for d in draws_list])
+
+
+def jax_plnet_terms(params, s0, s1, kl):
+    """The JAX trainer's per-image PLNet loss (``make_plnet_train_step``'s
+    ``loss_fn``, train_plnet.py:225-250) on given scenes: (total, terms)."""
+    import jax
+    import jax.numpy as jnp
+
+    from airslam_tpu.models.plnet import LoiHeadS1, PLNet
+    from airslam_tpu.parallel import train_plnet as tp
+
+    imgs = jnp.stack([s0.image, s1.image])[..., None]
+    out = PLNet().apply(params["plnet"], imgs)
+    out0 = jax.tree_util.tree_map(lambda t: t[0], out)
+    out1 = jax.tree_util.tree_map(lambda t: t[1], out)
+    terms = tp.detector_loss(out0, tp.scene_targets(s0), kl, loi_apply=LoiHeadS1().apply,
+                             loi_params=params["loi"], scene=s0)
+    terms["desc"] = tp.descriptor_loss(out0["descriptors"], out1["descriptors"], s0, s1)
+    return sum(tp.WEIGHTS[k] * v for k, v in terms.items()), terms
+
+
+def jax_superpoint_terms(params, s0, s1):
+    """``make_superpoint_train_step``'s ``loss_fn`` on given scenes."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from airslam_tpu.models.superpoint import SuperPoint
+    from airslam_tpu.parallel import train_plnet as tp
+
+    out = SuperPoint().apply(params, jnp.stack([s0.image, s1.image])[..., None])
+    ce = optax.softmax_cross_entropy_with_integer_labels(
+        out["kp_logits"][0], tp.scene_targets(s0).kp_label).mean()
+    dl = tp.descriptor_loss(out["descriptors"][0], out["descriptors"][1], s0, s1)
+    return ce + dl, {"kp": ce, "desc": dl}
+
+
+def jax_distill_terms(params, plnet_params, s0, s1):
+    """``make_superpoint_distill_step``'s ``loss_fn`` on given scenes."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from airslam_tpu.models.plnet import PLNet
+    from airslam_tpu.models.superpoint import SuperPoint
+    from airslam_tpu.ops.gridsample import sample_descriptors
+    from airslam_tpu.parallel import train_plnet as tp
+
+    imgs = jnp.stack([s0.image, s1.image])[..., None]
+    out = SuperPoint().apply(params, imgs)
+    ce = optax.softmax_cross_entropy_with_integer_labels(
+        out["kp_logits"][0], tp.scene_targets(s0).kp_label).mean()
+    pl = jax.lax.stop_gradient(PLNet().apply(plnet_params, imgs)["descriptors"])
+    dist = 0.0
+    for v, s in ((0, s0), (1, s1)):
+        dsp = sample_descriptors(out["descriptors"][v].transpose(2, 0, 1), s.corners, stride=8)
+        dpl = sample_descriptors(pl[v].transpose(2, 0, 1), s.corners, stride=8)
+        cos = jnp.sum(dsp * dpl, axis=-1)
+        m = s.corner_mask
+        dist = dist + jnp.sum(jnp.where(m, 1.0 - cos, 0.0)) / jnp.maximum(jnp.sum(m), 1.0)
+    dist = dist * 0.5
+    return ce + 4.0 * dist, {"kp": ce, "distill": dist}
+
+
+def jax_adam_step(params, grads, lr=3e-4):
+    """The JAX CLI's optimizer (``apps/train_plnet.py:62``), one step from a
+    fresh state: the updated params."""
+    import optax
+
+    tx = optax.chain(optax.clip_by_global_norm(5.0), optax.adam(lr))
+    updates, _ = tx.update(grads, tx.init(params), params)
+    return optax.apply_updates(params, updates)
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays as {"a/b/c": array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def quantized(scene):
+    """The scene with its image rounded to 16 bits (as stored) and decoded
+    to float32: what both packages are given."""
+    q = np.round(np.asarray(scene.image, np.float64) * 65535).astype(np.uint16)
+    return scene._replace(image=q.astype(np.float32) / np.float32(65535)), q
+
+
+def _record_step(blob, mode, loss, terms, grads, params, new):
+    """Loss terms, per-leaf gradient norms, and gradient and update values
+    at LEAF_SAMPLES fixed indices per leaf (every value of a smaller leaf)."""
+    blob[f"{mode}/loss"] = np.float32(loss)
+    for k, v in terms.items():
+        blob[f"{mode}/term/{k}"] = np.float32(v)
+    g, p, n = flat_tree(grads), flat_tree(params), flat_tree(new)
+    for i, leaf in enumerate(sorted(g)):
+        flat = g[leaf].reshape(-1)
+        if flat.size <= LEAF_SAMPLES:
+            idx = np.arange(flat.size)
+        else:
+            idx = np.sort(np.random.RandomState(i).choice(flat.size, LEAF_SAMPLES, replace=False))
+        blob[f"{mode}/leaf/{leaf}/norm"] = np.float64(np.linalg.norm(flat.astype(np.float64)))
+        blob[f"{mode}/leaf/{leaf}/idx"] = idx.astype(np.int32)
+        blob[f"{mode}/leaf/{leaf}/grad"] = flat[idx]
+        blob[f"{mode}/leaf/{leaf}/update"] = (n[leaf].reshape(-1) - p[leaf].reshape(-1))[idx]
+
+
+def write_train_oracle():
+    """One train step of each mode of the JAX detector trainer from the
+    shipped checkpoints, batch 1, float32: the JAX-rendered pair (images
+    rounded to 16 bits), its scenes, view 0's targets, the LOI draws, the
+    loss terms, and per leaf the gradient's norm and its values and the
+    clipped-Adam update's at fixed indices. The losses are the trainer's
+    ``loss_fn`` on the stored images (``jax_*_terms``); the trainer's own
+    jitted step renders inside the program, which XLA rounds otherwise."""
+    import jax
+
+    from airslam_tpu.frontend import synthgen as JS
+    from airslam_tpu.models import weights as jw
+    from airslam_tpu.parallel import train_plnet as tp
+
+    blob = {}
+    plnet_params = jw.load_params(os.path.join(REPO, "airslam_tpu", "checkpoints", "plnet_s0.npz"))
+    sp_params = jw.load_params(os.path.join(REPO, "airslam_tpu", "checkpoints", "superpoint.npz"))
+
+    def store_pair(prefix, s0, s1):
+        (s0, q0), (s1, q1) = quantized(s0), quantized(s1)
+        blob[f"{prefix}/image"] = np.stack([q0, q1])
+        for f in ("corners", "corner_mask", "segments", "segment_mask"):
+            blob[f"{prefix}/{f}"] = np.stack([np.asarray(getattr(s, f)) for s in (s0, s1)])
+        return s0, s1
+
+    def grad_step(fn, params):
+        (loss, terms), grads = jax.jit(jax.value_and_grad(fn, has_aux=True))(params)
+        return loss, terms, grads, jax_adam_step(params, grads)
+
+    t0 = time.time()
+    kd, kl = jax.random.split(jax.random.PRNGKey(TRAIN_SEEDS["plnet"]))
+    s0, s1 = store_pair("plnet", *JS.render_pair(kd, augment=1.0))
+    for f, v in tp.scene_targets(s0)._asdict().items():
+        blob[f"plnet/target/{f}"] = np.asarray(v)
+    for k, v in jax_loi_draws(kl).items():
+        blob[f"plnet/loi/{k}"] = np.asarray(v)
+    loss, terms, grads, new = grad_step(lambda p: jax_plnet_terms(p, s0, s1, kl), plnet_params)
+    _record_step(blob, "plnet", loss, terms, grads, plnet_params, new)
+    print(f"plnet step: loss {float(loss):.6f} ({time.time() - t0:.0f} s)")
+
+    s0, s1 = store_pair("superpoint", *JS.render_pair(
+        jax.random.PRNGKey(TRAIN_SEEDS["superpoint"]), augment=1.0))
+    blob["superpoint/target/kp_label"] = np.asarray(tp.scene_targets(s0).kp_label)
+    loss, terms, grads, new = grad_step(lambda p: jax_superpoint_terms(p, s0, s1), sp_params)
+    _record_step(blob, "superpoint", loss, terms, grads, sp_params, new)
+    print(f"superpoint step: loss {float(loss):.6f} ({time.time() - t0:.0f} s)")
+    loss, terms, grads, new = grad_step(
+        lambda p: jax_distill_terms(p, plnet_params["plnet"], s0, s1), sp_params)
+    _record_step(blob, "distill", loss, terms, grads, sp_params, new)
+    print(f"distill step: loss {float(loss):.6f} ({time.time() - t0:.0f} s)")
+    np.savez_compressed(OUT_TRAIN, **blob)
+    print(f"oracle written: {OUT_TRAIN} ({os.path.getsize(OUT_TRAIN)} bytes)")
+
+
 def main():
     import jax
 
@@ -881,6 +1186,10 @@ def main():
         write_vio_oracle()
     if which in ("all", "refine"):
         write_refine_oracle()
+    if which in ("all", "train"):
+        # float32, as the JAX trainer runs (apps/train_plnet.py enables no x64)
+        with jax.enable_x64(False):
+            write_train_oracle()
     if which in ("all", "reloc"):
         # float32, as the JAX CLIs run (they enable no x64)
         jax.config.update("jax_enable_x64", False)

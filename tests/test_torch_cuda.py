@@ -1,7 +1,7 @@
-"""The port's CUDA kernels (R, B, T, loi_features, P, F) against their plain
-PyTorch versions, the stereo-inertial solves (plain PyTorch) in float32
-on the card against float64 on the CPU, and the device RANSAC PnP on the
-card against the CPU.
+"""The port's CUDA kernels (R, B, T, loi_features and its backward B+T′, P,
+F) against their plain PyTorch versions, the stereo-inertial solves (plain
+PyTorch) in float32 on the card against float64 on the CPU, and the device
+RANSAC PnP on the card against the CPU.
 
 The kernel tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 without one. Where JAX (which ``tests/conftest.py`` imports) is not
@@ -658,3 +658,57 @@ def test_device_pnp_on_the_card(dev, name):
         for a, b in zip(on_card[:2], on_cpu[:2]):
             assert float((a.cpu() - b).abs().max()) <= 1e-6
         assert torch.equal(on_card[2].cpu(), on_cpu[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["train", "vo", "one_view", "one_line"])
+def test_loi_backward_kernel_equals_autograd_through_plain(dev, shape):
+    """Kernel B+T′ against autograd through ``loi_features_plain`` (map
+    gradients within 1e-5 of the largest |gradient|, the ramps' within 1e-4
+    of theirs: atomics sum in another order), and the autograd function
+    behind ``loi_features`` gives the plain forward's rows (f32 maps and
+    output: within 1e-5, ``chip_smoke.loi_gate``) and the kernel's
+    gradients, and counts one forward and one backward launch."""
+    rng = np.random.RandomState(len(shape))
+    ops = {"train": lambda: chip_smoke.train_loi_inputs(rng, 8, dev),
+           "vo": lambda: chip_smoke.loi_inputs(rng, 2, 512, 300, torch.float32, dev),
+           "one_view": lambda: chip_smoke.train_loi_inputs(rng, 1, dev),
+           "one_line": lambda: chip_smoke.train_loi_inputs(rng, 3, dev, n_lines=1)}[shape]()
+    v, n = ops[5].shape[:2]
+    grad = torch.as_tensor(rng.randn(v, n, 496).astype(np.float32), device=dev)
+    got = bilerp.loi_features_backward(grad, *ops)
+    want = bilerp.loi_features_backward_plain(grad, *ops)
+    for a, b, tol in zip(got, want, (1e-5,) * 3 + (1e-4,) * 2):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    leaves = [t.detach().clone().requires_grad_(True) for t in (ops[0], ops[1], ops[2], ops[7],
+                                                                ops[8])]
+    fwd, bwd = bilerp.loi_features.launches, bilerp.loi_features_backward.launches
+    out = bilerp.loi_features(leaves[0], leaves[1], leaves[2], *ops[3:7], leaves[3], leaves[4])
+    err, tol, ok = chip_smoke.loi_gate(
+        out.detach(), bilerp.loi_features_plain(*ops, out_dtype=torch.float32), ops[0])
+    assert ok, f"forward {err} > {tol}"
+    out.backward(grad)
+    assert (bilerp.loi_features.launches, bilerp.loi_features_backward.launches) == (fwd + 1,
+                                                                                     bwd + 1)
+    for leaf, g in zip(leaves, got):
+        torch.testing.assert_close(leaf.grad, g, rtol=0, atol=1e-4 * float(g.abs().max()))
+
+
+@pytest.mark.cuda
+def test_loi_backward_kernel_refusals(dev):
+    """bf16 maps and a wrongly shaped gradient raise."""
+    ops = chip_smoke.train_loi_inputs(np.random.RandomState(4), 2, dev)
+    grad = torch.randn(2, 165, 496, device=dev)
+    with pytest.raises(ValueError):
+        bilerp.loi_features_backward(grad, *(t.to(torch.bfloat16) for t in ops[:3]), *ops[3:])
+    with pytest.raises(ValueError):
+        bilerp.loi_features_backward(grad[:, :100].contiguous(), *ops)
+
+
+def test_loi_backward_refuses_non_cuda_devices():
+    """Runs anywhere: operands on neither the CPU nor a CUDA device raise
+    before any build, and never go down the plain path."""
+    ops = chip_smoke.train_loi_inputs(np.random.RandomState(9), 1, "cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        bilerp.loi_features_backward(torch.zeros(1, 165, 496, device="meta"),
+                                     *(t.to("meta") for t in ops))

@@ -66,8 +66,8 @@ def test_stem_and_score_pixel_orders():
 def test_plnet_heads_match_jax(s0):
     """Every PLNet output in f32 with the shipped weights at 256², atol 1e-4
     (conv sum order differs between XLA:CPU and oneDNN; line_pred, which is
-    scaled ×8 into 128-grid pixels, also gets rtol 1e-5). ``kp_logits`` is a
-    training output the port does not keep."""
+    scaled ×8 into 128-grid pixels, also gets rtol 1e-5). ``kp_logits``, the
+    training output, included."""
     rng = np.random.RandomState(2)
     img = rng.rand(1, 256, 256, 1).astype(np.float32)
     want = jplnet.PLNet().apply(s0["plnet"], jnp.asarray(img))
@@ -75,7 +75,7 @@ def test_plnet_heads_match_jax(s0):
     model.load_state_dict(wio.plnet_from_flax(s0["plnet"]))
     with torch.no_grad():
         got = model(_t(img).permute(0, 3, 1, 2))
-    assert set(got) == set(want) - {"kp_logits"}
+    assert set(got) == set(want)
     for k in got:
         w = np.asarray(want[k])
         assert got[k].shape == w.shape, k

@@ -144,7 +144,8 @@ def test_port_imports_no_jax():
              os.path.join(REPO, "scripts", "profile_torch_frontend.py"),
              os.path.join(REPO, "apps", "visual_odometry_torch.py"),
              os.path.join(REPO, "apps", "map_refinement_torch.py"),
-             os.path.join(REPO, "apps", "relocalization_torch.py")]
+             os.path.join(REPO, "apps", "relocalization_torch.py"),
+             os.path.join(REPO, "apps", "train_plnet_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "airslam_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     walked = {os.path.relpath(f, os.path.join(REPO, "airslam_tpu_torch")) for f in files}
@@ -157,7 +158,8 @@ def test_port_imports_no_jax():
                 "pipelines/map_builder.py", "entry.py", "utils/native.py",
                 "loopclosure/vocabulary.py", "loopclosure/database.py", "backend/global_ba.py",
                 "pipelines/map_refiner.py", "pipelines/map_user.py", "models/superglue.py",
-                "backend/pnp.py", "ops/match.py"):
+                "backend/pnp.py", "ops/match.py", "frontend/synthgen.py",
+                "parallel/train_plnet.py"):
         assert mod in walked, mod
     assert len(files) > 37
     for path in files:

@@ -14,8 +14,16 @@ a draw whose bounds depend on another draw is kept in [0, 1) and scaled in
 the arithmetic, as ``jax.random.uniform`` does), so a test can rebuild them
 from a JAX key and hand them to both packages.
 
-``World3D``, ``make_world3d`` and ``render_view3d`` are not ported yet
-(they render the sequences of ``apps/make_synth_dataset.py``).
+The 3D world of ``synthgen.py:421-569`` (``World3D``, ``make_world3d``,
+``render_view3d``) renders the stereo sequences of
+``apps/make_synth_dataset_torch.py`` and ``apps/benchmark_system_torch.py``,
+batched over views on the given device, with the same split: the world's,
+the texture's and the pixel noise's draws, then deterministic functions.
+
+The generator is PyTorch's (Philox on the card), not JAX's threefry, so the
+same seed gives another scene or world than the JAX package: one from the
+same distributions. A test that needs the JAX scene rebuilds its draws from
+the JAX key and hands them to the port.
 """
 
 from __future__ import annotations
@@ -417,9 +425,10 @@ def photometric_augment(img: torch.Tensor, d: Draws, strength: float = 1.0) -> t
     return torch.clamp(out, 0.0, 1.0)
 
 
-def dark_draws(gen: torch.Generator, batch: int, size: int = SIZE) -> Draws:
-    """The random tensor of :func:`dark_transform`: standard normal noise."""
-    return {"noise": _normal(gen, (batch, size, size))}
+def dark_draws(gen: torch.Generator, batch: int, size: int = SIZE, width: int = None) -> Draws:
+    """The random tensor of :func:`dark_transform`: standard normal noise
+    over (batch, size, width or size) pixels."""
+    return {"noise": _normal(gen, (batch, size, width or size))}
 
 
 def dark_transform(img: torch.Tensor, d: Draws, level: float = 0.25, gamma: float = 1.8,
@@ -490,3 +499,175 @@ def render_batch(gen: torch.Generator, batch: int, size: int = SIZE) -> Scene:
 
 def render_pair_batch(gen: torch.Generator, batch: int, size: int = SIZE):
     return render_pair(pair_draws(gen, batch, size), size)
+
+
+# ---------------------------------------------------------------------------
+# the 3D world → camera images (synthgen.py:421-569): the EuRoC stand-in of
+# the rendered sequences, with multi-view geometry the SLAM chain can track
+# ---------------------------------------------------------------------------
+
+WORLD_EXTENT = ((-4.0, 4.0), (-2.5, 2.5), (2.0, 20.0))  # x, y, z ranges of the corridor
+TEXTURE_OCTAVES = 5
+TEXTURE_PLANES = 2  # the floor, then the back wall
+
+
+class World3D(NamedTuple):
+    segments: torch.Tensor  # (S, 2, 3) segment endpoints in the world
+    seg_shade: torch.Tensor  # (S,)
+    blobs: torch.Tensor  # (B, 3) dot features
+    blob_shade: torch.Tensor  # (B,)
+
+
+def world3d_draws(gen: torch.Generator, n_seg: int = 48, n_blob: int = 320) -> Draws:
+    """The random tensors of :func:`make_world3d`: uniforms in [0, 1) for the
+    positions (scaled to the extent in the arithmetic) and the shade signs,
+    the lengths and shade magnitudes in their ranges, normals for the
+    directions, and the axis each segment is squashed along."""
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=gen.device)
+
+    return {"seg_a": u(n_seg, 3), "seg_dir": _normal(gen, (n_seg, 3)),
+            "seg_axis": torch.randint(0, 3, (n_seg,), generator=gen, device=gen.device),
+            "seg_length": _uniform(gen, (n_seg, 1), 0.8, 3.0),
+            "seg_shade": _uniform(gen, (n_seg,), 0.25, 0.55), "seg_sign": u(n_seg),
+            "blobs": u(n_blob, 3), "blob_shade": _uniform(gen, (n_blob,), 0.3, 0.6),
+            "blob_sign": u(n_blob)}
+
+
+def make_world3d(d: Draws, extent=WORLD_EXTENT) -> World3D:
+    """Random wireframe-and-dots corridor (synthgen.py:433-466). Segments
+    hug axis-aligned planes, so many are straight edges the detector finds;
+    blobs give the point detector texture everywhere."""
+    (x0, x1), (y0, y1), (z0, z1) = extent
+
+    def upts(u):
+        return torch.stack([x0 + u[:, 0] * (x1 - x0), y0 + u[:, 1] * (y1 - y0),
+                            z0 + u[:, 2] * (z1 - z0)], -1)
+
+    def signed(shade, sign):
+        return shade * torch.where(sign > 0.5, 1.0, -1.0)
+
+    a = upts(d["seg_a"])
+    # squash one axis so that segments lie roughly in planes
+    squash = F.one_hot(d["seg_axis"].long(), 3).to(a.dtype)
+    v = d["seg_dir"] * (1.0 - squash * 0.95)
+    # |v| with XLA's arithmetic: one fused multiply-add per further term
+    norm = torch.sqrt(_fma(v[:, 2], v[:, 2], _fma(v[:, 1], v[:, 1], v[:, 0] * v[:, 0])))
+    v = v / (norm[:, None] + 1e-9)
+    b = a + v * d["seg_length"]
+    return World3D(torch.stack([a, b], dim=1), signed(d["seg_shade"], d["seg_sign"]),
+                   upts(d["blobs"]), signed(d["blob_shade"], d["blob_sign"]))
+
+
+def texture_draws(gen: torch.Generator) -> Draws:
+    """The angles of :func:`_octave_noise` on each textured plane: (planes,
+    octaves, 3) in [0, 6.28318)."""
+    return {"theta": _uniform(gen, (TEXTURE_PLANES, TEXTURE_OCTAVES, 3), 0.0, 6.28318)}
+
+
+def view_noise_draws(gen: torch.Generator, n: int, height: int, width: int) -> Draws:
+    """The per-pixel sensor noise of :func:`render_view3d` for ``n`` views."""
+    return {"noise": _normal(gen, (n, height, width))}
+
+
+def _octave_noise(u, v, theta, amp: float = 1.0):
+    """Smooth 1/f texture over surface coordinates (u, v) (synthgen.py:469-485):
+    summed directional sinusoids, one orientation and phase per octave
+    (``theta`` (octaves, 3)). A function of the surface point, so the texture
+    is consistent across views."""
+    out = torch.zeros_like(u)
+    for k in range(theta.shape[0]):
+        th = theta[k]
+        f = (1.4 ** k) * 2.2
+        d = u * torch.cos(th[0]) + v * torch.sin(th[0])
+        e = u * torch.cos(th[1] + 1.7) + v * torch.sin(th[1] + 1.7)
+        out = out + (amp / (1.35 ** k)) * torch.sin(f * d + th[2]) * torch.cos(0.73 * f * e + th[1])
+    return out
+
+
+def _project(p3, Rcw, tcw, fx, fy, cx, cy):
+    """World points (S, 3) into N views: pixels (N, S, 2) and depth (N, S)."""
+    pc = torch.einsum("sk,njk->nsj", p3, Rcw) + tcw[:, None, :]
+    z = torch.clamp_min(pc[..., 2], 0.2)
+    return torch.stack([fx * pc[..., 0] / z + cx, fy * pc[..., 1] / z + cy], -1), pc[..., 2]
+
+
+def render_view3d(world: World3D, Rcw, tcw, fx, fy, cx, cy, height: int, width: int,
+                  noise=None, texture: float = 0.0, texture_theta=None,
+                  floor_y: float = 2.8, wall_z: float = 20.5) -> torch.Tensor:
+    """Rasterize the world into N grayscale views (N, H, W) in [0, 1]
+    (synthgen.py:488-569), on the world's device. ``Rcw`` (N, 3, 3), ``tcw``
+    (N, 3): each view's world-to-camera pose.
+
+    Segments are drawn as anti-aliased strokes when both ends lie in front
+    of the camera (8 at a time), blobs as small gaussians (32 at a time).
+    ``texture > 0`` adds 1/f texture (``texture_theta``, from
+    :func:`texture_draws`) on two planes of the world, the floor at
+    y = ``floor_y`` and the back wall at z = ``wall_z``: each pixel's ray is
+    intersected with them and the texture sampled at the hit point, so it
+    moves with parallax across views. ``texture = 0`` keeps the flat shading
+    of the earlier renders. ``noise`` (N, H, W), standard normal: per-pixel
+    sensor noise of 0.01."""
+    n = Rcw.shape[0]
+    dt = world.segments.dtype
+    px = torch.arange(width, dtype=dt, device=Rcw.device)[None, None, :] + 0.5
+    py = torch.arange(height, dtype=dt, device=Rcw.device)[None, :, None] + 0.5
+
+    img = torch.full((n, height, width), 0.55, dtype=dt, device=Rcw.device)
+    if texture > 0.0:
+        if texture_theta is None:
+            raise ValueError("texture > 0 needs the texture's draws (texture_draws)")
+        # the world-frame ray through each pixel and the camera centre
+        dx = ((px - cx) / fx).expand(1, height, width)
+        dy = ((py - cy) / fy).expand(1, height, width)
+        d_cam = torch.stack([dx, dy, torch.ones_like(dx)], -1)  # (1, H, W, 3)
+        d_w = torch.einsum("nhwk,nkj->nhwj", d_cam.expand(n, -1, -1, -1), Rcw)  # Rcw^T per pixel
+        C = -torch.einsum("nkj,nk->nj", Rcw, tcw)  # camera centres in the world
+        eps = 1e-6
+
+        def safe(den):
+            return torch.where(torch.abs(den) < eps, eps, den)
+
+        t_f = (floor_y - C[:, 1, None, None]) / safe(d_w[..., 1])  # floor y = floor_y
+        t_wz = (wall_z - C[:, 2, None, None]) / safe(d_w[..., 2])  # back wall z = wall_z
+        hits = []
+        for t_pl, (ua, va), plane in ((t_f, (0, 2), 0), (t_wz, (0, 1), 1)):
+            ok = t_pl > 0.2
+            t_safe = torch.where(ok, t_pl, 1e6)
+            hit = C[:, None, None, :] + t_safe[..., None] * d_w
+            tex = _octave_noise(hit[..., ua], hit[..., va], texture_theta[plane])
+            hits.append((t_safe, torch.where(ok, tex, 0.0)))
+        (t0, tex0), (t1, tex1) = hits
+        tex = torch.where(t0 < t1, tex0, tex1)  # the nearer plane
+        att = 1.0 / (1.0 + 0.05 * torch.minimum(t0, t1))  # far texture stays faint
+        img = img + texture * tex * att
+    else:
+        u = (px / width * 8).to(torch.int32) + (py / height * 6).to(torch.int32)
+        img = img + 0.04 * torch.cos(u.to(dt) * 2.1)
+
+    p2a, za = _project(world.segments[:, 0], Rcw, tcw, fx, fy, cx, cy)
+    p2b, zb = _project(world.segments[:, 1], Rcw, tcw, fx, fy, cx, cy)
+    w_seg = ((za > 0.25) & (zb > 0.25)).to(dt) * world.seg_shade  # (N, S)
+    segs2d = torch.cat([p2a, p2b], dim=-1)  # (N, S, 4)
+    for i0 in range(0, segs2d.shape[1], 8):
+        ch = segs2d[:, i0: i0 + 8]
+        ax, ay, bx, by = (ch[..., i, None, None] for i in range(4))  # (N, 8, 1, 1)
+        sx, sy = bx - ax, by - ay
+        L2 = torch.clamp_min(sx * sx + sy * sy, 1e-6)
+        t = torch.clamp(((px - ax) * sx + (py - ay) * sy) / L2, 0.0, 1.0)
+        d = torch.sqrt((px - (ax + t * sx)) ** 2 + (py - (ay + t * sy)) ** 2)
+        alpha = torch.clamp(1.8 - d, 0.0, 1.0)
+        img = img + torch.sum(alpha * w_seg[:, i0: i0 + 8, None, None], dim=1)
+
+    pb, zbl = _project(world.blobs, Rcw, tcw, fx, fy, cx, cy)
+    w_blob = (zbl > 0.25).to(dt) * world.blob_shade
+    for i0 in range(0, pb.shape[1], 32):
+        bdx = px - pb[:, i0: i0 + 32, 0, None, None]
+        bdy = py - pb[:, i0: i0 + 32, 1, None, None]
+        g = torch.exp(-(bdx * bdx + bdy * bdy) / 8.0)
+        img = img + torch.sum(g * w_blob[:, i0: i0 + 32, None, None], dim=1)
+
+    img = torch.clamp(img, 0.02, 0.98)
+    if noise is not None:
+        img = torch.clamp(img + noise * 0.01, 0.0, 1.0)
+    return img

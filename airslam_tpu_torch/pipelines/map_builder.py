@@ -29,6 +29,7 @@ option).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, NamedTuple, Optional
 
@@ -138,6 +139,7 @@ class MapBuilder:
         # entry consistent after map-wide corrections
         self._trajectory: List[tuple] = []
         self._pose_problem_tmpl = {}  # (P, f) -> BAProblem whose constant leaves stay on the device
+        self.stage_timer = None  # utils.timing.Timer: add_input's per-stage breakdown
 
         self._maps = None
         if hasattr(camera, "rectify_maps"):
@@ -160,10 +162,28 @@ class MapBuilder:
 
     def add_input(self, timestamp: float, image_left, image_right, imu_batch=None):
         """One stereo frame (+ IMU rows since the previous frame). Images:
-        (H, W) grayscale in [0, 1]. Returns the tracked Frame."""
+        (H, W) grayscale in [0, 1]. Returns the tracked Frame.
+
+        Set ``self.stage_timer`` (``utils.timing.Timer``) for a per-stage
+        breakdown under the JAX package's names (rectify / detect /
+        stereo_match / track); each section then ends with a synchronization
+        of the card, so it holds the card's time, not the dispatch's."""
         feats_left, feats_right, pairs, temporal = self._frontend(image_left, image_right)
-        return self.track_features(timestamp, feats_left, feats_right, pairs, imu_batch,
-                                   temporal_matches=temporal)
+        with self._stage("track"):
+            return self.track_features(timestamp, feats_left, feats_right, pairs, imu_batch,
+                                       temporal_matches=temporal)
+
+    @contextlib.contextmanager
+    def _stage(self, name):
+        """A section of ``stage_timer``, or nothing when no timer is set."""
+        timer = self.stage_timer
+        if timer is None:
+            yield
+            return
+        with timer.section(name):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def _detect(self, image_left, image_right):
         """rectify → detect, queued on the device; nothing is read back.
@@ -184,7 +204,15 @@ class MapBuilder:
         return f0, f1, pairs, temporal
 
     def _frontend(self, image_left, image_right):
-        return self._match_detected(self._detect(image_left, image_right))
+        """rectify → detect → the host pull and match, each a section of
+        ``stage_timer``. With a timer the detect section ends with the card
+        synchronized, so the pull left to stereo_match is the copy alone."""
+        with self._stage("rectify"):
+            pair = self.rectify(image_left, image_right)
+        with self._stage("detect"):
+            feats_dev = self.detector.detect(pair)
+        with self._stage("stereo_match"):
+            return self._match_detected(feats_dev)
 
     def _stereo_and_temporal(self, f0, f1):
         """ONE batched matcher pass per frame: the stereo pair and (once

@@ -76,9 +76,15 @@ def build(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch
+
     from airslam_tpu_torch.io.serialization import save_map
     from airslam_tpu_torch.pipelines.map_builder import PipelinedRunner
 
+    # float32 networks compute in float32, as the JAX CLI's: no TF32 in
+    # cuDNN's convolutions (on by default) or cuBLAS's products
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     builder, dataset, device = build(args)
     n = len(dataset) if args.max_frames <= 0 else min(len(dataset), args.max_frames)
     print(f"dataset: {n} frames on {device}")

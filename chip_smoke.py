@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, vio, refine, reloc, train; ``path`` needs ``slice`` and ``tracking``) and then prints no
+path, vo, synth, e2e, system, vio, refine, reloc, train; ``path`` needs ``slice`` and
+``tracking``, ``e2e`` runs ``synth`` first) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -29,8 +30,9 @@ without a result line):
    a non-contiguous or wrongly typed operand raises. Then each
    instantiation's registers, the kernel's time, eager time, plain time and
    bound, the time of the six-launch per-view sequence it replaced
-   (:func:`loi_unfused`) and an empty kernel's (the launch floor), and the
-   sweep of lines (warps) per block, 1-8.
+   (:func:`loi_unfused`), of ``F.grid_sample`` at the same samples
+   (:func:`loi_library`, three calls, timed only) and an empty kernel's (the launch
+   floor), and the sweep of lines (warps) per block, 1-8.
 4. ``kernel P``: the whole-solver tracking kernel vs its plain version on
    synthetic problems made from a seed: the kernel's full size (512 points,
    128 lines), the path's shape (256 points, one masked line), a fixed pose
@@ -67,6 +69,32 @@ without a result line):
    0.02 m / 5e-3, landmark counts within 5 %; bf16: every pose within 0.05 m.
    The launch counts are set to 0 before the run and read after it: a tracked
    frame must launch R 1, ``loi_features`` 1, P 1, F 36, B and T 0.
+8a. ``synth``: the rendered 3D world of ``tests/data/torch_e2e_oracle.npz``
+   (the JAX world and the seed of its numpy pixel noise):
+   ``apps/make_synth_dataset_torch.py --world`` writes the ASL trees of its
+   40-frame loop (stride 2) on the card, rectified and with
+   ``--distort_camera configs/camera/synth_stereo_distorted.yaml``; the PNGs
+   of frames 0 and 19, both views, within 1 grey level of the JAX render's
+   on at most 1e-3 of the pixels, the ground truth equal; ms per rendered
+   stereo pair at 752×480.
+8b. ``e2e`` (ROADMAP A.1): ``apps/visual_odometry_torch.py`` (called in this
+   process, so that its launches are counted) over the first 20 frames of
+   each tree: rectified f32 and bf16 with ``--use_flash``, distorted f32,
+   against the JAX VO CLI's runs stored in the oracle
+   (scripts/verify_tpu_e2e.py's gates): f32 the same keyframe decisions,
+   every run's unaligned ATE to the JAX CLI's trajectory ≤ 0.05 m and its
+   Sim(3)-aligned ATE to the ground truth ≤ 0.05 m
+   (``apps/evaluate_torch.py``'s ``evaluate``), bf16 the keyframe count
+   within 1; the mapv0 read back by ``load_map``; the launches of each run
+   (counts set to 0 before it): R once a frame in the distorted run (0
+   rectified), ``loi_features`` once a frame, P once a tracked frame, F 36 a
+   frame with ``--use_flash``.
+8c. ``system``: ``apps/benchmark_system_torch.py --frames 60 --json`` on the
+   oracle's world (bf16, 400 keypoints, PLNet without SuperPoint,
+   LightGlue): every frame tracked, the aligned ATE ≤ 0.05 m, the unaligned
+   ATE to the JAX benchmark loop's trajectory ≤ 0.05 m and its keyframe
+   count within 1; launches ``loi_features`` 60, P 59; Hz, ms a frame and the
+   per-stage breakdown of ``MapBuilder.stage_timer`` beside the card.
 9. ``path``: every launch count set to 0, then rectify (kernel R) →
    ``FrontendStep`` (``loi_features``) on one pair, which must launch R and
    ``loi_features`` once each and B and T never. The same again for the f32
@@ -137,7 +165,8 @@ without a result line):
    of the largest |gradient|, the ramps' within 1e-4 of theirs; the
    autograd function behind ``loi_features`` gives the same; bf16 maps
    raise; its time (the zeroed map gradients and the kernel), the plain
-   version's, the bound and the launch floor. (b) One step of each mode
+   version's, ``F.grid_sample``'s backward at the same samples (timed only),
+   the bound and the launch floor. (b) One step of each mode
    (``plnet`` with the LOI head and descriptors, ``superpoint``,
    ``distill``) from the shipped checkpoints on the stored pairs of
    ``tests/data/torch_train_oracle.npz`` (the JAX trainer's step on the
@@ -167,6 +196,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -179,6 +209,7 @@ VIO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 REFINE_ORACLE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 RELOC_ORACLE = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 TRAIN_ORACLE = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
+E2E_ORACLE = os.path.join(REPO, "tests", "data", "torch_e2e_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -251,6 +282,18 @@ LOI_WARPS = (1, 2, 4, 8)       # loi_features' lines (one warp each) per block
 TRAIN_GATES = {"map_grad": 1e-5, "ramp_grad": 1e-4, "term": 1e-4, "grad": 1e-3, "update": 1e-2,
                "dead_grad": 1e-5, "offsets": 1e-6}
 TRAIN_CLI = {"steps": 20, "batch": 8}
+# the rendered sequences (scripts/make_torch_oracle.py's E2E: make_synth_dataset
+# --frames 40 --stride 2 --traj loop, the VO CLI over the first 20) and the
+# system benchmark's 60 frames of forward; the card's render against the JAX
+# PNGs (grey levels, share of pixels that differ); the CLI and benchmark runs
+# against the JAX runs and the ground truth (scripts/verify_tpu_e2e.py:206-216:
+# unaligned and Sim(3)-aligned ATE in m, keyframe count delta)
+E2E_RUN = {"frames": 40, "stride": 2, "traj": "loop", "run": 20, "system": 60}
+E2E_GATES = {"png_levels": 1, "png_share": 1e-3, "traj": 0.05, "ate": 0.05, "kf_delta": 1}
+E2E_CAMERAS = {"rect": "configs/camera/synth_stereo.yaml",
+               "dist": "configs/camera/synth_stereo_distorted.yaml"}
+E2E_RUNS = {"f32": ("rect", ["--dtype", "f32"]), "bf16": ("rect", ["--dtype", "bf16", "--use_flash"]),
+            "dist f32": ("dist", ["--dtype", "f32"])}
 TRAIN_MODES = {"plnet": [], "superpoint": ["--model", "superpoint"],
                "distill": ["--model", "superpoint", "--distill"]}
 
@@ -1084,6 +1127,54 @@ def loi_unfused(loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_
     return views
 
 
+def loi_library(ops):
+    """``F.grid_sample``'s operands for the stage-1 head's sampling of every
+    view (timed only; other border rule: zeros beyond the map, where the
+    kernel clamps its taps), the same samples ``loi_features`` takes: the
+    128-channel LOI map at the junctions, the 4 thin channels at the lines'
+    interior points and the 4 aux channels at the proposals'. Returns three
+    (input NCHW, grid (V, 1, P, 2)) pairs in the maps' type."""
+    import torch
+
+    loi, thin, aux, junc, _, lines, props, t_fwd, t_rev = ops
+    h, w = loi.shape[1:3]
+
+    def pair(fmap, x, y):
+        # a texel coordinate X − 0.5 of the kernel is 2X / size − 1 with align_corners=False
+        grid = torch.stack([2 * x / w - 1, 2 * y / h - 1], -1)[:, None]
+        inp = fmap.permute(0, 3, 1, 2).contiguous()
+        return inp, grid.to(inp.dtype).contiguous()
+
+    def interior(seg, i):
+        return (seg[..., i:i + 1] * t_fwd + seg[..., i + 2:i + 3] * t_rev).flatten(1)
+
+    return [pair(loi, junc[..., 0], junc[..., 1]),
+            pair(thin, interior(lines, 0), interior(lines, 1)),
+            pair(aux, interior(props, 0), interior(props, 1))]
+
+
+def loi_library_ms(ops):
+    """Device ms of :func:`loi_library`'s three ``F.grid_sample`` calls."""
+    import torch.nn.functional as F
+
+    calls = loi_library(ops)
+    return _time_ms(lambda: [F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=False) for inp, grid in calls])
+
+
+def loi_backward_library_ms(ops):
+    """Device ms of ``F.grid_sample``'s backward (ATen's
+    ``grid_sampler_2d_backward``: the input's and the grid's gradients) at
+    :func:`loi_library`'s samples, three calls, for one gradient of each
+    output."""
+    import torch
+
+    calls = [(torch.randn(inp.shape[0], inp.shape[1], 1, grid.shape[2], device=inp.device,
+                          dtype=inp.dtype), inp, grid) for inp, grid in loi_library(ops)]
+    return _time_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
+        gout, inp, grid, 0, 0, False, [True, True]) for gout, inp, grid in calls])
+
+
 def loi_inputs(rng, n_views, n_lines, n_junc, dtype, device="cpu", n_interior=30):
     """The stage-1 head's operands from a seed: LOI, thin and aux maps
     (V, 128, 128, C) in ``dtype``; junctions on and beyond the borders;
@@ -1237,7 +1328,8 @@ def phase_kernel_loi(dev):
             eager_ms=_eager_ms(lambda: bilerp.loi_features(*o)),
             plain_ms=_time_ms(lambda: bilerp.loi_features_plain(*o)),
             unfused_ms=_time_ms(lambda: loi_unfused(*o)),
-            unfused_eager_ms=_eager_ms(lambda: loi_unfused(*o)))
+            unfused_eager_ms=_eager_ms(lambda: loi_unfused(*o)),
+            library_ms=loi_library_ms(o))
         times[label]["bound_ms"], times[label]["bound_by"] = _bound_ms(
             *_loi_work(o, bilerp.loi_features(*o)))
     floor_ms, floor_eager_ms = _time_ms(empty), _eager_ms(empty)
@@ -1246,7 +1338,9 @@ def phase_kernel_loi(dev):
               f"eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} "
               f"bound_ms={t['bound_ms']:.6f} ({t['bound_by']}) the per-view sequence it "
               f"replaced (6 kernels + glue): ms={t['unfused_ms']:.5f} "
-              f"eager_ms={t['unfused_eager_ms']:.5f}")
+              f"eager_ms={t['unfused_eager_ms']:.5f}; F.grid_sample at the same samples (LOI "
+              f"at the junctions, thin and aux at the interior points, 3 calls): "
+              f"ms={t['library_ms']:.5f}")
     print(f"empty kernel (launch floor): ms={floor_ms:.5f} eager_ms={floor_eager_ms:.5f}")
     o = ops_by[bf]
     sweep = {w: [] for w in LOI_WARPS}
@@ -1259,7 +1353,7 @@ def phase_kernel_loi(dev):
             "replaces": "airslam_tpu/ops/bilerp_pallas.py:45,124",
             "max_abs_err": max(worst[(f32, f32)], worst[(bf, f32)]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None}
+            "library_ms": t["library_ms"]}
 
 
 def train_loi_inputs(rng, n_views, device, n_lines=None):
@@ -1392,21 +1486,23 @@ def phase_kernel_loi_backward(dev):
                  eager_ms=_eager_ms(lambda: bilerp.loi_features_backward(grad, *ops)),
                  plain_ms=_eager_ms(lambda: bilerp.loi_features_backward_plain(grad, *ops),
                                     iters=20, warmup=3),
-                 zeros_ms=_time_ms(lambda: (maps_only.zero_(),)))
+                 zeros_ms=_time_ms(lambda: (maps_only.zero_(),)),
+                 library_ms=loi_backward_library_ms(ops))
         t["bound_ms"], t["bound_by"] = _bound_ms(*_loi_backward_work(ops))
         times[label] = t
         print(f"kernel B+T' {label}: ms={t['ms']:.5f} (the three zeroed map gradients and the "
               f"kernel) eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} (eager, "
               f"autograd through the plain forward, forward included) bound_ms="
               f"{t['bound_ms']:.6f} ({t['bound_by']}); zeroing the LOI map's gradient alone "
-              f"ms={t['zeros_ms']:.5f}")
+              f"ms={t['zeros_ms']:.5f}; F.grid_sample's backward at the same samples (3 "
+              f"calls) ms={t['library_ms']:.5f}")
     print(f"empty kernel (launch floor): ms={_time_ms(empty):.5f}")
     t = times[next(iter(shapes))]
     return {"name": "loi_features_backward", "route": "cuda",
             "source": "airslam_tpu_torch/csrc/bilerp.cu",
             "replaces": "airslam_tpu/models/plnet.py:428",
             "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
 
 def train_scene(z, prefix, view):
@@ -2750,7 +2846,8 @@ def phase_reloc(dev):
           + f"; f32 ms={_time_ms(lambda: bilerp.loi_features(*ops)):.5f} "
           f"eager_ms={_eager_ms(lambda: bilerp.loi_features(*ops)):.5f} "
           f"plain_ms={_time_ms(lambda: bilerp.loi_features_plain(*ops)):.5f} "
-          f"bound_ms={bound:.6f} ({by}) (phase l's gates) on {on}")
+          f"bound_ms={bound:.6f} ({by}) library_ms={loi_library_ms(ops):.5f} (F.grid_sample "
+          f"at the same samples, 3 calls) (phase l's gates) on {on}")
 
     # kernel F at the top-3 batch and matcher recovery's batch of up to 8
     for batch in RELOC_F_BATCHES:
@@ -2900,6 +2997,213 @@ def phase_reloc(dev):
     print("reloc device PnP (test_pnp.py's cases and tolerances; 128 hypotheses, 5 GN steps): "
           + "; ".join(report) + f" on {on}")
     print(f"reloc: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def e2e_oracle():
+    return np.load(E2E_ORACLE)
+
+
+def _grey_gap(a, b):
+    """(largest difference of two 8-bit images in grey levels, share of the
+    pixels that differ)."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def _ate_between(est, ref):
+    """Unaligned ATE of two runs of one sequence ([(t, Twc)] each, both in
+    the first keyframe's frame) over their common stamps
+    (scripts/verify_tpu_e2e.py's ``_ate_between``). Returns (m, poses)."""
+    from airslam_tpu_torch.io.trajectory import ate_rmse
+
+    a = {round(t, 6): T for t, T in est}
+    b = {round(t, 6): T for t, T in ref}
+    common = sorted(set(a) & set(b))
+    if len(common) < 3:
+        return float("inf"), len(common)
+    return ate_rmse([(t, a[t]) for t in common], [(t, b[t]) for t in common], align=False), \
+        len(common)
+
+
+def _m(metres):
+    return "lost" if metres is None else f"{metres:.5f} m"
+
+
+def _tum_rows(rows):
+    """[(t, Twc)] of (N, ≥4) rows t, x, y, z (an identity rotation: the
+    runs are compared on positions)."""
+    out = []
+    for r in rows:
+        T = np.eye(4)
+        T[:3, 3] = r[1:4]
+        out.append((float(r[0]), T))
+    return out
+
+
+def phase_synth(dev, root):
+    """The card's render of the oracle's world: both sequences written by
+    ``apps/make_synth_dataset_torch.py`` into ``root`` and held to the JAX
+    PNGs of frames 0 and 19 and the JAX ground truth; ms per rendered stereo
+    pair. Returns {sequence: mav0}."""
+    import cv2
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import benchmark_system_torch as bench
+    import make_synth_dataset_torch as msd
+
+    z = e2e_oracle()
+    on = card()
+    g, r = E2E_GATES, E2E_RUN
+    trees, notes = {}, []
+    for name in E2E_CAMERAS:
+        extra = ["--distort_camera", os.path.join(REPO, E2E_CAMERAS[name])] if name == "dist" else []
+        t0 = time.perf_counter()
+        trees[name] = msd.main(["--out", os.path.join(root, name), "--frames", str(r["frames"]),
+                                "--stride", str(r["stride"]), "--traj", r["traj"], "--world",
+                                E2E_ORACLE, "--device", str(dev)] + extra)
+        wall = time.perf_counter() - t0
+        gt = np.loadtxt(os.path.join(trees[name], "state_groundtruth_estimate0", "data.csv"),
+                        delimiter=",", ndmin=2)
+        _require(np.array_equal(gt, z[f"{name}_gt"]), f"synth {name}: the ground truth differs")
+        for cam in ("cam0", "cam1"):
+            files = sorted(os.listdir(os.path.join(trees[name], cam, "data")))
+            for i in (0, 19):
+                want = cv2.imdecode(z[f"{name}_{cam}_{i}_png"], cv2.IMREAD_UNCHANGED)
+                got = cv2.imread(os.path.join(trees[name], cam, "data", files[i]),
+                                 cv2.IMREAD_UNCHANGED)
+                gap, share = _grey_gap(got, want)
+                _require(gap <= g["png_levels"] and share <= g["png_share"],
+                         f"synth {name} {cam} frame {i}: {gap} grey levels on {share:.2e} of "
+                         "the pixels off the JAX render")
+                notes.append(f"{name} {cam}[{i}] {gap}/{share:.1e}")
+        notes.append(f"{name} tree {wall:.2f} s")
+    # the render alone: the 40-frame sequence, 8 frames (16 views) per call
+    draws = bench.load_world(E2E_ORACLE, r["frames"], HEIGHT, WIDTH, device=dev)
+
+    def render():
+        bench.make_sequence(r["frames"], HEIGHT, WIDTH, draws, stride=r["stride"],
+                            traj=r["traj"])
+
+    render()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render()
+    host_ms = (time.perf_counter() - t0) * 1e3 / r["frames"]
+    from airslam_tpu_torch.frontend import synthgen
+
+    eye = torch.eye(3, device=dev).expand(16, 3, 3)
+    tcw = torch.zeros(16, 3, device=dev)
+    noise = draws["noise"][:8].reshape(16, HEIGHT, WIDTH)
+    dev_ms = _eager_ms(lambda: synthgen.render_view3d(draws["world"], eye, tcw, 450.0, 450.0,
+                                                       376.0, 240.0, HEIGHT, WIDTH, noise=noise),
+                       iters=10, warmup=2) / 8
+    print(f"synth: the card's render of the JAX world against the JAX PNGs (max grey levels / "
+          f"share of pixels that differ; gates {g['png_levels']} / {g['png_share']}): "
+          + "; ".join(notes) + f"; ms per stereo pair at {WIDTH}x{HEIGHT}: {dev_ms:.3f} "
+          f"(render_view3d, 8 pairs per call, CUDA events), {host_ms:.3f} (make_sequence, "
+          f"the host copy included) on {on}")
+    return trees
+
+
+def phase_e2e(dev, trees, root):
+    """ROADMAP A.1: ``apps/visual_odometry_torch.py`` over the first 20
+    frames of the rendered trees, f32 and bf16 (``--use_flash``) rectified
+    and f32 distorted, against the JAX VO CLI's runs and the ground truth.
+    Returns each run's launch counts."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import evaluate_torch
+    import visual_odometry_torch
+
+    from airslam_tpu_torch.io.serialization import load_map
+    from airslam_tpu_torch.io.trajectory import load_tum
+
+    z = e2e_oracle()
+    on = card()
+    g, n = E2E_GATES, E2E_RUN["run"]
+    counted = _counted()
+    launches = {}
+    for label, (seq, extra) in E2E_RUNS.items():
+        out = os.path.join(root, "vo " + label)
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with _no_tf32("f32"):  # the CLI turns TF32 off; restored after it
+            visual_odometry_torch.main([
+                "--config_path", os.path.join(REPO, "configs", "visual_odometry", "vo_euroc.yaml"),
+                "--camera_config_path", os.path.join(REPO, E2E_CAMERAS[seq]), "--dataroot",
+                trees[seq], "--saving_dir", out, "--max_frames", str(n), "--device", str(dev)]
+                + extra)
+        wall = time.perf_counter() - t0
+        launches[label] = {k: fn.launches for k, fn in counted.items()}
+        m, _ = load_map(os.path.join(out, "AirSLAM_mapv0.bin"), device=dev)
+        traj = load_tum(os.path.join(out, "trajectory_v0.txt"))
+        jax_ids = [int(k) for k in z[f"{seq}_keyframe_ids"]]
+        gt = _tum_rows(np.column_stack([z[f"{seq}_gt"][:, 0] * 1e-9, z[f"{seq}_gt"][:, 1:4]]))
+        gap, n_common = _ate_between(traj, _tum_rows(z[f"{seq}_traj"]))
+        ate, n_gt = evaluate_torch.evaluate(traj, gt)
+        jax_ate, _ = evaluate_torch.evaluate(_tum_rows(z[f"{seq}_traj"]), gt)
+        want = {"remap": n if seq == "dist" else 0, "bilerp_points": 0, "bilerp_points_t": 0,
+                "loi_features": n, "pose_only_fast": n - 1,
+                "flash_mha": 36 * n if "--use_flash" in extra else 0, "loi_features_backward": 0}
+        note = (f"keyframes {m.keyframe_ids} (JAX {jax_ids}); {len(traj)} of {n} frames; "
+                f"unaligned ATE to the JAX CLI {gap:.5f} m over {n_common} poses; aligned ATE "
+                f"{_m(ate)} over {n_gt} poses (the JAX CLI's {_m(jax_ate)}); mappoints "
+                f"{sum(p.is_valid for p in m.mappoints.values())} (JAX "
+                f"{int(z[f'{seq}_n_mappoints'])}), maplines "
+                f"{sum(l.is_valid for l in m.maplines.values())} (JAX "
+                f"{int(z[f'{seq}_n_maplines'])}); launches {launches[label]}")
+        _require(len(traj) == n and n_common == n, f"e2e {label}: {note}")
+        _require(launches[label] == want, f"e2e {label}: launches {launches[label]}, not {want}")
+        _require(gap <= g["traj"] and ate is not None and ate <= g["ate"],
+                 f"e2e {label} (gates {g['traj']} m to the JAX CLI, {g['ate']} m ATE): {note}")
+        if label == "bf16":
+            _require(abs(len(m.keyframe_ids) - len(jax_ids)) <= g["kf_delta"],
+                     f"e2e bf16: keyframe count delta above {g['kf_delta']}: {note}")
+        else:
+            parted = next((f for f in range(n) if (f in m.keyframe_ids) != (f in jax_ids)), None)
+            _require(parted is None, f"e2e {label}: the keyframe decisions part at frame "
+                                     f"{parted}: {note}")
+        print(f"e2e {label} (apps/visual_odometry_torch.py {' '.join(extra)}, {seq}): {note}; "
+              f"{wall:.1f} s wall with the model loads, {1e3 * wall / n:.1f} ms a frame, on {on}")
+    return launches
+
+
+def phase_system(dev):
+    """``apps/benchmark_system_torch.py --frames 60 --json`` on the oracle's
+    world against the JAX benchmark's loop and the ground truth. Returns its
+    launch counts."""
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import benchmark_system_torch
+    import evaluate_torch
+
+    z = e2e_oracle()
+    g, n = E2E_GATES, E2E_RUN["system"]
+    counted = _counted()
+    for fn in counted.values():
+        fn.launches = 0
+    rec = benchmark_system_torch.main(["--frames", str(n), "--json", "--world", E2E_ORACLE,
+                                       "--device", str(dev)])
+    launches = {k: fn.launches for k, fn in counted.items()}
+    gap, n_common = _ate_between(rec["trajectory"], _tum_rows(z["system_traj"]))
+    ate, n_gt = evaluate_torch.evaluate(rec["trajectory"], rec["gt"])
+    want = {"remap": 0, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": n,
+            "pose_only_fast": n - 1, "flash_mha": 0, "loi_features_backward": 0}
+    note = (f"{rec['tracked']} of {n} frames tracked; keyframes {rec['keyframes']} (JAX "
+            f"{int(z['system_keyframes'])}); unaligned ATE to the JAX loop {gap:.5f} m over "
+            f"{n_common} poses; aligned ATE {_m(ate)} over {n_gt} poses; launches {launches}")
+    _require(rec["tracked"] == n and n_common == n, f"system: {note}")
+    _require(launches == want, f"system: launches {launches}, not {want}")
+    _require(gap <= g["traj"] and ate is not None and ate <= g["ate"]
+             and abs(rec["keyframes"] - int(z["system_keyframes"])) <= g["kf_delta"],
+             f"system (gates {g['traj']} m, {g['ate']} m, {g['kf_delta']} keyframe): {note}")
+    stages = " ".join(f"{k}={v:.3f}" for k, v in rec["stage_ms"].items())
+    print(f"system (apps/benchmark_system_torch.py --frames {n}, bf16, the oracle's world): "
+          f"{note}; {rec['value']} Hz, {rec['ms_per_frame']:.2f} ms a frame, stages ms "
+          f"{stages}, render {rec['render_ms_per_pair']:.3f} ms a pair, on {rec['device']}")
     return launches
 
 
@@ -3114,10 +3418,16 @@ def main() -> int:
                  "p": lambda: phase_kernel_p(dev),
                  "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev),
                  "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev),
-                 "reloc": lambda: phase_reloc(dev), "train": lambda: phase_train(dev)}
+                 "reloc": lambda: phase_reloc(dev), "train": lambda: phase_train(dev),
+                 "system": lambda: phase_system(dev)}
         for name in short:
             if name in only:
                 short[name]()
+        if "synth" in only or "e2e" in only:
+            with tempfile.TemporaryDirectory() as root:
+                trees = phase_synth(dev, root)
+                if "e2e" in only:
+                    phase_e2e(dev, trees, root)
         if "path" in only:
             phase_path(dev, phase_slice(dev, frames, refs), phase_tracking(dev, frames),
                        frames, grids_np)
@@ -3136,6 +3446,10 @@ def main() -> int:
     builders = phase_tracking(dev, frames)
     phase_path(dev, steps, builders, frames, grids_np)
     launches = phase_vo(dev)
+    # the main path's acceptance: the CLI over rendered sequences, the system loop
+    with tempfile.TemporaryDirectory() as root:
+        e2e_launches = phase_e2e(dev, phase_synth(dev, root), root)
+    system_launches = phase_system(dev)
     vi_launches = phase_vio(dev)
     refine_launches, refine_p_ms = phase_refine(dev)
     reloc_launches = phase_reloc(dev)
@@ -3159,10 +3473,14 @@ def main() -> int:
                         on_path=f"training ({TRAIN_CLI['steps']} plnet steps)"))
     for k in kernels:
         k["launches_train_step"] = train_per_step[k["name"]]
+        for label, counts in e2e_launches.items():
+            k["launches_e2e_" + label.replace(" ", "_")] = counts[k["name"]]
+        k["launches_system"] = system_launches[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame",
-            "launches_refine", "launches_reloc", "launches_train_step", "refine_ms")
+            "launches_refine", "launches_reloc", "launches_train_step", "refine_ms",
+            "launches_e2e_f32", "launches_e2e_bf16", "launches_e2e_dist_f32", "launches_system")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

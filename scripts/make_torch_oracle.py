@@ -111,6 +111,31 @@ JAX ``PointMatcher(matcher=1)`` (``superglue.npz``, Sinkhorn 20) on them: the
 pixel coordinates of each accepted match (kp0 xy, kp1 xy) and its score,
 which ``scripts/verify_tpu.py``'s SuperGlue gates compare.
 
+E2E oracle
+----------
+The main path's acceptance: the JAX VO CLI over rendered sequences, and the
+JAX system benchmark's loop, on one world that the port renders itself
+(``tests/data/torch_e2e_oracle.npz``). The world is
+``make_world3d(PRNGKey(E2E["seed"]))`` and the texture's angles those of
+``PRNGKey(seed + 31)``, the keys ``apps/make_synth_dataset.py`` uses; they are
+stored (about 1,600 floats) with the seed of the pixel noise. The noise is
+numpy's, the one draw a card cannot rebuild from a JAX key:
+``default_rng(noise_seed).standard_normal((N, 2, H, W), float32)``, added as
+``render_view3d`` adds its own (× 0.01 on the clipped render, clipped to [0,
+1]) to JAX's ``render_view3d(key=None)``. ``apps/make_synth_dataset.py``
+writes the ASL trees with that render in place of its own: the stage-1
+sequence of ``scripts/verify_tpu_e2e.py:149-151`` (``--frames 40 --stride 2
+--traj loop``, seed 0, no texture), once rectified and once with
+``--distort_camera configs/camera/synth_stereo_distorted.yaml``; then
+``apps/visual_odometry.py --device cpu --max_frames 20`` on each
+(``vo_euroc.yaml``; ``synth_stereo.yaml`` / the distorted rig's YAML). Kept
+per sequence: the PNGs of frames 0 and 19 (both views), the ground truth,
+the CLI's ``trajectory_v0.txt``, its keyframe ids (from its mapv0) and its
+keyframe, valid mappoint and mapline counts. Then ``apps/benchmark_system.py``'s
+loop (bf16, 400 keypoints, no SuperPoint, LightGlue, ``SynthCamera``) over
+``SYSTEM_FRAMES`` frames of ``forward`` on the same world with the numpy
+noise: its trajectory and keyframe count.
+
 Train oracle
 ------------
 One step of each mode of the JAX detector trainer
@@ -125,7 +150,7 @@ clipped-Adam update's (lr 3e-4) at 256 fixed indices. The ``jax_*_draws``
 functions rebuild every draw of the trainer from a key, by the port's names,
 for the CPU tests.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train]
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train|e2e]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -155,6 +180,14 @@ OUT_VIO = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 OUT_REFINE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 OUT_RELOC = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 OUT_TRAIN = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
+OUT_E2E = os.path.join(REPO, "tests", "data", "torch_e2e_oracle.npz")
+# the stage-1 sequence of scripts/verify_tpu_e2e.py:149-151 (E2E_TPU.json)
+E2E = {"frames": 40, "run": 20, "stride": 2, "traj": "loop", "seed": 0, "noise_seed": 1}
+E2E_PNG_FRAMES = (0, 19)  # frames whose PNGs gate the card's render
+E2E_SEQUENCES = {"rect": ("configs/camera/synth_stereo.yaml", []),
+                 "dist": ("configs/camera/synth_stereo_distorted.yaml",
+                          ["--distort_camera", "configs/camera/synth_stereo_distorted.yaml"])}
+SYSTEM_FRAMES = 60  # apps/benchmark_system.py's loop (forward)
 TRAIN_SEEDS = {"plnet": 0, "superpoint": 1}  # PRNGKey of each mode's pair (distill: superpoint's)
 LEAF_SAMPLES = 256  # gradient / update values kept per leaf (every value of a smaller leaf)
 RELOC_FRAMES = 40  # apps/make_synth_dataset.py --frames (stride 2, loop, 10 hard queries)
@@ -882,6 +915,139 @@ def write_reloc_oracle():
     print(f"oracle written: {OUT_RELOC} ({os.path.getsize(OUT_RELOC)} bytes)")
 
 
+def jax_world_sequence(n_frames, height, width, noise, seed=0, baseline=0.11, stride=1,
+                       traj="forward", intrinsics=None):
+    """``apps.benchmark_system.make_sequence`` without texture or photometrics,
+    with ``noise`` (N, 2, H, W) standard normal in place of JAX's pixel
+    noise: ``render_view3d(key=None)`` of ``make_world3d(PRNGKey(seed))``,
+    then + 0.01 × noise, clipped to [0, 1]."""
+    import jax
+    import jax.numpy as jnp
+
+    from airslam_tpu.frontend import synthgen
+    from apps.benchmark_system import traj_position
+
+    fx, fy, cx, cy = intrinsics or (CAMERA["fx"], CAMERA["fy"], CAMERA["cx"], CAMERA["cy"])
+    fx, fy, cx, cy = (float(v) for v in (fx, fy, cx, cy))
+    world = synthgen.make_world3d(jax.random.PRNGKey(seed))
+    render = jax.jit(lambda tcw: synthgen.render_view3d(
+        world, jnp.eye(3, dtype=jnp.float32), tcw, fx, fy, cx, cy, height, width, None))
+    ts = np.arange(n_frames) * 0.05 * stride
+    total = float(n_frames * 0.05 * stride)
+    gt, lefts, rights = [], [], []
+    for k in range(n_frames):
+        T = np.eye(4)
+        T[:3, 3] = traj_position(ts[k], traj, total)
+        gt.append(T)
+        for v, out in ((0, lefts), (1, rights)):
+            tcw = -T[:3, 3] - np.array([baseline * v, 0.0, 0.0])
+            img = np.asarray(render(jnp.asarray(tcw, jnp.float32)))
+            out.append(np.clip(img + noise[k, v] * 0.01, 0.0, 1.0))
+    return ts, np.stack(lefts), np.stack(rights), gt
+
+
+def e2e_noise(n_frames, height=480, width=752):
+    return np.random.default_rng(E2E["noise_seed"]).standard_normal(
+        (n_frames, 2, height, width), dtype=np.float32)
+
+
+def write_e2e_oracle():
+    import shutil
+    import subprocess
+    import tempfile
+
+    import jax
+
+    import apps.benchmark_system as bs
+    import apps.make_synth_dataset as msd
+    from airslam_tpu.frontend import synthgen
+    from airslam_tpu.io.serialization import load_map
+
+    seed = E2E["seed"]
+    world = synthgen.make_world3d(jax.random.PRNGKey(seed))
+    blob = {f"world_{k}": np.asarray(v) for k, v in world._asdict().items()}
+    blob["texture_theta"] = np.asarray(jax_texture_draws(jax.random.PRNGKey(seed + 31))["theta"])
+    blob["noise_seed"] = np.asarray(E2E["noise_seed"])
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+
+    def fake_sequence(n_frames, height, width, seed=0, baseline=0.11, stride=1,
+                      traj="forward", texture=0.0, photometric="none", intrinsics=None):
+        assert texture == 0.0 and photometric == "none"
+        return jax_world_sequence(n_frames, height, width, e2e_noise(n_frames, height, width),
+                                  seed, baseline, stride, traj, intrinsics)
+
+    def read(path):
+        with open(path, "rb") as f:
+            return np.frombuffer(f.read(), np.uint8)
+
+    for name, (cam_yaml, extra) in E2E_SEQUENCES.items():
+        out = os.path.join(tmp, name)
+        saved = bs.make_sequence, sys.argv
+        bs.make_sequence = fake_sequence
+        sys.argv = ["make_synth_dataset.py", "--out", out, "--frames", str(E2E["frames"]),
+                    "--stride", str(E2E["stride"]), "--traj", E2E["traj"], "--seed",
+                    str(seed)] + extra
+        try:
+            msd.main()
+        finally:
+            bs.make_sequence, sys.argv = saved
+        mav0 = os.path.join(out, "SYNTH_01", "mav0")
+        vo_dir = os.path.join(tmp, f"vo_{name}")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "apps/visual_odometry.py", "--config_path",
+             "configs/visual_odometry/vo_euroc.yaml", "--camera_config_path", cam_yaml,
+             "--dataroot", mav0, "--saving_dir", vo_dir, "--device", "cpu", "--max_frames",
+             str(E2E["run"])], cwd=REPO, capture_output=True, text=True, env=env)
+        if res.returncode:
+            raise RuntimeError(f"visual_odometry.py failed:\n{res.stdout[-3000:]}\n"
+                               f"{res.stderr[-3000:]}")
+        print(f"{name}: JAX VO CLI {time.perf_counter() - t0:.1f} s")
+        m, _ = load_map(os.path.join(vo_dir, "AirSLAM_mapv0.bin"))
+        blob[f"{name}_keyframe_ids"] = np.asarray(m.keyframe_ids)
+        blob[f"{name}_n_mappoints"] = np.asarray(sum(p.is_valid for p in m.mappoints.values()))
+        blob[f"{name}_n_maplines"] = np.asarray(sum(l.is_valid for l in m.maplines.values()))
+        blob[f"{name}_traj"] = np.loadtxt(os.path.join(vo_dir, "trajectory_v0.txt"), ndmin=2)
+        blob[f"{name}_gt"] = np.loadtxt(
+            os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"), delimiter=",",
+            ndmin=2)
+        for cam in ("cam0", "cam1"):
+            names = sorted(os.listdir(os.path.join(mav0, cam, "data")))
+            for i in E2E_PNG_FRAMES:
+                blob[f"{name}_{cam}_{i}_png"] = read(os.path.join(mav0, cam, "data", names[i]))
+        print(f"{name}: keyframes {m.keyframe_ids}, {int(blob[f'{name}_n_mappoints'])} "
+              f"mappoints, {int(blob[f'{name}_n_maplines'])} maplines")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # apps/benchmark_system.py's loop (:199-219) on the same world
+    import jax.numpy as jnp
+
+    from airslam_tpu.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu.frontend.matcher import MatcherConfig, PointMatcher
+    from airslam_tpu.models import weights as wio
+    from airslam_tpu.pipelines.map_builder import MapBuilder
+
+    n = SYSTEM_FRAMES
+    ts, lefts, rights, gt = jax_world_sequence(n, 480, 752, e2e_noise(n), seed)
+    det_params, mat_params = wio.load_default_frontend(use_superpoint=False)
+    detector = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=False,
+                                              dtype=jnp.bfloat16), params=det_params)
+    matcher = PointMatcher(MatcherConfig(matcher=0, max_keypoints=400, dtype=jnp.bfloat16),
+                           params=mat_params)
+    builder = MapBuilder(bs.SynthCamera(480, 752), detector, matcher)
+    t0 = time.perf_counter()
+    for i in range(n):
+        builder.add_input(ts[i], lefts[i], rights[i], None)
+    traj = builder.trajectory
+    blob["system_traj"] = np.asarray([[t] + list(T[:3, 3]) for t, T in traj])
+    blob["system_keyframes"] = np.asarray(len(builder.map.keyframes))
+    print(f"system: {len(traj)} of {n} frames tracked, {len(builder.map.keyframes)} keyframes "
+          f"in {time.perf_counter() - t0:.1f} s")
+    np.savez_compressed(OUT_E2E, **blob)
+    print(f"oracle written: {OUT_E2E} ({os.path.getsize(OUT_E2E)} bytes)")
+
+
 # ---------------------------------------------------------------------------
 # detector training: the JAX draws of airslam_tpu/frontend/synthgen.py and
 # parallel/train_plnet.py rebuilt from a key, stage by stage, as the port's
@@ -997,6 +1163,49 @@ def jax_loi_draws(key):
             "i": jax.random.randint(k2, (n,), 0, sg.MAX_CORNERS),
             "j": jax.random.randint(k3, (n,), 0, sg.MAX_CORNERS),
             "prop_jitter": u(k4, (s + n, 4), minval=-2.0, maxval=2.0)}
+
+
+def jax_world3d_draws(key, n_seg=48, n_blob=320):
+    """The draws of ``synthgen.make_world3d(key)``, by the port's names."""
+    import jax
+
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    u = jax.random.uniform
+    return {"seg_a": u(k1, (n_seg, 3)), "seg_dir": jax.random.normal(k2, (n_seg, 3)),
+            "seg_axis": jax.random.randint(k3, (n_seg,), 0, 3),
+            "seg_length": u(jax.random.fold_in(k2, 1), (n_seg, 1), minval=0.8, maxval=3.0),
+            "seg_shade": u(jax.random.fold_in(k2, 2), (n_seg,), minval=0.25, maxval=0.55),
+            "seg_sign": u(jax.random.fold_in(k2, 3), (n_seg,)),
+            "blobs": u(k4, (n_blob, 3)), "blob_shade": u(k5, (n_blob,), minval=0.3, maxval=0.6),
+            "blob_sign": u(jax.random.fold_in(k5, 1), (n_blob,))}
+
+
+def jax_texture_draws(key, octaves=5):
+    """The angles ``render_view3d(..., texture_key=key)`` draws: (plane,
+    octave, 3), the floor's then the back wall's."""
+    import jax
+    import jax.numpy as jnp
+
+    return {"theta": jnp.stack([jnp.stack([
+        jax.random.uniform(jax.random.fold_in(jax.random.fold_in(key, plane), k), (3,),
+                           minval=0.0, maxval=6.28318) for k in range(octaves)])
+        for plane in (0, 1)])}
+
+
+def jax_sequence_noise(seed, n_frames, height, width, dark=False):
+    """The pixel noise ``apps/benchmark_system.make_sequence`` draws: (N, 2,
+    H, W) for the left and right views; with ``dark`` also the
+    ``dark_transform`` noise of each view."""
+    import jax
+
+    keys = [jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed + 1), i), 4)
+            for i in range(n_frames)]
+    out = {"noise": np.stack([[np.asarray(jax.random.normal(k[v], (height, width)))
+                               for v in (0, 1)] for k in keys])}
+    if dark:
+        out["dark"] = np.stack([[np.asarray(jax.random.normal(k[v], (height, width)))
+                                 for v in (2, 3)] for k in keys])
+    return out
 
 
 def batch_draws(draws_list):
@@ -1190,10 +1399,13 @@ def main():
         # float32, as the JAX trainer runs (apps/train_plnet.py enables no x64)
         with jax.enable_x64(False):
             write_train_oracle()
-    if which in ("all", "reloc"):
+    if which in ("all", "reloc", "e2e"):
         # float32, as the JAX CLIs run (they enable no x64)
         jax.config.update("jax_enable_x64", False)
+    if which in ("all", "reloc"):
         write_reloc_oracle()
+    if which in ("all", "e2e"):
+        write_e2e_oracle()
 
 
 if __name__ == "__main__":

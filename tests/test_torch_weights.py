@@ -138,14 +138,17 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No file of the port, and not chip_smoke.py nor the port's CLI, imports
-    jax, flax or the JAX package."""
+    """No file of the port, and not chip_smoke.py nor the port's CLIs and
+    applications, imports jax, flax or the JAX package."""
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "profile_torch_frontend.py"),
              os.path.join(REPO, "apps", "visual_odometry_torch.py"),
              os.path.join(REPO, "apps", "map_refinement_torch.py"),
              os.path.join(REPO, "apps", "relocalization_torch.py"),
-             os.path.join(REPO, "apps", "train_plnet_torch.py")]
+             os.path.join(REPO, "apps", "train_plnet_torch.py"),
+             os.path.join(REPO, "apps", "make_synth_dataset_torch.py"),
+             os.path.join(REPO, "apps", "benchmark_system_torch.py"),
+             os.path.join(REPO, "apps", "evaluate_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "airslam_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     walked = {os.path.relpath(f, os.path.join(REPO, "airslam_tpu_torch")) for f in files}
@@ -159,7 +162,7 @@ def test_port_imports_no_jax():
                 "loopclosure/vocabulary.py", "loopclosure/database.py", "backend/global_ba.py",
                 "pipelines/map_refiner.py", "pipelines/map_user.py", "models/superglue.py",
                 "backend/pnp.py", "ops/match.py", "frontend/synthgen.py",
-                "parallel/train_plnet.py"):
+                "parallel/train_plnet.py", "utils/timing.py"):
         assert mod in walked, mod
     assert len(files) > 37
     for path in files:

@@ -277,12 +277,25 @@ def warp_shapes(shapes: Shapes, A: torch.Tensor, t: torch.Tensor) -> Shapes:
         checker_basis=_matmul2(A, shapes.checker_basis))
 
 
-def affine_draws(gen: torch.Generator, batch: int, max_rot: float = 0.35,
-                 scale_range=(0.85, 1.15), max_shift: float = 40.0) -> Draws:
-    """The random tensors of :func:`random_affine`: rotation, scale, shift."""
-    return {"theta": _uniform(gen, (batch,), -max_rot, max_rot),
-            "scale": _uniform(gen, (batch,), scale_range[0], scale_range[1]),
-            "shift": _uniform(gen, (batch, 2), -max_shift, max_shift)}
+def affine_draws(gen: torch.Generator, batch: int, view: float = 1.0) -> Draws:
+    """The random tensors of :func:`random_affine`: rotation, scale, shift.
+    With ``view`` > 1 each pair first draws its strength ``v`` in [1, view]
+    (synthgen.py:385-389), and its rotation in ±0.35·v, scale in 1 ± 0.15·v
+    and shift in ±40·v px; else v = 1: ±0.35, 0.85-1.15, ±40 px."""
+    if view > 1.0:
+        v = 1.0 + (view - 1.0) * torch.rand((batch,), generator=gen, device=gen.device)
+        rot, lo, hi, shift = 0.35 * v, 1.0 - 0.15 * v, 1.0 + 0.15 * v, 40.0 * v
+    else:  # the JAX defaults' own float32 roundings (0.85 is not 1 - 0.15)
+        v = torch.ones((batch,), device=gen.device)
+        rot, lo, hi, shift = (torch.full_like(v, c) for c in (0.35, 0.85, 1.15, 40.0))
+
+    def u(shape, a, b):
+        r = torch.rand(shape, generator=gen, device=gen.device)
+        return _scale(r, a.reshape(a.shape + (1,) * (r.dim() - 1)),
+                      b.reshape(b.shape + (1,) * (r.dim() - 1)))
+
+    return {"v": v, "theta": u((batch,), -rot, rot), "scale": u((batch,), lo, hi),
+            "shift": u((batch, 2), -shift, shift)}
 
 
 def random_affine(d: Draws, size: int = SIZE):
@@ -462,10 +475,11 @@ def render_scene(d: Dict[str, Draws], size: int = SIZE, augment: float = 0.0) ->
 
 
 def pair_draws(gen: torch.Generator, batch: int, size: int = SIZE,
-               augment: float = 0.0) -> Dict[str, Draws]:
+               augment: float = 0.0, view: float = 1.0) -> Dict[str, Draws]:
     """The draws of :func:`render_pair_with_affine`, by stage: one scene,
-    one affine, the two views' photometrics and augmentations."""
-    d = {"shapes": shape_draws(gen, batch, size), "affine": affine_draws(gen, batch),
+    one affine (``view`` widens it, :func:`affine_draws`), the two views'
+    photometrics and augmentations."""
+    d = {"shapes": shape_draws(gen, batch, size), "affine": affine_draws(gen, batch, view),
          "render0": render_draws(gen, batch, size), "render1": render_draws(gen, batch, size)}
     if augment > 0:
         d["augment0"] = augment_draws(gen, batch, size)
@@ -476,8 +490,7 @@ def pair_draws(gen: torch.Generator, batch: int, size: int = SIZE,
 def render_pair_with_affine(d: Dict[str, Draws], size: int = SIZE, augment: float = 0.0):
     """Two renders of one scene related by a known affine (view 0 → view 1
     pixels), each with its own photometrics: corner i of view 0 is corner i
-    of view 1. Returns (s0, s1, A, t). The JAX function's ``view`` widening
-    (matcher fine-tuning) is not ported."""
+    of view 1. Returns (s0, s1, A, t)."""
     shapes = sample_shapes(d["shapes"], size)
     A, t = random_affine(d["affine"], size)
     s0 = render_from_shapes(shapes, d["render0"], size)

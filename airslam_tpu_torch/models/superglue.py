@@ -79,14 +79,18 @@ class AttentionalPropagation(nn.Module):
 
 class SuperGlue(nn.Module):
     """``sinkhorn_iterations``: 0 returns the raw scores (the reference's
-    behaviour); the shipped checkpoint wants :data:`SG_SINKHORN_ITERS`."""
+    behaviour); the shipped checkpoint wants :data:`SG_SINKHORN_ITERS`.
+    ``return_full`` (training only) returns the whole (…, N0+1, N1+1) log
+    transport plan, the dustbin row and column included, so that unmatched
+    keypoints can be supervised; the parameters are the same."""
 
     def __init__(self, dim: int = 256, heads: int = 4, gnn_layers: int = 9,
-                 sinkhorn_iterations: int = 0, dtype=torch.float32):
+                 sinkhorn_iterations: int = 0, dtype=torch.float32, return_full: bool = False):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
         self.sinkhorn_iterations = sinkhorn_iterations
+        self.return_full = return_full
         self.kenc = KeypointEncoder(dim, dtype)
         self.self_layers = nn.ModuleList(AttentionalPropagation(dim, heads, dtype)
                                          for _ in range(gnn_layers))
@@ -103,7 +107,8 @@ class SuperGlue(nn.Module):
 
     def forward(self, kpts0, scores0, desc0, mask0, kpts1, scores1, desc1, mask1):
         """Returns the (…, N0, N1) log scores (the inner block of the
-        transport plan when Sinkhorn runs)."""
+        transport plan when Sinkhorn runs; the whole plan with
+        ``return_full``)."""
         x0 = desc0.to(self.dtype) + self.kenc(kpts0, scores0)
         x1 = desc1.to(self.dtype) + self.kenc(kpts1, scores1)
         for sb, cb in zip(self.self_layers, self.cross_layers):
@@ -115,5 +120,5 @@ class SuperGlue(nn.Module):
         scores = md0 @ md1.transpose(-1, -2) / math.sqrt(self.dim)
         if self.sinkhorn_iterations > 0:
             z = log_sinkhorn(scores, mask0, mask1, self.bin_score, self.sinkhorn_iterations)
-            scores = z[..., :-1, :-1]
+            scores = z if self.return_full else z[..., :-1, :-1]
         return scores

@@ -250,3 +250,52 @@ def superpoint_to_flax(sd) -> Dict[str, Any]:
     for name in ("convPa", "convPb", "convDa", "convDb"):
         p[name] = _node(sd, name)
     return {"params": p}
+
+
+def _ln_node(sd, prefix):
+    return {"scale": _a(sd[prefix + ".weight"]), "bias": _a(sd[prefix + ".bias"])}
+
+
+def lightglue_to_flax(sd) -> Dict[str, Any]:
+    """``state_dict`` of :class:`models.lightglue.LightGlue` → the JAX
+    ``LightGlue`` params ``{"params": ...}``; the inverse of
+    :func:`lightglue_from_flax` (205 arrays at 9 layers)."""
+    p: Dict[str, Any] = {"rotary": {"freqs": {"kernel": np.ascontiguousarray(
+        _a(sd["rotary.freqs.weight"]).T)}}}
+    for name in ("input_proj", "final_proj", "matchability"):
+        p[name] = _dense_node(sd, name)
+
+    def update(prefix):
+        return {"ln": _ln_node(sd, prefix + ".ln"), "fc1": _dense_node(sd, prefix + ".fc1"),
+                "fc2": _dense_node(sd, prefix + ".fc2")}
+
+    layers = len({k.split(".")[1] for k in sd if k.startswith("self_blocks.")})
+    for i in range(layers):
+        s, c = f"self_blocks.{i}", f"cross_blocks.{i}"
+        p[f"self{i}"] = {"qkv": _dense_node(sd, s + ".qkv"), "proj": _dense_node(sd, s + ".proj"),
+                         "update": update(s + ".update")}
+        p[f"cross{i}"] = {name: _dense_node(sd, f"{c}.{name}") for name in ("to_qk", "to_v", "proj")}
+        p[f"cross{i}"]["update"] = update(c + ".update")
+    return {"params": p}
+
+
+def superglue_to_flax(sd) -> Dict[str, Any]:
+    """``state_dict`` of :class:`models.superglue.SuperGlue` → the JAX
+    ``SuperGlue`` params ``{"params": ...}`` with ``bin_score`` (the tree of
+    a module with Sinkhorn iterations, as trained); the inverse of
+    :func:`superglue_from_flax` (273 arrays at 9 layers)."""
+    k = {f"fc{i}": _dense_node(sd, f"kenc.fc.{i}") for i in range(4)}
+    k.update({f"ln{i}": _ln_node(sd, f"kenc.ln.{i}") for i in range(4)})
+    k["out"] = _dense_node(sd, "kenc.out")
+    p: Dict[str, Any] = {"kenc": k}
+    layers = len({key.split(".")[1] for key in sd if key.startswith("self_layers.")})
+    for kind in ("self", "cross"):
+        for i in range(layers):
+            prefix = f"{kind}_layers.{i}"
+            node = {name: _dense_node(sd, f"{prefix}.{name}")
+                    for name in ("q", "k", "v", "merge", "mlp1", "mlp2")}
+            node["mlp_ln"] = _ln_node(sd, prefix + ".mlp_ln")
+            p[f"{kind}{i}"] = node
+    p["final_proj"] = _dense_node(sd, "final_proj")
+    p["bin_score"] = _a(sd["bin_score"]).reshape(())
+    return {"params": p}

@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, synth, e2e, system, vio, refine, reloc, train; ``path`` needs ``slice`` and
+path, vo, synth, e2e, system, vio, refine, reloc, train, matcher; ``path`` needs ``slice`` and
 ``tracking``, ``e2e`` runs ``synth`` first) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
@@ -182,6 +182,34 @@ without a result line):
    checkpoint reloads into the port's ``FeatureDetector`` (through
    ``AIRSLAM_CHECKPOINT_DIR``), which detects a stored pair; ms per step and
    images per second.
+14. ``matcher``: the matcher trainer (no hand kernel lies on its path). (a)
+   One step of each mode (LightGlue and SuperGlue on ``corners`` and on
+   ``detected`` tokens) from the shipped checkpoint on the stored JAX batch
+   of ``tests/data/torch_matcher_oracle.npz`` (the JAX trainer's step on
+   the CPU), f32 with TF32 off, under phase ``train``'s gates: the loss
+   within 1e-4 relative, each leaf's gradient within 1e-3 relative L2, the
+   Adam update within 1e-2 where |JAX's gradient| exceeds 1e-3 of the
+   leaf's rms (below it float32 noise nears Adam's eps and sets the
+   update); SuperGlue's attention key biases, whose gradient is zero in
+   exact arithmetic, within 1e-5 of their key kernel's gradient norm
+   instead; peak memory.
+   (b) The port's batch builders on the stored 16-bit images against the
+   stored JAX batch: corner tokens and masks equal, descriptors and scores
+   within 1e-5; the detected tokens as sets, at least 0.98 of each view's
+   agreeing, with their targets and negatives equal. (c) The three pairs of
+   ``tests/test_trained_detector.py::test_wide_viewpoint_matching`` (v = 2)
+   rendered from the stored JAX draws (numpy's pixel noise, as the oracle
+   rendered the JAX pairs), the port's detector and the shipped LightGlue:
+   mean count ≥ 60, mean precision > 0.9, each count within 5 % of the JAX
+   count. (d) ``apps/train_matcher_torch.py`` in each mode, 20 steps at
+   batch 4 and 512² from a fresh initialisation (``--view 2`` for
+   ``detected``), every count set to 0 before each run: every loss finite,
+   the last 5 steps' mean below the first 5's, no hand kernel launched, the
+   written checkpoint loads bit-equal into the port's ``PointMatcher``
+   (through ``AIRSLAM_CHECKPOINT_DIR``), which matches a stored frontend
+   pair with finite scores; ms per step, pairs per second and peak memory;
+   then each mode's step cut into render, batch and matcher, synchronised,
+   with each part's peak memory.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -209,6 +237,7 @@ VIO_ORACLE = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 REFINE_ORACLE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 RELOC_ORACLE = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 TRAIN_ORACLE = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
+MATCHER_ORACLE = os.path.join(REPO, "tests", "data", "torch_matcher_oracle.npz")
 E2E_ORACLE = os.path.join(REPO, "tests", "data", "torch_e2e_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
@@ -296,6 +325,36 @@ E2E_RUNS = {"f32": ("rect", ["--dtype", "f32"]), "bf16": ("rect", ["--dtype", "b
             "dist f32": ("dist", ["--dtype", "f32"])}
 TRAIN_MODES = {"plnet": [], "superpoint": ["--model", "superpoint"],
                "distill": ["--model", "superpoint", "--distill"]}
+# the matcher trainer (scripts/make_torch_oracle.py's matcher oracle): the
+# stored batch tensors by the names of the JAX batch tuples' entries
+# (LightGlue's and SuperGlue's tuples share all but the keypoints' scale);
+# the CLI's lr; the batch builders on the stored images (descriptors and
+# heatmap scores absolute; corner tokens and masks exact; the detected tokens
+# as sets: the share of each view's tokens both packages detect, with their
+# targets and negatives equal); the stored step's Adam update on the entries
+# whose |JAX gradient| exceeds update_floor of the leaf's rms (below it the
+# gradient's float32 noise, up to 1e-4 of the rms, nears Adam's eps of 1e-8
+# and sets the update), SuperGlue's attention key biases, whose gradient
+# vanishes in exact arithmetic (softmax is shift-invariant along the keys),
+# held to null_grad of their layer's key kernel gradient instead of the leaf
+# gates; the wide-viewpoint pairs
+# (tests/test_trained_detector.py::test_wide_viewpoint_matching's gates, each
+# pair's count relative to the JAX count); the CLI's runs (batch 4 at 512²,
+# the detected runs at --view 2)
+MATCHER_FIELDS = {
+    "corners": {"lightglue": ("k0", "d0", "m0", "k1", "d1", "m1", "both", "only0", "only1"),
+                "superglue": ("k0", "s0", "d0", "m0", "k1", "s1", "d1", "m1", "both", "only0",
+                              "only1")},
+    "detected": {"lightglue": ("k0", "d0", "m0", "k1", "d1", "m1", "tgt", "neg0", "neg1"),
+                 "superglue": ("k0", "s0", "d0", "m0", "k1", "s1", "d1", "m1", "tgt", "neg0",
+                               "neg1")}}
+MATCHER_MODES = ("lightglue_corners", "superglue_corners", "lightglue_detected",
+                 "superglue_detected")
+MATCHER_LR = 2e-4
+MATCHER_GATES = {"desc": 1e-5, "score": 1e-5, "token_share": 0.98, "wide_count": 60,
+                 "wide_precision": 0.9, "wide_count_rel": 0.05, "update_floor": 1e-3,
+                 "null_grad": 1e-5}
+MATCHER_CLI = {"steps": 20, "batch": 4, "view": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -1522,7 +1581,7 @@ def _to_dev(scene, dev):
     return type(scene)(*(t.to(dev) for t in scene))
 
 
-def _leaf_gaps(z, mode, grads, before, after, lr):
+def _leaf_gaps(z, mode, grads, before, after, lr, floor=0.0):
     """Per leaf of the stored step, a dict: ``norm`` the relative gap of the
     gradient's norm, ``grad`` the relative L2 gap of its stored values,
     ``update`` the relative L2 gap of the update's stored values where JAX's
@@ -1533,7 +1592,8 @@ def _leaf_gaps(z, mode, grads, before, after, lr):
     ``dead_grad`` the port's largest |gradient| / rms and ``dead_update`` its
     largest |update| / lr where JAX's gradient is exactly zero, ``moved`` how
     many of those the port's step moved. ``grads``/``before``/``after``:
-    flat {leaf: array}.
+    flat {leaf: array}. ``floor`` > 0 also leaves out of the update gap the
+    entries whose |JAX gradient| is at most ``floor`` of the leaf's rms.
 
     Adam's first step is ≈ −lr·sign g, so an entry whose sign two float32
     programs may set differently moves by 2·lr: an exact zero of XLA's (a
@@ -1549,8 +1609,8 @@ def _leaf_gaps(z, mode, grads, before, after, lr):
         want_g, want_u = z[f"{key}/grad"], z[f"{key}/update"]
         upd = (after[leaf].reshape(-1) - before[leaf].reshape(-1))[idx]
         dead = want_g == 0
-        keep = ~dead
         rms = ref_norm / np.sqrt(g.size)
+        keep = np.abs(want_g) > floor * rms
         flip = keep & (np.sign(g[idx]) != np.sign(want_g))
         gaps[leaf] = dict(
             norm=abs(float(np.linalg.norm(g.astype(np.float64))) - ref_norm) / max(ref_norm, 1e-30),
@@ -1652,47 +1712,56 @@ def train_oracle_steps(dev):
         _require(set(term_gap) == {k[len(f"{mode}/term/"):] for k in z.files
                                    if k.startswith(f"{mode}/term/")},
                  f"train {mode}: the loss has other terms than the JAX step's")
-        gaps = _leaf_gaps(z, mode, grads, before, after, opt.adam.defaults["lr"])
-        worst = {k: max(v[k] for v in gaps.values())
-                 for k in ("norm", "grad", "update", "flip_ratio", "dead_grad", "dead_update")}
-        worst_leaf = {k: max(gaps, key=lambda leaf: gaps[leaf][k]) for k in worst}
-        total = {k: sum(v[k] for v in gaps.values())
-                 for k in ("left_out", "left_out_floor", "flips", "moved")}
-        stored = sum(len(z[f"{mode}/leaf/{k}/idx"]) for k in gaps)
-        report[mode] = dict(terms=max(term_gap.values()), grad_norm=float(norm),
-                            leaves=len(gaps), stored=stored, **worst, **total)
+        worst, text, checks = _step_gate(z, mode, grads, before, after, opt.adam.defaults["lr"])
+        report[mode] = dict(worst, terms=max(term_gap.values()), grad_norm=float(norm))
         print(f"train step {mode} against the stored JAX step (f32, TF32 off, cuDNN "
               f"deterministic): loss {float(loss.detach()):.6f} (JAX "
               f"{float(z[f'{mode}/loss']):.6f}); worst term gap {report[mode]['terms']:.2e} (gate "
-              f"{g['term']}); over {len(gaps)} leaves worst gradient gap {worst['grad']:.2e} "
-              f"({worst_leaf['grad']}), norm gap {worst['norm']:.2e} (gate {g['grad']}); worst "
-              f"update gap {worst['update']:.2e} ({worst_leaf['update']}, gate {g['update']}) "
-              f"over the stored entries whose JAX gradient is nonzero: {total['left_out']} of "
-              f"{stored} left out ({total['left_out_floor']} under 1e-3 of the rms), "
-              f"{total['flips']} sign flips kept (largest |g|/rms "
-              f"{worst['flip_ratio']:.2e}); where JAX's gradient is 0 the port's is at most "
-              f"{worst['dead_grad']:.2e} of its rms ({worst_leaf['dead_grad']}, gate "
-              f"{g['dead_grad']}), "
-              f"{total['moved']} moved, by at most {worst['dead_update']:.3f} lr; global "
-              f"gradient norm {float(norm):.4f}")
-        checks = [
-            (all(v <= g["term"] for v in term_gap.values()),
-             f"loss terms {term_gap} beyond {g['term']} relative"),
-            (worst["norm"] <= g["grad"] and worst["grad"] <= g["grad"],
-             f"gradient of {worst_leaf['grad']} / norm of {worst_leaf['norm']} "
-             f"{worst['grad']:.3e} / {worst['norm']:.3e} beyond {g['grad']}"),
-            (worst["update"] <= g["update"],
-             f"clipped-Adam update of {worst_leaf['update']} {worst['update']:.3e} beyond "
-             f"{g['update']}"),
-            (worst["dead_grad"] <= g["dead_grad"],
-             f"gradient of {worst_leaf['dead_grad']} {worst['dead_grad']:.3e} of its rms where "
-             f"JAX's is 0, beyond {g['dead_grad']}"),
-            (worst["dead_update"] <= 1.0,
-             f"{worst_leaf['dead_update']} moved by {worst['dead_update']:.3f} lr where JAX's "
-             f"gradient is 0")]
+              f"{g['term']}); {text}; global gradient norm {float(norm):.4f}")
+        checks.insert(0, (all(v <= g["term"] for v in term_gap.values()),
+                          f"loss terms {term_gap} beyond {g['term']} relative"))
         failed += [f"train {mode}: {msg}" for ok, msg in checks if not ok]
     _require(not failed, "; ".join(failed))
     return report
+
+
+def _step_gate(z, mode, grads, before, after, lr, floor=0.0):
+    """The stored step's leaf gates (``_leaf_gaps`` under ``TRAIN_GATES``,
+    ``floor`` as there): returns the worst figures and totals (a dict),
+    their text and the (ok, message) checks of the gradient, its norm, the
+    update and the entries where JAX's gradient is exactly zero."""
+    g = TRAIN_GATES
+    gaps = _leaf_gaps(z, mode, grads, before, after, lr, floor)
+    worst = {k: max(v[k] for v in gaps.values())
+             for k in ("norm", "grad", "update", "flip_ratio", "dead_grad", "dead_update")}
+    worst_leaf = {k: max(gaps, key=lambda leaf: gaps[leaf][k]) for k in worst}
+    total = {k: sum(v[k] for v in gaps.values())
+             for k in ("left_out", "left_out_floor", "flips", "moved")}
+    stored = sum(len(z[f"{mode}/leaf/{k}/idx"]) for k in gaps)
+    text = (f"over {len(gaps)} leaves worst gradient gap {worst['grad']:.2e} "
+            f"({worst_leaf['grad']}), norm gap {worst['norm']:.2e} (gate {g['grad']}); worst "
+            f"update gap {worst['update']:.2e} ({worst_leaf['update']}, gate {g['update']}) "
+            f"over the stored entries whose |JAX gradient| exceeds {floor:g} of the leaf's "
+            f"rms: {total['left_out']} of {stored} left out ({total['left_out_floor']} under "
+            f"1e-3 of the rms), "
+            f"{total['flips']} sign flips kept (largest |g|/rms "
+            f"{worst['flip_ratio']:.2e}); where JAX's gradient is 0 the port's is at most "
+            f"{worst['dead_grad']:.2e} of its rms ({worst_leaf['dead_grad']}, gate "
+            f"{g['dead_grad']}), {total['moved']} moved, by at most "
+            f"{worst['dead_update']:.3f} lr")
+    checks = [
+        (worst["norm"] <= g["grad"] and worst["grad"] <= g["grad"],
+         f"gradient of {worst_leaf['grad']} / norm of {worst_leaf['norm']} "
+         f"{worst['grad']:.3e} / {worst['norm']:.3e} beyond {g['grad']}"),
+        (worst["update"] <= g["update"],
+         f"Adam update of {worst_leaf['update']} {worst['update']:.3e} beyond {g['update']}"),
+        (worst["dead_grad"] <= g["dead_grad"],
+         f"gradient of {worst_leaf['dead_grad']} {worst['dead_grad']:.3e} of its rms where "
+         f"JAX's is 0, beyond {g['dead_grad']}"),
+        (worst["dead_update"] <= 1.0,
+         f"{worst_leaf['dead_update']} moved by {worst['dead_update']:.3f} lr where JAX's "
+         f"gradient is 0")]
+    return dict(worst, leaves=len(gaps), stored=stored, **total), text, checks
 
 
 @contextlib.contextmanager
@@ -1775,6 +1844,491 @@ def phase_train(dev):
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
     plnet_launches = runs["plnet"]["launches"]
     return record, plnet_launches, {k: v // steps for k, v in plnet_launches.items()}
+
+
+def unpack_leaves(z, mode):
+    """The per-leaf entries ``{mode}/leaf/{leaf}/{norm,idx,grad,update}``
+    that ``_leaf_gaps`` reads, from the matcher oracle's packed arrays
+    (``scripts/make_torch_oracle.py``'s ``pack_leaves``)."""
+    start = z[f"{mode}/leaf_start"]
+    out = {}
+    for i, name in enumerate(z[f"{mode}/leaves"]):
+        key = f"{mode}/leaf/{name}"
+        out[f"{key}/norm"] = z[f"{mode}/leaf_norm"][i]
+        for f in ("idx", "grad", "update"):
+            out[f"{key}/{f}"] = z[f"{mode}/leaf_{f}"][start[i]:start[i + 1]]
+    return out
+
+
+def matcher_oracle():
+    """``tests/data/torch_matcher_oracle.npz`` as a dict, every mode's
+    leaves unpacked."""
+    with np.load(MATCHER_ORACLE) as f:
+        z = {k: f[k] for k in f.files}
+    for mode in MATCHER_MODES:
+        z.update(unpack_leaves(z, mode))
+    return z
+
+
+def matcher_batch(z, tokens, arch):
+    """The stored JAX batch of a pair set as the trainer's tuple for
+    ``arch`` (numpy, a leading batch axis)."""
+    return tuple(z[f"{tokens}/batch/{f}_{arch}" if f in ("k0", "k1") else f"{tokens}/batch/{f}"]
+                 for f in MATCHER_FIELDS[tokens][arch])
+
+
+def _tensor(a, dev):
+    import torch
+
+    t = torch.as_tensor(np.asarray(a), device=dev)
+    return t.long() if t.dtype == torch.int32 else t
+
+
+def matcher_model(arch):
+    """LightGlue, or SuperGlue with 20 Sinkhorn iterations returning the
+    whole plan, as the trainer builds them, from the shipped checkpoint;
+    with its ``to_flax``."""
+    from airslam_tpu_torch.models import weights as wio
+    from airslam_tpu_torch.models.lightglue import LightGlue
+    from airslam_tpu_torch.models.superglue import SG_SINKHORN_ITERS, SuperGlue
+
+    if arch == "lightglue":
+        model, conv = LightGlue(), (wio.lightglue_from_flax, wio.lightglue_to_flax)
+    else:
+        model = SuperGlue(sinkhorn_iterations=SG_SINKHORN_ITERS, return_full=True)
+        conv = (wio.superglue_from_flax, wio.superglue_to_flax)
+    model.load_state_dict(conv[0](wio.load_npz(wio.checkpoint_path(f"{arch}.npz"))))
+    return model, conv[1]
+
+
+def null_leaves(grads):
+    """SuperGlue's attention key biases among the flat gradient leaves: a
+    constant added to every key's logit leaves the softmax unchanged, so
+    their gradient is zero in exact arithmetic and float32 noise in
+    practice."""
+    return [leaf for leaf in grads if leaf.endswith("/k/bias")]
+
+
+def null_grad_ratio(grads, leaf):
+    """A null leaf's gradient norm over its layer's key kernel's."""
+    kernel = grads[leaf[:-len("bias")] + "kernel"]
+    return float(np.linalg.norm(grads[leaf])) / float(np.linalg.norm(kernel))
+
+
+def matcher_loss(arch, tokens):
+    """The port's loss of a matcher-trainer mode."""
+    from airslam_tpu_torch.parallel import training as tr
+
+    return {("lightglue", "corners"): tr.rendered_match_loss,
+            ("superglue", "corners"): tr.rendered_match_loss_sg,
+            ("lightglue", "detected"): tr.detected_match_loss,
+            ("superglue", "detected"): tr.detected_match_loss_sg}[arch, tokens]
+
+
+def matcher_oracle_steps(dev):
+    """One step of each matcher-trainer mode from the shipped checkpoint on
+    the stored JAX batch against the stored JAX step (f32, TF32 off): the
+    loss within ``TRAIN_GATES["term"]`` relative and the leaf gates of phase
+    ``train`` (:func:`_step_gate`), Adam at the CLI's lr without clipping.
+    Prints every mode's figures, then raises if a gate failed; returns the
+    figures per mode."""
+    import torch
+
+    from airslam_tpu_torch.parallel import training
+
+    g = TRAIN_GATES
+    z = matcher_oracle()
+    report, failed = {}, []
+    for mode in MATCHER_MODES:
+        arch, tokens = mode.split("_")
+        model, to_flax = matcher_model(arch)
+        model.to(dev)
+        batch = tuple(_tensor(a, dev) for a in matcher_batch(z, tokens, arch))
+
+        def flat(get):
+            return _flat(to_flax({n: get(p) for n, p in model.named_parameters()}))
+
+        with _no_tf32("f32"):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            opt = training.adam(model.parameters(), MATCHER_LR)
+            before = flat(lambda p: p.detach().clone())
+            loss = matcher_loss(arch, tokens)(model, batch)
+            loss.backward()
+            grads = flat(lambda p: p.grad.clone())
+            opt.step()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        after = flat(lambda p: p.detach())
+        want = float(z[f"{mode}/loss"])
+        loss_gap = abs(float(loss.detach()) - want) / abs(want)
+        null = null_leaves(grads)
+        null_ratio = max((null_grad_ratio(grads, leaf) for leaf in null), default=0.0)
+        worst, text, checks = _step_gate(
+            z, mode, {k: v for k, v in grads.items() if k not in null}, before, after,
+            MATCHER_LR, MATCHER_GATES["update_floor"])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20 if dev.type == "cuda" else None
+        report[mode] = dict(worst, loss_gap=loss_gap, peak_mib=peak, null_ratio=null_ratio)
+        print(f"matcher step {mode} against the stored JAX step (f32, TF32 off, batch "
+              f"{batch[0].shape[0]} x {batch[0].shape[1]} tokens): loss "
+              f"{float(loss.detach()):.6f} (JAX {want:.6f}, gap {loss_gap:.2e}, gate "
+              f"{g['term']}); {text}; {len(null)} key biases' gradients at most "
+              f"{null_ratio:.2e} of their key kernel's (gate {MATCHER_GATES['null_grad']})"
+              + (f"; peak memory {peak:.1f} MiB" if peak is not None else ""))
+        checks.insert(0, (loss_gap <= g["term"], f"loss gap {loss_gap:.3e} beyond {g['term']}"))
+        checks.append((null_ratio <= MATCHER_GATES["null_grad"],
+                       f"key-bias gradient {null_ratio:.3e} of its kernel's"))
+        failed += [f"matcher {mode}: {msg}" for ok, msg in checks if not ok]
+    _require(not failed, "; ".join(failed))
+    return report
+
+
+def _matcher_scenes(z, tokens, dev):
+    """Both views of a stored pair set as port Scenes (B pairs), from the
+    16-bit images."""
+    import torch
+
+    from airslam_tpu_torch.frontend.synthgen import Scene
+
+    img = torch.as_tensor(z[f"{tokens}/image"].astype(np.float32) / np.float32(65535),
+                          device=dev)
+    return [Scene(image=img[:, v], corners=_tensor(z[f"{tokens}/corners"][:, v], dev),
+                  corner_mask=_tensor(z[f"{tokens}/corner_mask"][:, v], dev),
+                  segments=None, segment_mask=None) for v in (0, 1)]
+
+
+def _token_agreement(want, got, gate):
+    """The detected tokens of the stored JAX batch and the port's, as sets
+    per pair and view (``torch.topk`` orders ties freely): keyed by their
+    scale-0.5 keypoints (exact: a power-of-two scale of the pixel). Returns
+    the smallest share of agreeing tokens, the largest score and descriptor
+    gaps and the count of target and negative disagreements on agreeing
+    tokens (a target agrees when both are −1 or point at the same view-1
+    keypoint)."""
+    share, score_gap, desc_gap, wrong = 1.0, 0.0, 0.0, 0
+    for b in range(want["k0"].shape[0]):
+        maps = []
+        for v in (0, 1):
+            k, m = f"k{v}", f"m{v}"
+            jw = {tuple(p): i for i, p in enumerate(want[k][b]) if want[m][b][i]}
+            pw = {tuple(p): i for i, p in enumerate(got[k][b]) if got[m][b][i]}
+            common = jw.keys() & pw.keys()
+            share = min(share, len(common) / max(len(jw), len(pw), 1))
+            ji = np.array([jw[p] for p in common], int)
+            pi = np.array([pw[p] for p in common], int)
+            score_gap = max(score_gap, float(np.abs(want[f"s{v}"][b][ji]
+                                                    - got[f"s{v}"][b][pi]).max(initial=0)))
+            desc_gap = max(desc_gap, float(np.abs(want[f"d{v}"][b][ji]
+                                                  - got[f"d{v}"][b][pi]).max(initial=0)))
+            wrong += int((want[f"neg{v}"][b][ji] != got[f"neg{v}"][b][pi]).sum())
+            maps.append((ji, pi))
+        ji, pi = maps[0]
+        for a, p in zip(ji, pi):
+            tj, tp = want["tgt"][b][a], got["tgt"][b][p]
+            same = (tj < 0 and tp < 0) or (tj >= 0 and tp >= 0
+                                           and tuple(want["k1"][b][tj]) == tuple(got["k1"][b][tp]))
+            wrong += int(not same)
+    _require(share >= gate, f"detected tokens: only {share:.4f} of a view's tokens agree "
+                            f"(gate {gate})")
+    return share, score_gap, desc_gap, wrong
+
+
+def frozen_plnet(dev):
+    """The shipped PLNet stage 0, frozen on ``dev``, as the matcher trainer
+    runs it."""
+    from airslam_tpu_torch.models import weights as wio
+    from airslam_tpu_torch.models.plnet import PLNet
+
+    plnet = PLNet()
+    plnet.load_state_dict(wio.plnet_from_flax(wio.load_npz(wio.checkpoint_path(
+        "plnet_s0.npz"))["plnet"]))
+    return plnet.to(dev).eval().requires_grad_(False)
+
+
+def matcher_batch_gaps(dev):
+    """The port's batch builders (``training.rendered_batch`` /
+    ``detected_batch``, the shipped PLNet frozen, f32 with TF32 off) on the
+    stored 16-bit images against the stored JAX batch: corner tokens and
+    masks exact, the valid corners' descriptors and scores within
+    ``MATCHER_GATES``; the detected tokens as sets (:func:`_token_agreement`). Raises on a failed
+    gate; returns the figures per pair set."""
+    from airslam_tpu_torch.parallel import training
+
+    gt = MATCHER_GATES
+    z = np.load(MATCHER_ORACLE)
+    plnet = frozen_plnet(dev)
+    report = {}
+    for tokens in ("corners", "detected"):
+        s0, s1 = _matcher_scenes(z, tokens, dev)
+        got = {}
+        with _no_tf32("f32"):
+            for arch in ("lightglue", "superglue"):
+                if tokens == "corners":
+                    out = training.rendered_batch(
+                        plnet, s0, s1, _tensor(z["corners/jitter"], dev), arch == "superglue")
+                else:
+                    out = training.detected_batch(
+                        plnet, s0, s1, _tensor(z["detected/A"], dev),
+                        _tensor(z["detected/t"], dev), arch == "superglue")
+                named = dict(zip(MATCHER_FIELDS[tokens][arch],
+                                 (t.cpu().numpy() for t in out)))
+                got.update({(f"{f}_{arch}" if f in ("k0", "k1") else f): v
+                            for f, v in named.items()})
+        want = {k[len(f"{tokens}/batch/"):]: z[k] for k in z.files
+                if k.startswith(f"{tokens}/batch/")}
+        _require(got.keys() == want.keys(), f"{tokens} batch: fields {sorted(got)}")
+        if tokens == "corners":
+            exact = [f for f in want if f[0] not in "ds"]
+            for f in exact:
+                _require(np.array_equal(got[f], want[f]), f"corners batch: {f} differs")
+            # padded corners lie anywhere, off the image too, where the two
+            # samplers clamp otherwise: no loss term reads them
+            gaps = {f: float(np.abs(got[f] - want[f])[want[f"m{f[1]}"]].max())
+                    for f in want if f[0] in "ds"}
+            desc_gap = max(gaps["d0"], gaps["d1"])
+            score_gap = max(gaps["s0"], gaps["s1"])
+            report[tokens] = dict(desc=desc_gap, score=score_gap, exact=len(exact))
+            print(f"matcher batch corners ({want['k0_lightglue'].shape[0]} pairs, "
+                  f"{want['m0'].sum() + want['m1'].sum()} valid corners) against the JAX "
+                  f"batch on the stored images: {len(exact)} token and mask tensors equal; "
+                  f"on the valid corners descriptors within {desc_gap:.2e}, scores within "
+                  f"{score_gap:.2e}")
+        else:
+            w = dict(want, k0=want["k0_lightglue"], k1=want["k1_lightglue"])
+            p = dict(got, k0=got["k0_lightglue"], k1=got["k1_lightglue"])
+            share, score_gap, desc_gap, wrong = _token_agreement(w, p, gt["token_share"])
+            report[tokens] = dict(share=share, desc=desc_gap, score=score_gap, wrong=wrong)
+            print(f"matcher batch detected ({want['k0_lightglue'].shape[0]} pairs at view "
+                  f"{MATCHER_CLI['view']}) against the JAX batch on the stored images: "
+                  f"at least {share:.4f} of each view's tokens agree (gate "
+                  f"{gt['token_share']}); on them descriptors within {desc_gap:.2e}, scores "
+                  f"within {score_gap:.2e}, {wrong} target or negative flags differ")
+            _require(wrong == 0, f"detected batch: {wrong} targets or negatives differ on "
+                                 f"agreeing tokens")
+        _require(desc_gap <= gt["desc"] and score_gap <= gt["score"],
+                 f"{tokens} batch: descriptors {desc_gap:.3e} / scores {score_gap:.3e} beyond "
+                 f"{gt['desc']} / {gt['score']}")
+    return report
+
+
+def wide_pair_draws(z, i, dev):
+    """The stored JAX draws of wide-viewpoint pair ``i`` as the port's draw
+    dicts (a batch of one), each view's pixel noise numpy's
+    (``default_rng(noise_seed + i)``, as the oracle rendered the JAX pair)."""
+    import torch
+
+    prefix = f"wide/{i}/"
+    d = {}
+    for k in z.files:
+        if k.startswith(prefix) and k.count("/") == 3:
+            stage, name = k[len(prefix):].split("/")
+            d.setdefault(stage, {})[name] = torch.as_tensor(z[k], device=dev)[None]
+    noise = np.random.default_rng(int(z["wide/noise_seed"]) + i).standard_normal(
+        (2, 512, 512), dtype=np.float32)
+    for v in (0, 1):
+        d[f"render{v}"]["noise"] = torch.as_tensor(noise[v], device=dev)[None]
+    return d
+
+
+def wide_viewpoint_gate(dev, detector):
+    """tests/test_trained_detector.py::test_wide_viewpoint_matching on the
+    port: its three pairs (v = 2) rendered from the stored JAX draws, the
+    port's detector (that test's configuration) and the shipped LightGlue
+    (400 keypoints, 512²): mean count ≥ 60, mean precision > 0.9 (matches
+    within 4 px of the true affine), each pair's count within 5 % of the
+    JAX count. Returns (counts, precisions, JAX counts)."""
+    import torch
+
+    from airslam_tpu_torch.frontend import synthgen as sg
+    from airslam_tpu_torch.frontend.matcher import MatcherConfig, PointMatcher
+
+    gt = MATCHER_GATES
+    z = np.load(MATCHER_ORACLE)
+    matcher = PointMatcher(MatcherConfig(matcher=0, max_keypoints=400, image_width=512,
+                                         image_height=512), device=dev)
+    counts, precs, jax_counts = [], [], []
+    n_pairs = len({k.split("/")[1] for k in z.files if k.startswith("wide/") and k.count("/") > 1})
+    own = [int(z[f"wide/{i}/count_own_noise"]) for i in range(n_pairs)]
+    for i in range(n_pairs):
+        d = wide_pair_draws(z, i, dev)
+        shapes = sg.sample_shapes(d["shapes"])
+        A, t = sg.random_affine(d["affine"])
+        JA, Jt = z[f"wide/{i}/A"], z[f"wide/{i}/t"]
+        _require(np.abs(A[0].cpu().numpy() - JA).max() <= 1e-6
+                 and np.abs(t[0].cpu().numpy() - Jt).max() <= 1e-4,
+                 f"wide pair {i}: the affine differs from the JAX one")
+        s0 = sg.render_from_shapes(shapes, d["render0"])
+        s1 = sg.render_from_shapes(sg.warp_shapes(shapes, A, t), d["render1"])
+        f = detector.detect(torch.cat([s0.image, s1.image]))
+        views = [type(f)(*(x[v] for x in f)) for v in (0, 1)]
+        pairs, _ = matcher.matching_points(views[0], views[1])
+        kp0, kp1 = (v.keypoints.float().cpu().numpy() for v in views)
+        counts.append(len(pairs))
+        jax_counts.append(int(z[f"wide/{i}/count"]))
+        if len(pairs):
+            pred = kp0[pairs[:, 0]] @ JA.T + Jt
+            precs.append(float((np.linalg.norm(pred - kp1[pairs[:, 1]], axis=-1) < 4.0).mean()))
+    rel = [abs(c - j) / j for c, j in zip(counts, jax_counts)]
+    print(f"matcher wide-viewpoint pairs (v = 2, the port's render, detector and shipped "
+          f"LightGlue): counts {counts} (JAX {jax_counts}; on the JAX test's own pixel noise "
+          f"{own}; worst gap {max(rel):.3f}, gate "
+          f"{gt['wide_count_rel']}), mean {np.mean(counts):.1f} (gate >= {gt['wide_count']}); "
+          f"precision {[round(p, 4) for p in precs]} (JAX "
+          f"{[round(float(z[f'wide/{i}/precision']), 4) for i in range(n_pairs)]}), mean "
+          f"{np.mean(precs):.4f} (gate > {gt['wide_precision']})")
+    _require(np.mean(counts) >= gt["wide_count"], f"wide-viewpoint match counts {counts}")
+    _require(len(precs) == n_pairs and np.mean(precs) > gt["wide_precision"],
+             f"wide-viewpoint precision {precs}")
+    _require(max(rel) <= gt["wide_count_rel"],
+             f"wide-viewpoint counts {counts} not within {gt['wide_count_rel']} of JAX's "
+             f"{jax_counts}")
+    return counts, precs, jax_counts
+
+
+def matcher_step_parts(dev, plnet, arch, tokens, batch, steps=5):
+    """One CLI step of a mode cut into its three parts, each synchronised
+    and timed over ``steps`` steps from a fresh initialisation (f32, TF32
+    off): rendering the pairs, building the batch (the frozen PLNet and the
+    tokens) and the matcher's loss, backward and Adam update. Returns
+    {part: (mean ms, peak MiB of the part)}."""
+    import torch
+
+    from airslam_tpu_torch.frontend import synthgen
+    from airslam_tpu_torch.parallel import training as tr
+
+    model, _ = matcher_model(arch)
+    init = tr.init_train_state if arch == "lightglue" else tr.init_train_state_sg
+    state = init(model, lr=MATCHER_LR)  # on the CPU, as the CLI initialises
+    model.to(dev)
+    loss_fn = matcher_loss(arch, tokens)
+    sg = arch == "superglue"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    parts = {"render": [], "batch": [], "matcher": []}
+    peaks = {k: 0.0 for k in parts}
+
+    cuda = dev.type == "cuda"
+
+    def timed(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+        parts[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def render():  # the draws and the render, as the CLI's step makes them
+        if tokens == "corners":
+            d = tr.rendered_draws(gen, batch)
+            return synthgen.render_pair(d["pair"], augment=1.0) + (d["jitter"],)
+        d = synthgen.pair_draws(gen, batch, augment=1.0, view=MATCHER_CLI["view"])
+        return synthgen.render_pair_with_affine(d, augment=1.0)
+
+    def build(s0, s1, *rest):
+        if tokens == "corners":
+            return tr.rendered_batch(plnet, s0, s1, *rest, superglue=sg)
+        return tr.detected_batch(plnet, s0, s1, *rest, superglue=sg)
+
+    def update(data):
+        state.opt.zero_grad(set_to_none=True)
+        loss_fn(model, data).backward()
+        state.opt.step()
+
+    with _no_tf32("f32"):
+        for _ in range(steps + 1):  # the first step warms up and is dropped
+            pairs = timed("render", render)
+            data = timed("batch", lambda: build(*pairs))
+            timed("matcher", lambda: update(data))
+    return {k: (float(np.mean(v[1:])), peaks[k]) for k, v in parts.items()}
+
+
+def phase_matcher(dev):
+    """The matcher trainer on the card: one step of each mode against the
+    stored JAX step, the batch builders against the stored JAX batch, the
+    wide-viewpoint gate, then the training CLI in its four modes at full
+    width. Returns the launch counts per step of the CLI runs (all 0)."""
+    import torch
+
+    from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu_torch.frontend.matcher import MatcherConfig, PointMatcher
+    from airslam_tpu_torch.models import weights as wio
+
+    t_phase = time.perf_counter()
+    matcher_oracle_steps(dev)
+    matcher_batch_gaps(dev)
+    detector = FeatureDetector(DetectorConfig(use_superpoint=False), device=dev)
+    with _no_tf32("f32"):
+        wide_viewpoint_gate(dev, detector)
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import train_matcher_torch
+
+    counted = _counted()
+    frames, _ = oracle_pairs()
+    steps, batch = MATCHER_CLI["steps"], MATCHER_CLI["batch"]
+    per_step = {k: 0 for k in counted}
+    for mode in MATCHER_MODES:
+        arch, tokens = mode.split("_")
+        flags = ["--arch", arch, "--tokens", tokens]
+        if tokens == "detected":
+            flags += ["--view", str(MATCHER_CLI["view"])]
+        out = os.path.join(train_matcher_torch.DEFAULT_OUT, f"smoke_{mode}")
+        for fn in counted.values():
+            fn.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        rec = train_matcher_torch.main(flags + ["--steps", str(steps), "--batch", str(batch),
+                                                "--device", dev.type, "--out", out,
+                                                "--log_every", "5"])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20 if dev.type == "cuda" else None
+        launches = {k: fn.launches for k, fn in counted.items()}
+        losses = np.asarray(rec["losses"])
+        _require(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+                 f"matcher CLI {mode}: losses {losses}")
+        _require(losses[-5:].mean() < losses[:5].mean(),
+                 f"matcher CLI {mode}: the last 5 steps' mean loss {losses[-5:].mean():.4f} is "
+                 f"not below the first 5's {losses[:5].mean():.4f}")
+        _require(all(v == 0 for v in launches.values()),
+                 f"matcher CLI {mode}: launched {launches}, not 0 of every kernel")
+        for k, v in launches.items():
+            per_step[k] = max(per_step[k], v // steps)
+        # the written checkpoint in the port's PointMatcher, on a stored pair
+        os.environ["AIRSLAM_CHECKPOINT_DIR"] = out
+        try:
+            pm = PointMatcher(MatcherConfig(matcher=int(arch == "superglue"),
+                                            sinkhorn_iterations=20 if arch == "superglue" else 0),
+                              device=dev)
+            from_flax = wio.lightglue_from_flax if arch == "lightglue" else wio.superglue_from_flax
+            sd = from_flax(wio.load_npz(rec["ckpt"]))
+            _require(all(torch.equal(pm.model.state_dict()[k].cpu(), v) for k, v in sd.items()),
+                     f"matcher CLI {mode}: the PointMatcher did not load the written checkpoint")
+            f = detector.detect(frames[0])
+            views = [type(f)(*(x[v] for x in f)) for v in (0, 1)]
+            pairs, scores = pm.matching_points(views[0], views[1])
+        finally:
+            del os.environ["AIRSLAM_CHECKPOINT_DIR"]
+        _require(bool(np.isfinite(np.asarray(scores)).all()),
+                 f"matcher CLI {mode}: the reloaded matcher gave non-finite scores")
+        ms = rec["steady_ms"]
+        print(f"matcher CLI {mode} (apps/train_matcher_torch.py, {steps} steps, batch {batch}, "
+              f"512², fresh init{', --view 2' if tokens == 'detected' else ''}): loss first 5 "
+              f"{losses[:5].mean():.4f} -> last 5 {losses[-5:].mean():.4f}; first step "
+              f"{rec['first_step_s']:.2f} s; {ms:.1f} ms per step after it, "
+              f"{batch * 1e3 / ms:.1f} pairs/s; peak memory "
+              f"{'not measured' if peak is None else f'{peak:.0f} MiB'}; launches "
+              f"{launches}; the checkpoint reloads into PointMatcher, {len(pairs)} matches on "
+              f"a stored frontend pair")
+    plnet = frozen_plnet(dev)
+    for mode in MATCHER_MODES:
+        parts = matcher_step_parts(dev, plnet, *mode.split("_"), batch)
+        print(f"matcher step parts {mode} (batch {batch}, synchronised, mean of 5 steps): "
+              + "; ".join(f"{k} {ms:.1f} ms (peak {mib:.0f} MiB)"
+                          for k, (ms, mib) in parts.items()))
+    print(f"matcher phase: {time.perf_counter() - t_phase:.1f} s")
+    return per_step
 
 
 def _pose_work(problem, rounds, iters):
@@ -3419,6 +3973,7 @@ def main() -> int:
                  "f": lambda: phase_kernel_f(dev), "vo": lambda: phase_vo(dev),
                  "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev),
                  "reloc": lambda: phase_reloc(dev), "train": lambda: phase_train(dev),
+                 "matcher": lambda: phase_matcher(dev),
                  "system": lambda: phase_system(dev)}
         for name in short:
             if name in only:
@@ -3455,6 +4010,8 @@ def main() -> int:
     reloc_launches = phase_reloc(dev)
     # the detector trainer: every count set to 0 before each CLI run
     train_record, train_launches, train_per_step = phase_train(dev)
+    # the matcher trainer: every count set to 0 before each CLI run
+    matcher_per_step = phase_matcher(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_vi_frame"] = vi_launches[k["name"]]
@@ -3473,13 +4030,15 @@ def main() -> int:
                         on_path=f"training ({TRAIN_CLI['steps']} plnet steps)"))
     for k in kernels:
         k["launches_train_step"] = train_per_step[k["name"]]
+        k["launches_matcher_step"] = matcher_per_step[k["name"]]
         for label, counts in e2e_launches.items():
             k["launches_e2e_" + label.replace(" ", "_")] = counts[k["name"]]
         k["launches_system"] = system_launches[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame",
-            "launches_refine", "launches_reloc", "launches_train_step", "refine_ms",
+            "launches_refine", "launches_reloc", "launches_train_step",
+            "launches_matcher_step", "refine_ms",
             "launches_e2e_f32", "launches_e2e_bf16", "launches_e2e_dist_f32", "launches_system")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)

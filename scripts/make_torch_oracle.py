@@ -150,7 +150,34 @@ clipped-Adam update's (lr 3e-4) at 256 fixed indices. The ``jax_*_draws``
 functions rebuild every draw of the trainer from a key, by the port's names,
 for the CPU tests.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train|e2e]
+Matcher oracle
+--------------
+One step of each mode of the JAX matcher trainer
+(``airslam_tpu/parallel/training.py``, ``apps/train_matcher.py``): LightGlue
+and SuperGlue on ``corners`` and on ``detected`` tokens, from the shipped
+``lightglue.npz`` / ``superglue.npz`` (the JAX CLI's ``--resume`` path, so no
+initial parameters are stored), batch 2, augment 1, float32, Adam at the
+CLI's lr 2e-4. ``corners``: the pairs of ``make_rendered_batch(key)`` for the
+two keys of ``split(PRNGKey(MATCHER_SEEDS["corners"]))`` (``kd, kj =
+split(key)``); ``detected``: ``render_pair_with_affine(key, view=2)`` for
+those of ``MATCHER_SEEDS["detected"]``. The images are rounded to 16 bits and
+the JAX batch builders run on them (their render patched to return the
+stored scenes, the rest the trainer's code); the losses are the trainer's
+``loss_fn`` on that batch. ``tests/data/torch_matcher_oracle.npz`` keeps the
+images, corners and masks, the jitter, the affines and their strength v, the
+batch tensors (for both keypoint scales), and per mode the loss and per
+parameter leaf the gradient's norm and its values and the one-step Adam
+update's at ``LEAF_SAMPLES`` fixed indices (packed per mode into a few
+arrays, :func:`pack_leaves`). Then the three pairs of
+``tests/test_trained_detector.py::test_wide_viewpoint_matching`` (seeds 1000,
+1002, 1004, v = 2): their JAX draws, except the pixel noise, which is
+numpy's (``default_rng(WIDE_NOISE_SEED + i).standard_normal((2, 512, 512),
+float32)``, the one draw a card cannot rebuild from a JAX key, as in the E2E
+oracle), patched into JAX's ``render_from_shapes``; the JAX test's detector
+and LightGlue on those renders: the accepted match count and precision per
+pair (and, for the record, the count on the test's own renders).
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train|e2e|matcher]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -180,6 +207,7 @@ OUT_VIO = os.path.join(REPO, "tests", "data", "torch_vio_oracle.npz")
 OUT_REFINE = os.path.join(REPO, "tests", "data", "torch_refine_oracle.npz")
 OUT_RELOC = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 OUT_TRAIN = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
+OUT_MATCHER = os.path.join(REPO, "tests", "data", "torch_matcher_oracle.npz")
 OUT_E2E = os.path.join(REPO, "tests", "data", "torch_e2e_oracle.npz")
 # the stage-1 sequence of scripts/verify_tpu_e2e.py:149-151 (E2E_TPU.json)
 E2E = {"frames": 40, "run": 20, "stride": 2, "traj": "loop", "seed": 0, "noise_seed": 1}
@@ -190,6 +218,12 @@ E2E_SEQUENCES = {"rect": ("configs/camera/synth_stereo.yaml", []),
 SYSTEM_FRAMES = 60  # apps/benchmark_system.py's loop (forward)
 TRAIN_SEEDS = {"plnet": 0, "superpoint": 1}  # PRNGKey of each mode's pair (distill: superpoint's)
 LEAF_SAMPLES = 256  # gradient / update values kept per leaf (every value of a smaller leaf)
+MATCHER_SEEDS = {"corners": 0, "detected": 1}  # PRNGKey split into each pair set's keys
+MATCHER_BATCH = 2
+MATCHER_LR = 2e-4  # apps/train_matcher.py's default
+MATCHER_VIEW = 2.0  # the detected pairs' curriculum (apps/train_matcher.py --view 2)
+WIDE_SEEDS = (1000, 1002, 1004)  # tests/test_trained_detector.py::test_wide_viewpoint_matching
+WIDE_NOISE_SEED = 1000  # numpy's pixel noise of the wide pairs: default_rng(seed + pair)
 RELOC_FRAMES = 40  # apps/make_synth_dataset.py --frames (stride 2, loop, 10 hard queries)
 N_RELOC_FEATS = 2  # queries whose JAX detector features are kept
 FEATURE_FIELDS = ("keypoints", "kp_scores", "kp_desc", "kp_mask", "lines", "line_scores",
@@ -1089,13 +1123,17 @@ def jax_shape_draws(key, size=512):
     return d
 
 
-def jax_affine_draws(key, max_rot=0.35, scale_range=(0.85, 1.15), max_shift=40.0):
-    """The draws of ``synthgen.random_affine(key, ...)``."""
+def jax_affine_draws(key, max_rot=0.35, scale_range=(0.85, 1.15), max_shift=40.0, v=1.0):
+    """The draws of ``synthgen.random_affine(key, ...)``; ``v`` is the
+    strength of the ``view`` widening that set the ranges (kept as the
+    port's ``affine_draws`` keeps it)."""
     import jax
+    import jax.numpy as jnp
 
     k1, k2, k3 = jax.random.split(key, 3)
     u = jax.random.uniform
-    return {"theta": u(k1, (), minval=-max_rot, maxval=max_rot),
+    return {"v": jnp.asarray(v, jnp.float32),
+            "theta": u(k1, (), minval=-max_rot, maxval=max_rot),
             "scale": u(k2, (), minval=scale_range[0], maxval=scale_range[1]),
             "shift": u(k3, (2,), minval=-max_shift, maxval=max_shift)}
 
@@ -1136,12 +1174,21 @@ def jax_scene_draws(key, size=512, augment=0.0):
     return d
 
 
-def jax_pair_draws(key, size=512, augment=0.0):
-    """The draws of ``synthgen.render_pair_with_affine(key, size, augment)``."""
+def jax_pair_draws(key, size=512, augment=0.0, view=1.0):
+    """The draws of ``synthgen.render_pair_with_affine(key, size, augment,
+    view)``: with ``view`` > 1 the affine's strength v from ``fold_in(key,
+    23)`` and the ranges it scales (synthgen.py:385-389)."""
     import jax
 
     k1, k2, k3, k4 = jax.random.split(key, 4)
-    d = {"shapes": jax_shape_draws(k1, size), "affine": jax_affine_draws(k2),
+    if view > 1.0:
+        v = 1.0 + (view - 1.0) * jax.random.uniform(jax.random.fold_in(key, 23))
+        affine = jax_affine_draws(k2, max_rot=0.35 * v, scale_range=(1.0 - 0.15 * v,
+                                                                    1.0 + 0.15 * v),
+                                  max_shift=40.0 * v, v=v)
+    else:
+        affine = jax_affine_draws(k2)
+    d = {"shapes": jax_shape_draws(k1, size), "affine": affine,
          "render0": jax_render_draws(k3, size), "render1": jax_render_draws(k4, size)}
     if augment > 0:
         d["augment0"] = jax_augment_draws(jax.random.fold_in(key, 18), size)
@@ -1379,6 +1426,197 @@ def write_train_oracle():
     print(f"oracle written: {OUT_TRAIN} ({os.path.getsize(OUT_TRAIN)} bytes)")
 
 
+# ---------------------------------------------------------------------------
+# matcher training: the JAX batch builders on stored scenes, the trainer's
+# losses, and the wide-viewpoint pairs of tests/test_trained_detector.py
+# ---------------------------------------------------------------------------
+
+def pack_leaves(rec, mode):
+    """``_record_step``'s per-leaf entries of ``mode`` packed into a few
+    arrays (the npz's per-entry overhead would exceed the data):
+    ``{mode}/leaves`` (names), ``/leaf_norm``, ``/leaf_start`` (offsets into)
+    ``/leaf_idx``, ``/leaf_grad``, ``/leaf_update``; the loss as is.
+    ``chip_smoke.unpack_leaves`` inverts it."""
+    names = sorted({k.split("/leaf/")[1].rsplit("/", 1)[0] for k in rec if "/leaf/" in k})
+    parts = {f: [rec[f"{mode}/leaf/{n}/{f}"] for n in names] for f in ("idx", "grad", "update")}
+    sizes = [len(a) for a in parts["idx"]]
+    out = {f"{mode}/loss": rec[f"{mode}/loss"], f"{mode}/leaves": np.asarray(names),
+           f"{mode}/leaf_norm": np.asarray([rec[f"{mode}/leaf/{n}/norm"] for n in names]),
+           f"{mode}/leaf_start": np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)}
+    for f, arrays in parts.items():
+        out[f"{mode}/leaf_{f}"] = np.concatenate(arrays)
+    return out
+
+
+def wide_noise(i):
+    """The numpy pixel noise of wide-viewpoint pair ``i``: (2, 512, 512)."""
+    return np.random.default_rng(WIDE_NOISE_SEED + i).standard_normal((2, 512, 512),
+                                                                       dtype=np.float32)
+
+
+def jax_matcher_batch(tokens, arch, key, s0, s1, A=None, t=None):
+    """The JAX trainer's batch of one pair (``make_rendered_batch`` /
+    ``make_detected_batch`` with ``key``, the CLI's options for ``arch``)
+    with its render replaced by the given scenes."""
+    from unittest import mock
+
+    from airslam_tpu.frontend import synthgen as JS
+    from airslam_tpu.models import weights as jw
+    from airslam_tpu.models.plnet import PLNet
+    from airslam_tpu.parallel import training as jt
+
+    params = jw.load_params(os.path.join(REPO, "airslam_tpu", "checkpoints",
+                                         "plnet_s0.npz"))["plnet"]
+    sg = arch == "superglue"
+    scale = 0.7 if sg else 0.5
+    if tokens == "corners":
+        with mock.patch.object(JS, "render_pair", lambda kd, augment: (s0, s1)):
+            return jt.make_rendered_batch(PLNet().apply, params, key, norm_scale=scale,
+                                          with_scores=sg)
+    with mock.patch.object(JS, "render_pair_with_affine",
+                           lambda k, augment, view: (s0, s1, A, t)):
+        return jt.make_detected_batch(PLNet().apply, params, key, norm_scale=scale,
+                                      with_scores=sg, view=MATCHER_VIEW)
+
+
+def jax_matcher_loss(tokens, arch):
+    """``loss(params, batch)`` of the JAX trainer's mode."""
+    from airslam_tpu.models.lightglue import LightGlue
+    from airslam_tpu.models.superglue import SuperGlue
+    from airslam_tpu.parallel import training as jt
+
+    if arch == "lightglue":
+        model = LightGlue()
+        fn = jt.rendered_match_loss if tokens == "corners" else jt.detected_match_loss
+    else:
+        model = SuperGlue(sinkhorn_iterations=jt.SG_SINKHORN_ITERS, return_full=True)
+        fn = jt.rendered_match_loss_sg if tokens == "corners" else jt.detected_match_loss_sg
+    return lambda p, batch: fn(model, p, batch)
+
+
+def write_matcher_oracle():
+    """One step of each matcher-trainer mode on stored pairs (see the module
+    docstring), and the wide-viewpoint pairs with the JAX test's counts."""
+    from unittest import mock
+
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    import chip_smoke
+    from airslam_tpu.frontend import synthgen as JS
+    from airslam_tpu.models import weights as jw
+
+    blob = {}
+    ckpt = os.path.join(REPO, "airslam_tpu", "checkpoints")
+    t0 = time.time()
+    for tokens, seed in MATCHER_SEEDS.items():
+        keys = jax.random.split(jax.random.PRNGKey(seed), MATCHER_BATCH)
+        scenes, per_arch = [], {"lightglue": [], "superglue": []}
+        for key in keys:
+            if tokens == "corners":
+                kd, kj = jax.random.split(key)
+                s0, s1 = JS.render_pair(kd, augment=1.0)
+                jit = jax.random.uniform(kj, (2,) + s0.corners.shape, minval=-1.0, maxval=1.0)
+                A = t = None
+                extra = {"jitter": np.asarray(jit)}
+            else:
+                s0, s1, A, t = JS.render_pair_with_affine(key, augment=1.0, view=MATCHER_VIEW)
+                v = 1.0 + (MATCHER_VIEW - 1.0) * jax.random.uniform(jax.random.fold_in(key, 23))
+                extra = {"A": np.asarray(A), "t": np.asarray(t), "v": np.asarray(v)}
+            (s0, q0), (s1, q1) = quantized(s0), quantized(s1)
+            for arch in per_arch:
+                per_arch[arch].append(jax_matcher_batch(tokens, arch, key, s0, s1, A, t))
+            scenes.append(dict(extra, image=np.stack([q0, q1]),
+                               corners=np.stack([np.asarray(s.corners) for s in (s0, s1)]),
+                               corner_mask=np.stack([np.asarray(s.corner_mask)
+                                                     for s in (s0, s1)])))
+        for f in scenes[0]:
+            blob[f"{tokens}/{f}"] = np.stack([sc[f] for sc in scenes])
+        batches = {arch: tuple(np.stack([np.asarray(b[i]) for b in bs])
+                               for i in range(len(bs[0]))) for arch, bs in per_arch.items()}
+        named = {arch: dict(zip(chip_smoke.MATCHER_FIELDS[tokens][arch], b))
+                 for arch, b in batches.items()}
+        for f, v in named["superglue"].items():
+            if f in ("k0", "k1"):
+                for arch in named:
+                    blob[f"{tokens}/batch/{f}_{arch}"] = named[arch][f]
+            else:
+                if f in named["lightglue"]:  # the tuples share these bit for bit
+                    assert np.array_equal(named["lightglue"][f], v), (tokens, f)
+                blob[f"{tokens}/batch/{f}"] = v
+        for arch in ("lightglue", "superglue"):
+            params = jw.load_params(os.path.join(ckpt, f"{arch}.npz"))
+            loss_fn = jax_matcher_loss(tokens, arch)
+            batch = tuple(jnp.asarray(a) for a in chip_smoke.matcher_batch(blob, tokens, arch))
+            loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, batch)
+            tx = optax.adam(MATCHER_LR)
+            updates, _ = tx.update(grads, tx.init(params), params)
+            new = optax.apply_updates(params, updates)
+            rec = {}
+            _record_step(rec, f"{arch}_{tokens}", loss, {}, grads, params, new)
+            blob.update(pack_leaves(rec, f"{arch}_{tokens}"))
+            print(f"{arch} {tokens} step: loss {float(loss):.6f} ({time.time() - t0:.0f} s)")
+
+    # the wide-viewpoint pairs and the JAX test's counts
+    import jax.tree_util as jtu
+
+    from airslam_tpu.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu.frontend.matcher import MatcherConfig, PointMatcher
+
+    p = jw.load_params(os.path.join(ckpt, "plnet_s0.npz"))
+    det = FeatureDetector(DetectorConfig(use_superpoint=False),
+                          params={"plnet": p["plnet"], "loi": p["loi"]})
+    pm = PointMatcher(MatcherConfig(matcher=0, max_keypoints=400, image_width=512,
+                                    image_height=512),
+                      params=jw.load_params(os.path.join(ckpt, "lightglue.npz")))
+    v = MATCHER_VIEW
+
+    def count(s0, s1, A, t):
+        f0, f1 = (jtu.tree_map(lambda x: np.asarray(x[0]), det.detect(np.asarray(s.image)[None]))
+                  for s in (s0, s1))
+        pairs, _ = pm.matching_points(f0, f1)
+        pred = f0.keypoints[pairs[:, 0]] @ A.T + t
+        err = np.linalg.norm(pred - f1.keypoints[pairs[:, 1]], axis=-1)
+        return len(pairs), float((err < 4.0).mean()) if len(pairs) else 0.0
+
+    blob["wide/noise_seed"] = np.int64(WIDE_NOISE_SEED)
+    for i, seed in enumerate(WIDE_SEEDS):
+        k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(seed), 4)
+        shapes = JS.sample_shapes(k1, 512)
+        A, t = JS.random_affine(k2, 512, max_rot=0.35 * v,
+                                scale_range=(1.0 - 0.15 * v, 1.0 + 0.15 * v),
+                                max_shift=40.0 * v)
+        warped = JS.warp_shapes(shapes, A, t)
+        An, tn = np.asarray(A), np.asarray(t)
+        # the test's own pairs, for the record
+        own = count(JS.render_from_shapes(k3, shapes, 512),
+                    JS.render_from_shapes(k4, warped, 512), An, tn)
+        noise = wide_noise(i)
+        views = []
+        for k, shp, n in ((k3, shapes, noise[0]), (k4, warped, noise[1])):
+            with mock.patch.object(jax.random, "normal",
+                                   lambda key, shape, n=n: jnp.asarray(n)):
+                views.append(JS.render_from_shapes(k, shp, 512))
+        n_pairs, prec = count(views[0], views[1], An, tn)
+        draws = flat_tree({"shapes": jax_shape_draws(k1), "render0": jax_render_draws(k3),
+                           "render1": jax_render_draws(k4),
+                           "affine": jax_affine_draws(k2, max_rot=0.35 * v,
+                                                      scale_range=(1.0 - 0.15 * v,
+                                                                   1.0 + 0.15 * v),
+                                                      max_shift=40.0 * v, v=v)})
+        for k, a in draws.items():
+            if not k.endswith("/noise"):  # numpy's noise takes its place
+                blob[f"wide/{i}/{k}"] = a
+        blob[f"wide/{i}/A"], blob[f"wide/{i}/t"] = An, tn
+        blob[f"wide/{i}/count"], blob[f"wide/{i}/precision"] = np.int32(n_pairs), np.float64(prec)
+        blob[f"wide/{i}/count_own_noise"] = np.int32(own[0])
+        print(f"wide pair {seed}: {n_pairs} matches, precision {prec:.3f} (the test's own "
+              f"render: {own[0]}, {own[1]:.3f}) ({time.time() - t0:.0f} s)")
+    np.savez_compressed(OUT_MATCHER, **blob)
+    print(f"oracle written: {OUT_MATCHER} ({os.path.getsize(OUT_MATCHER)} bytes)")
+
+
 def main():
     import jax
 
@@ -1399,6 +1637,10 @@ def main():
         # float32, as the JAX trainer runs (apps/train_plnet.py enables no x64)
         with jax.enable_x64(False):
             write_train_oracle()
+    if which in ("all", "matcher"):
+        # float32, as the JAX matcher trainer runs
+        with jax.enable_x64(False):
+            write_matcher_oracle()
     if which in ("all", "reloc", "e2e"):
         # float32, as the JAX CLIs run (they enable no x64)
         jax.config.update("jax_enable_x64", False)

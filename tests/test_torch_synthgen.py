@@ -172,6 +172,32 @@ def test_render_pair_with_affine(seed):
     assert torch.equal(p0.image, g0.image) and torch.equal(p1.corners, g1.corners)
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_render_pair_with_affine_view(seed):
+    """``render_pair_with_affine(view=2)`` from the rebuilt JAX draws (the
+    strength v of ``fold_in(key, 23)``): the affine bit-equal, both views'
+    corners bit-equal, masks equal, images ≤ 1e-5. Polygon vertices within
+    one ulp plus 2e-5 px: their cos/sin are glibc's under XLA (one ulp
+    from PyTorch's), which the radius (≤ 130 px) carries to 1e-5 px, and the
+    widened warp (scale ≤ 1.3, x and y mixed by the rotation) to 1.3·√2 of
+    that; seed 5's view 1 has a vertex 1.5e-5 px apart."""
+    key = jax.random.PRNGKey(seed)
+    w0, w1, A, t = J.render_pair_with_affine(key, augment=1.0, view=2.0)
+    d = _t(MTO.jax_pair_draws(key, augment=1.0, view=2.0))
+    assert 1.0 <= float(d["affine"]["v"]) <= 2.0
+    g0, g1, gA, gt = T.render_pair_with_affine(d, augment=1.0)
+    np.testing.assert_array_equal(gA[0].numpy(), np.asarray(A))
+    np.testing.assert_array_equal(gt[0].numpy(), np.asarray(t))
+    for w, g in ((w0, g0), (w1, g1)):
+        np.testing.assert_allclose(g.image[0].numpy(), np.asarray(w.image), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(g.corner_mask[0].numpy(), np.asarray(w.corner_mask))
+        wc, gc = np.asarray(w.corners), g.corners[0].numpy()
+        for part in (slice(0, POLY_CORNERS.start), slice(POLY_CORNERS.stop, None)):
+            np.testing.assert_array_equal(gc[part], wc[part])
+        diff = np.abs(gc[POLY_CORNERS] - wc[POLY_CORNERS])
+        assert np.all(diff <= np.spacing(np.abs(wc[POLY_CORNERS])) + 2e-5)
+
+
 def _check_vmapped(want, got, i):
     np.testing.assert_allclose(got.image[i].numpy(), np.asarray(want.image[i]), rtol=0, atol=1e-5)
     for f in ("corner_mask", "segment_mask"):

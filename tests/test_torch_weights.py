@@ -146,6 +146,7 @@ def test_port_imports_no_jax():
              os.path.join(REPO, "apps", "map_refinement_torch.py"),
              os.path.join(REPO, "apps", "relocalization_torch.py"),
              os.path.join(REPO, "apps", "train_plnet_torch.py"),
+             os.path.join(REPO, "apps", "train_matcher_torch.py"),
              os.path.join(REPO, "apps", "make_synth_dataset_torch.py"),
              os.path.join(REPO, "apps", "benchmark_system_torch.py"),
              os.path.join(REPO, "apps", "evaluate_torch.py")]
@@ -162,7 +163,7 @@ def test_port_imports_no_jax():
                 "loopclosure/vocabulary.py", "loopclosure/database.py", "backend/global_ba.py",
                 "pipelines/map_refiner.py", "pipelines/map_user.py", "models/superglue.py",
                 "backend/pnp.py", "ops/match.py", "frontend/synthgen.py",
-                "parallel/train_plnet.py", "utils/timing.py"):
+                "parallel/train_plnet.py", "utils/timing.py", "parallel/training.py"):
         assert mod in walked, mod
     assert len(files) > 37
     for path in files:

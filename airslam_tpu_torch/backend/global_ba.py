@@ -37,6 +37,7 @@ from airslam_tpu_torch.backend import gn
 from airslam_tpu_torch.backend import residuals as res
 from airslam_tpu_torch.backend.gn import BAConfig, IMUFactors
 from airslam_tpu_torch.core import lie
+from airslam_tpu_torch.parallel.mesh import even_bounds, reduce_sum
 
 POSE_DIM = 6
 FRAME_DIM = 15  # pose 6 + vel 3 + bias 6 (VI maps)
@@ -192,16 +193,31 @@ def _thresholds(prob: SparseBAProblem, cfg: BAConfig, dtype):
     return pthr, lthr
 
 
-def _total_cost(prob: SparseBAProblem, intr, cfg: BAConfig, robust: bool):
+def _point_cost(prob: SparseBAProblem, intr, cfg: BAConfig, robust: bool):
     pchi2, _ = point_chi2(prob, intr)
-    lchi2 = line_chi2(prob, intr)
-    pthr, lthr = _thresholds(prob, cfg, pchi2.dtype)
+    pthr = gn._thresholds(prob.pobs[:, 2] >= 0, cfg.stereo_point, cfg.mono_point, pchi2.dtype)
     if robust:
-        cost = (gn._huber_cost(pchi2, pthr, prob.pobs_mask)
-                + gn._huber_cost(lchi2, lthr, prob.lobs_mask))
-    else:
-        cost = (torch.where(prob.pobs_mask, pchi2, torch.zeros_like(pchi2)).sum()
-                + torch.where(prob.lobs_mask, lchi2, torch.zeros_like(lchi2)).sum())
+        return gn._huber_cost(pchi2, pthr, prob.pobs_mask)
+    return torch.where(prob.pobs_mask, pchi2, torch.zeros_like(pchi2)).sum()
+
+
+def _line_cost(prob: SparseBAProblem, intr, cfg: BAConfig, robust: bool):
+    lchi2 = line_chi2(prob, intr)
+    lthr = gn._thresholds(prob.lobs_stereo, cfg.stereo_line, cfg.mono_line, lchi2.dtype)
+    if robust:
+        return gn._huber_cost(lchi2, lthr, prob.lobs_mask)
+    return torch.where(prob.lobs_mask, lchi2, torch.zeros_like(lchi2)).sum()
+
+
+def _total_cost(prob: SparseBAProblem, intr, cfg: BAConfig, robust: bool, shards=None):
+    """The LM cost; with ``shards`` (:func:`observation_shards`) each
+    shard's landmark terms on its device, summed on the problem's, and the
+    IMU terms once."""
+    pshards, lshards = (shards.bind(prob) if shards is not None
+                        else ([(prob, None)], [(prob, None)]))
+    dev = prob.points.device
+    cost = (reduce_sum([_point_cost(sh, intr, cfg, robust) for sh, _ in pshards], dev)
+            + reduce_sum([_line_cost(sh, intr, cfg, robust) for sh, _ in lshards], dev))
     if prob.imu is not None:
         r, _ = gn.imu_residuals(_frame_states(prob), prob.imu, prob.Rwg, False, prob.g_value)
         r9, rw = r[:, :9], r[:, 9:15]
@@ -313,24 +329,15 @@ def _imu_system(prob: SparseBAProblem, cfg: BAConfig, robust: bool, Hvis, bvis, 
     return Hred.reshape(D, D), bred
 
 
-def _assemble_and_solve(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust: bool,
-                        chunk: int, pairs):
-    """One damped LM solve: residuals and Jacobians in the problem's float
-    type, the normal equations, the Schur complement, the reduced solve and
-    the back-substitution in float64 (``ACC``). Returns the steps in
-    float64: (poses (F, 6), points (P, 3), lines (L, 4), VI or None).
-    ``pairs``: :func:`schur_pairs` of the point and the line table; the
-    Schur sums take ``chunk`` landmarks' worth of pairs (chunk·K²) at a
-    time."""
-    f = prob.Rwb.shape[0]
-    p = prob.points.shape[0]
-    l = prob.lines.shape[0]
-    dtype, dev = ACC, prob.points.device
+def _point_system(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust: bool, chunk: int,
+                  pairs):
+    """The point observations' share of one LM solve, in ``ACC``: (Hcc
+    (F, 6, 6), bc (F, 6), the Schur terms S (F, F, 6, 6) and bs (F, 6), and
+    what the back-substitution needs)."""
+    f, p = prob.Rwb.shape[0], prob.points.shape[0]
+    dtype = ACC
     pose_free = (~prob.pose_fixed).to(dtype)
-    pthr, lthr = _thresholds(prob, cfg, dtype)
-    lam = lam.to(dtype)
-
-    # -- points --------------------------------------------------------------
+    pthr = gn._thresholds(prob.pobs[:, 2] >= 0, cfg.stereo_point, cfg.mono_point, dtype)
     r, row_mask, _, Jc, Jp = _point_rj(prob, intr, True)
     r, row_mask, Jc, Jp = (x.to(dtype) for x in (r, row_mask, Jc, Jp))
     chi2 = (r * r * row_mask).sum(-1)
@@ -344,8 +351,19 @@ def _assemble_and_solve(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust:
     Hpp = _segment_add(p, prob.pobs_pidx, torch.einsum("n,nri,nrj->nij", w, Jp, Jp))
     bp = _segment_add(p, prob.pobs_pidx, -torch.einsum("n,nri,nr->ni", w, Jp, rw))
     Wcp = torch.einsum("n,nri,nrj->nij", w, Jc, Jp)  # (N, 6, 3)
+    Hpp_inv = gn.inv3_spd(gn._damped_landmarks(Hpp, 3, lam.to(Hpp.device, dtype)))
+    S, bs = _schur_accumulate(Wcp, Hpp_inv, bp, pairs, prob.pobs_fidx, f,
+                              chunk * prob.point_obs_table.shape[1] ** 2)
+    return Hcc, bc, S, bs, (Wcp, Hpp_inv, bp, prob.pobs_pidx, prob.pobs_fidx)
 
-    # -- lines ---------------------------------------------------------------
+
+def _line_system(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust: bool, chunk: int,
+                 pairs):
+    """The line observations' share, as :func:`_point_system`'s."""
+    f, l = prob.Rwb.shape[0], prob.lines.shape[0]
+    dtype = ACC
+    pose_free = (~prob.pose_fixed).to(dtype)
+    lthr = gn._thresholds(prob.lobs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
     lr, lrow, LJc, LJl = (x.to(dtype) for x in _line_rj(prob, intr, True))
     lsig = prob.lobs_sigma.to(dtype)
     lchi2 = (lr * lr * lrow).sum(-1) * lsig
@@ -354,28 +372,50 @@ def _assemble_and_solve(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust:
     LJc = LJc * lrow[..., None] * pose_free[prob.lobs_fidx][:, None, None]
     LJl = LJl * lrow[..., None]
     lrw = lr * lrow
-    Hcc = Hcc + _segment_add(f, prob.lobs_fidx, torch.einsum("n,nri,nrj->nij", lw, LJc, LJc))
-    bc = bc + _segment_add(f, prob.lobs_fidx, -torch.einsum("n,nri,nr->ni", lw, LJc, lrw))
+    Hcc = _segment_add(f, prob.lobs_fidx, torch.einsum("n,nri,nrj->nij", lw, LJc, LJc))
+    bc = _segment_add(f, prob.lobs_fidx, -torch.einsum("n,nri,nr->ni", lw, LJc, lrw))
     Hll = _segment_add(l, prob.lobs_lidx, torch.einsum("n,nri,nrj->nij", lw, LJl, LJl))
     bl = _segment_add(l, prob.lobs_lidx, -torch.einsum("n,nri,nr->ni", lw, LJl, lrw))
     Wcl = torch.einsum("n,nri,nrj->nij", lw, LJc, LJl)  # (M, 6, 4)
+    Hll_inv = gn.inv4_spd(gn._damped_landmarks(Hll, 4, lam.to(Hll.device, dtype)))
+    S, bs = _schur_accumulate(Wcl, Hll_inv, bl, pairs, prob.lobs_fidx, f,
+                              chunk * prob.line_obs_table.shape[1] ** 2)
+    return Hcc, bc, S, bs, (Wcl, Hll_inv, bl, prob.lobs_lidx, prob.lobs_fidx)
 
-    # -- landmark block inverses (damped, pinned when untouched) -------------
-    def damped(Hb, k):
-        eye = torch.eye(k, dtype=dtype, device=dev)
-        unseen = (torch.einsum("nii->n", Hb) < 1e-10).to(dtype)
-        return Hb + lam * eye + eye * unseen[:, None, None]
 
-    Hpp_inv = gn.inv3_spd(damped(Hpp, 3))
-    Hll_inv = gn.inv4_spd(damped(Hll, 4))
+def _back_substitute(back, dxc):
+    """A landmark family's step: Hinv (b − Σ_obs Wᵀ dxc[frame])."""
+    W, Hinv, b, lidx, fidx = back
+    contrib = torch.einsum("nij,ni->nj", W, dxc.to(W.device)[fidx])
+    return torch.einsum("pij,pj->pi", Hinv, b - _segment_add(b.shape[0], lidx, contrib))
 
-    # -- Schur over the landmarks' observation pairs -------------------------
-    S, bs = _schur_accumulate(Wcp, Hpp_inv, bp, pairs[0], prob.pobs_fidx, f,
-                              chunk * prob.point_obs_table.shape[1] ** 2)
-    S2, bs2 = _schur_accumulate(Wcl, Hll_inv, bl, pairs[1], prob.lobs_fidx, f,
-                                chunk * prob.line_obs_table.shape[1] ** 2)
-    S = S + S2
-    bs = bs + bs2
+
+def _assemble_and_solve(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust: bool,
+                        chunk: int, shards):
+    """One damped LM solve: residuals and Jacobians in the problem's float
+    type, the normal equations, the Schur complement, the reduced solve and
+    the back-substitution in float64 (``ACC``). Returns the steps in
+    float64: (poses (F, 6), points (P, 3), lines (L, 4), VI or None).
+    ``shards`` (:func:`observation_shards`): each shard's landmark blocks,
+    Schur sums (``chunk`` landmarks' worth of pairs, chunk·K², at a time)
+    and back-substitution on its device, the sums meeting on the problem's
+    device in shard order; the reduced solve and the IMU system run once
+    there."""
+    f = prob.Rwb.shape[0]
+    dtype, dev = ACC, prob.points.device
+    pose_free = (~prob.pose_fixed).to(dtype)
+    lam = lam.to(dtype)
+    pshards, lshards = shards.bind(prob)
+    pts = [_point_system(sh, intr, cfg, lam, robust, chunk, pr) for sh, pr in pshards]
+    lns = [_line_system(sh, intr, cfg, lam, robust, chunk, pr) for sh, pr in lshards]
+
+    def total(fam, i):
+        return reduce_sum([t[i] for t in fam], dev)
+
+    Hcc = total(pts, 0) + total(lns, 0)
+    bc = total(pts, 1) + total(lns, 1)
+    S = total(pts, 2) + total(lns, 2)
+    bs = total(pts, 3) + total(lns, 3)
 
     # -- reduced camera system ------------------------------------------------
     n6 = f * POSE_DIM
@@ -399,11 +439,94 @@ def _assemble_and_solve(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust:
         dxc, dvi = dx[:, 0:6], (dx[:, 6:9], dx[:, 9:12], dx[:, 12:15])
 
     # -- back-substitute landmarks --------------------------------------------
-    contrib_p = torch.einsum("nij,ni->nj", Wcp, dxc[prob.pobs_fidx])
-    dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - _segment_add(p, prob.pobs_pidx, contrib_p))
-    contrib_l = torch.einsum("nij,ni->nj", Wcl, dxc[prob.lobs_fidx])
-    dl = torch.einsum("lij,lj->li", Hll_inv, bl - _segment_add(l, prob.lobs_lidx, contrib_l))
+    dp = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in pts])
+    dl = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in lns])
     return dxc, dp, dl, dvi
+
+
+# ---------------------------------------------------------------------------
+# observation shards over a device mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+_FRAME_LEAVES = ("Rwb", "twb", "pose_fixed", "Rcb", "tcb")
+_POINT_OBS = ("pobs_fidx", "pobs", "pobs_mask")
+_LINE_OBS = ("lobs_fidx", "lobs", "lobs_stereo", "lobs_mask", "lobs_sigma")
+
+
+class _Family(NamedTuple):
+    """One landmark family's shards: per shard its device, landmark range
+    (lo, hi), the indices of its observations in the problem's list (None:
+    every observation, unmoved), its re-indexed landmark index and table and
+    its Schur pairs."""
+
+    land: str  # "points" | "lines"
+    lidx: str  # "pobs_pidx" | "lobs_lidx"
+    table: str  # "point_obs_table" | "line_obs_table"
+    obs: tuple
+    parts: list  # [(device, lo, hi, sel, lidx, table, pairs)]
+
+
+class ObservationShards(NamedTuple):
+    points: _Family
+    lines: _Family
+
+    def bind(self, prob: SparseBAProblem):
+        """Per family, [(shard problem, Schur pairs)] for the current
+        state of ``prob``: each shard's frames and landmarks copied to its
+        device, its observation leaves gathered (the masks too: they change
+        between the two passes of :func:`global_ba`)."""
+        return tuple(_bind(fam, prob) for fam in self)
+
+
+def _bind(fam: _Family, prob: SparseBAProblem):
+    out = []
+    for dev, lo, hi, sel, lidx, table, pairs in fam.parts:
+        if sel is None:
+            out.append((prob, pairs))
+            continue
+        fields = {k: getattr(prob, k).to(dev) for k in _FRAME_LEAVES}
+        fields.update({k: getattr(prob, k)[sel].to(dev) for k in fam.obs})
+        fields.update({fam.land: getattr(prob, fam.land)[lo:hi].to(dev), fam.lidx: lidx,
+                       fam.table: table})
+        out.append((prob._replace(**fields), pairs))
+    return out
+
+
+def _family_shards(prob: SparseBAProblem, land, lidx_name, table_name, obs, devs):
+    n = getattr(prob, land).shape[0]
+    lidx = getattr(prob, lidx_name)
+    table = getattr(prob, table_name)
+    n_obs = lidx.shape[0]
+    bounds = even_bounds(n, len(devs))
+    if len(bounds) == 1:
+        return _Family(land, lidx_name, table_name, obs,
+                       [(prob.points.device, 0, n, None, None, None, schur_pairs(table, n_obs))])
+    parts = []
+    lidx_h, table_h = lidx.cpu(), table.cpu()
+    for (lo, hi), dev in zip(bounds, devs):
+        sel = torch.nonzero((lidx_h >= lo) & (lidx_h < hi))[:, 0]
+        inv = torch.full((n_obs + 1,), sel.shape[0], dtype=torch.int64)
+        inv[sel] = torch.arange(sel.shape[0])
+        loc_table = inv[table_h[lo:hi]].to(dev)
+        parts.append((dev, lo, hi, sel.to(prob.points.device), (lidx_h[sel] - lo).to(dev),
+                      loc_table, schur_pairs(loc_table, sel.shape[0])))
+    return _Family(land, lidx_name, table_name, obs, parts)
+
+
+def observation_shards(prob: SparseBAProblem, mesh=None) -> ObservationShards:
+    """The sparse problem laid out for ``mesh`` (the JAX package's
+    ``shard_sparse_problem``): each landmark family's landmarks split over
+    the dp devices in contiguous ranges, and with them the observations of
+    those landmarks, re-indexed, with their own observation table and Schur
+    pairs; a shard's Schur pairs are its own landmarks' (a landmark's
+    observations stay on one device). Frames and camera are replicated. A
+    family whose landmark count dp does not divide stays whole on the
+    problem's device; so does everything without a mesh. The topology is
+    read once (one read-back per family)."""
+    devs = mesh.dp_devices() if mesh is not None else [prob.points.device]
+    return ObservationShards(
+        _family_shards(prob, "points", "pobs_pidx", "point_obs_table", _POINT_OBS, devs),
+        _family_shards(prob, "lines", "lobs_lidx", "line_obs_table", _LINE_OBS, devs))
 
 
 def _apply(prob: SparseBAProblem, dxc, dp, dl, dvi) -> SparseBAProblem:
@@ -421,19 +544,20 @@ _STATE = ("Rwb", "twb", "points", "lines", "vel", "bg", "ba")
 
 
 def optimize(prob: SparseBAProblem, intr, cfg: BAConfig, iterations: int,
-             robust: bool = True, chunk: int = 2048, tau: float = 1e-5) -> SparseBAProblem:
+             robust: bool = True, chunk: int = 2048, tau: float = 1e-5,
+             mesh=None) -> SparseBAProblem:
     """``iterations`` LM steps (g2o's Levenberg schedule: λ/3 on accept, λ·ν
-    and ν·2 on reject), accept/reject on the device."""
-    pairs = (schur_pairs(prob.point_obs_table, prob.pobs.shape[0]),
-             schur_pairs(prob.line_obs_table, prob.lobs.shape[0]))
+    and ν·2 on reject), accept/reject on the device. ``mesh``: observations
+    and landmarks sharded over its dp devices (:func:`observation_shards`)."""
+    shards = observation_shards(prob, mesh)
     with gn.full_f32():
-        cost = _total_cost(prob, intr, cfg, robust)
+        cost = _total_cost(prob, intr, cfg, robust, shards)
         lam = torch.full((), tau * 100.0, dtype=cost.dtype, device=cost.device)
         nu = torch.full((), 2.0, dtype=cost.dtype, device=cost.device)
         two = torch.full_like(nu, 2.0)
         for _ in range(iterations):
-            cand = _apply(prob, *_assemble_and_solve(prob, intr, cfg, lam, robust, chunk, pairs))
-            new_cost = _total_cost(cand, intr, cfg, robust)
+            cand = _apply(prob, *_assemble_and_solve(prob, intr, cfg, lam, robust, chunk, shards))
+            new_cost = _total_cost(cand, intr, cfg, robust, shards)
             accept = new_cost < cost  # False for a NaN candidate
 
             def pick(a, b):
@@ -448,11 +572,13 @@ def optimize(prob: SparseBAProblem, intr, cfg: BAConfig, iterations: int,
 
 
 def global_ba(prob: SparseBAProblem, intr, cfg: BAConfig = BAConfig(),
-              iters1: int = 50, iters2: int = 40, chunk: int = 2048):
+              iters1: int = 50, iters2: int = 40, chunk: int = 2048, mesh=None):
     """GlobalBA's two-pass robust schedule: optimize → chi² gate → optimize
     on the inliers → final inlier flags on the original set. Returns
-    (problem, point inliers (N,), line inliers (M,))."""
-    prob1 = optimize(prob, intr, cfg, iters1, robust=True, chunk=chunk)
+    (problem, point inliers (N,), line inliers (M,)). ``mesh``: both passes
+    sharded (:func:`optimize`); the gates are per observation and run on the
+    problem's device."""
+    prob1 = optimize(prob, intr, cfg, iters1, robust=True, chunk=chunk, mesh=mesh)
     pthr, lthr = _thresholds(prob1, cfg, prob1.points.dtype)
 
     def inliers(p):
@@ -462,7 +588,7 @@ def global_ba(prob: SparseBAProblem, intr, cfg: BAConfig = BAConfig(),
 
     p_in, l_in = inliers(prob1)
     gated = optimize(prob1._replace(pobs_mask=p_in, lobs_mask=l_in), intr, cfg, iters2,
-                     robust=False, chunk=chunk)
+                     robust=False, chunk=chunk, mesh=mesh)
     final = gated._replace(pobs_mask=prob.pobs_mask, lobs_mask=prob.lobs_mask)
     p_in, l_in = inliers(final)
     return final, p_in, l_in

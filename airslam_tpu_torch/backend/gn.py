@@ -40,6 +40,7 @@ import torch
 
 from airslam_tpu_torch.backend import residuals as res
 from airslam_tpu_torch.core import lie
+from airslam_tpu_torch.parallel.mesh import even_bounds, reduce_sum
 
 POSE_DIM = 6
 # Smallest |det| admitted by the closed-form block inverses; far below any
@@ -430,20 +431,33 @@ def _thresholds(flag, hi: float, lo: float, dtype):
                        torch.full((), lo, dtype=dtype, device=flag.device))
 
 
-def total_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
+def _point_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
     pchi2, _ = point_chi2(problem, intr)
-    dtype = pchi2.dtype
     is_stereo = problem.point_obs[..., 2] >= 0
-    pthr = _thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, dtype)
+    pthr = _thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, pchi2.dtype)
     active_p = problem.point_obs_mask
+    if robust:
+        return _huber_cost(pchi2, pthr, active_p)
+    return torch.where(active_p, pchi2, torch.zeros_like(pchi2)).sum()
+
+
+def _line_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
     lchi2 = line_chi2(problem, intr)
-    lthr = _thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
+    lthr = _thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, lchi2.dtype)
     active_l = problem.line_obs_mask
     if robust:
-        cost = _huber_cost(pchi2, pthr, active_p) + _huber_cost(lchi2, lthr, active_l)
-    else:
-        cost = (torch.where(active_p, pchi2, torch.zeros_like(pchi2)).sum()
-                + torch.where(active_l, lchi2, torch.zeros_like(lchi2)).sum())
+        return _huber_cost(lchi2, lthr, active_l)
+    return torch.where(active_l, lchi2, torch.zeros_like(lchi2)).sum()
+
+
+def total_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool, mesh=None):
+    """The LM cost. With a ``mesh`` each landmark shard's point and line
+    terms are computed on its device and summed on the problem's; the IMU
+    terms, frame-only, once."""
+    pshards, lshards = landmark_shards(problem, mesh)
+    dev = problem.points.device
+    cost = (reduce_sum([_point_cost(s, intr, cfg, robust) for s in pshards], dev)
+            + reduce_sum([_line_cost(s, intr, cfg, robust) for s in lshards], dev))
     if problem.imu is not None:
         r, _ = _imu_residuals(problem, with_jac=False)
         r9, rw = r[:, :9], r[:, 9:]
@@ -460,26 +474,72 @@ def total_cost(problem: BAProblem, intr, cfg: BAConfig, robust: bool):
 
 
 # ---------------------------------------------------------------------------
+# landmark shards over a device mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+_POINT_LEAVES = ("points", "point_fixed", "point_obs", "point_obs_mask")
+_LINE_LEAVES = ("lines", "line_fixed", "line_obs", "line_obs_stereo", "line_obs_mask",
+                "line_obs_sigma")
+
+
+def _frame_leaves_on(problem: BAProblem, device) -> dict:
+    """The leaves every landmark shard reads (frames, fixes, camera) on
+    ``device``."""
+    return {"frames": FrameStates(*(t.to(device) for t in problem.frames)),
+            "pose_fixed": problem.pose_fixed.to(device), "Rcb": problem.Rcb.to(device),
+            "tcb": problem.tcb.to(device)}
+
+
+def landmark_shards(problem: BAProblem, mesh=None):
+    """(point shards, line shards): each a ``BAProblem`` on one dp device of
+    ``mesh`` holding the frames and camera and a contiguous slice of one
+    landmark family with its observation rows (the JAX package's
+    ``shard_problem``: landmark-major arrays over dp, the rest replicated). A
+    family whose count dp does not divide is one shard on the problem's
+    device. Without a mesh: the problem itself, once per family."""
+    if mesh is None:
+        return [problem], [problem]
+    devs = mesh.dp_devices()
+
+    def family(leaves, n):
+        bounds = even_bounds(n, len(devs))
+        out = []
+        for (lo, hi), dev in zip(bounds, devs if len(bounds) > 1 else [problem.points.device]):
+            fields = {k: getattr(problem, k)[lo:hi].to(dev) for k in leaves}
+            out.append(problem._replace(**_frame_leaves_on(problem, dev), **fields))
+        return out
+
+    return (family(_POINT_LEAVES, problem.points.shape[0]),
+            family(_LINE_LEAVES, problem.lines.shape[0]))
+
+
+# ---------------------------------------------------------------------------
 # normal equations assembly + Schur solve
 # ---------------------------------------------------------------------------
 
 
-def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bool):
-    """One damped LM solve. Returns (dx_frames (F,15), dRwg tangent (2,),
-    dpoints (P,3), dlines (L,4)).
+def _damped_landmarks(Hb, k: int, lam):
+    """Landmark blocks + λI, an unseen landmark's block pinned to identity."""
+    eye = torch.eye(k, dtype=Hb.dtype, device=Hb.device)
+    unseen = (torch.einsum("nii->n", Hb) < 1e-10).to(Hb.dtype)
+    return Hb + lam * eye + eye * unseen[:, None, None]
 
-    Vision-only: velocity/bias rows are touched ONLY by IMU factors, so the
-    reduced system is the F·6 pose block (exact, the dropped rows carry no
-    coupling), and gravity has no gradient. With IMU factors the system is
-    the (F, 15, F, 15) frame block grid plus the 2-dof gravity border."""
-    f = problem.frames.Rwb.shape[0]
-    dtype, dev = problem.points.dtype, problem.points.device
 
-    # The landmark-family contractions are tiny (residual rows 3/4, dof
-    # 3/4/6) and batched over the grid: they are written as
-    # broadcast-multiply-reduce, as in the JAX package.
+def _schur_terms(W, Hinv, b, f: int):
+    """The landmark family's Schur complement onto the pose rows: Y = W·Hinv
+    per landmark, then ONE real contraction over (landmark, landmark-dof).
+    Returns (S (6F, 6F), bs (F, 6))."""
+    Y = (W[..., :, None] * Hinv[:, None, None, :, :]).sum(dim=3)
+    n = f * POSE_DIM
+    return torch.einsum("pfac,pgdc->fagd", Y, W).reshape(n, n), (Y * b[:, None, None, :]).sum(
+        dim=(0, 3))
 
-    # -- points ------------------------------------------------------------
+
+def _point_system(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bool):
+    """The point family's share of one LM solve: (Hcc (F, 6, 6), bc (F, 6),
+    its Schur terms S (6F, 6F), bs (F, 6), and (W, Hinv, b) for the
+    back-substitution)."""
+    dtype = problem.points.dtype
     r, row_mask, _, Jc, Jp = _point_grid_residuals(problem, intr, True)
     is_stereo = problem.point_obs[..., 2] >= 0
     thr = _thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, dtype)
@@ -495,18 +555,25 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
     wJc = Jc * w[..., None, None]  # (P, F, 3, 6)
     wJp = Jp * w[..., None, None]  # (P, F, 3, 3)
 
-    Hcc_pt = (wJc[..., :, None] * Jc[..., None, :]).sum(dim=(0, 2))
-    bc_pt = -(wJc * rw[..., None]).sum(dim=(0, 2))
+    Hcc = (wJc[..., :, None] * Jc[..., None, :]).sum(dim=(0, 2))
+    bc = -(wJc * rw[..., None]).sum(dim=(0, 2))
     Hpp = (wJp[..., :, None] * Jp[..., None, :]).sum(dim=(1, 2))
     bp = -(wJp * rw[..., None]).sum(dim=(1, 2))
     Wcp = (wJc[..., :, None] * Jp[..., None, :]).sum(dim=2)  # (P,F,6,3)
+    Hpp_inv = inv3_spd(_damped_landmarks(Hpp, 3, lam.to(problem.points.device)))
+    S, bs = _schur_terms(Wcp, Hpp_inv, bp, problem.frames.Rwb.shape[0])
+    return Hcc, bc, S, bs, (Wcp, Hpp_inv, bp)
 
-    # -- lines -------------------------------------------------------------
+
+def _line_system(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bool):
+    """The line family's share, as :func:`_point_system`'s."""
+    dtype = problem.lines.dtype
     lr, lrow_mask, LJc, LJl = _line_grid_residuals(problem, intr, True)
     lthr = _thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
     lchi2 = (lr * lr * lrow_mask).sum(-1) * problem.line_obs_sigma
     lw = res.huber_weight(lchi2, lthr) if robust else torch.ones_like(lchi2)
     lw = lw * problem.line_obs_mask * problem.line_obs_sigma
+    pose_free = (~problem.pose_fixed).to(dtype)
     LJc = LJc * lrow_mask[..., None] * pose_free[None, :, None, None]
     line_free = (~problem.line_fixed).to(dtype)
     LJl = LJl * lrow_mask[..., None] * line_free[:, None, None, None]
@@ -514,36 +581,56 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
     wLJc = LJc * lw[..., None, None]  # (L, F, 4, 6)
     wLJl = LJl * lw[..., None, None]  # (L, F, 4, 4)
 
-    Hcc_ln = (wLJc[..., :, None] * LJc[..., None, :]).sum(dim=(0, 2))
-    bc_ln = -(wLJc * lrw[..., None]).sum(dim=(0, 2))
+    Hcc = (wLJc[..., :, None] * LJc[..., None, :]).sum(dim=(0, 2))
+    bc = -(wLJc * lrw[..., None]).sum(dim=(0, 2))
     Hll = (wLJl[..., :, None] * LJl[..., None, :]).sum(dim=(1, 2))
     bl = -(wLJl * lrw[..., None]).sum(dim=(1, 2))
     Wcl = (wLJc[..., :, None] * LJl[..., None, :]).sum(dim=2)  # (L,F,6,4)
+    Hll_inv = inv4_spd(_damped_landmarks(Hll, 4, lam.to(problem.lines.device)))
+    S, bs = _schur_terms(Wcl, Hll_inv, bl, problem.frames.Rwb.shape[0])
+    return Hcc, bc, S, bs, (Wcl, Hll_inv, bl)
 
-    Hcc = Hcc_pt + Hcc_ln  # (F, 6, 6)
-    bc = bc_pt + bc_ln
+
+def _back_substitute(back, dxc):
+    """A landmark family's step from the pose step: Hinv (b − Wᵀ dxc)."""
+    W, Hinv, b = back
+    g = b - (W * dxc.to(W.device)[None, :, :, None]).sum(dim=(1, 2))
+    return (Hinv * g[:, None, :]).sum(dim=2)
+
+
+def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bool,
+                        mesh=None):
+    """One damped LM solve. Returns (dx_frames (F,15), dRwg tangent (2,),
+    dpoints (P,3), dlines (L,4)).
+
+    Vision-only: velocity/bias rows are touched ONLY by IMU factors, so the
+    reduced system is the F·6 pose block (exact, the dropped rows carry no
+    coupling), and gravity has no gradient. With IMU factors the system is
+    the (F, 15, F, 15) frame block grid plus the 2-dof gravity border.
+
+    With a ``mesh`` (:func:`landmark_shards`) each landmark shard's blocks,
+    Schur terms and back-substitution run on its device; their sums meet on
+    the problem's device in shard order, where the damped solve runs once.
+    The IMU blocks and the gravity border are added once."""
+    f = problem.frames.Rwb.shape[0]
+    dtype, dev = problem.points.dtype, problem.points.device
+
+    # The landmark-family contractions are tiny (residual rows 3/4, dof
+    # 3/4/6) and batched over the grid: they are written as
+    # broadcast-multiply-reduce, as in the JAX package.
+    pshards, lshards = landmark_shards(problem, mesh)
+    pts = [_point_system(s, intr, cfg, lam, robust) for s in pshards]
+    lns = [_line_system(s, intr, cfg, lam, robust) for s in lshards]
+
+    def total(fam, i):
+        return reduce_sum([t[i] for t in fam], dev)
+
+    Hcc = total(pts, 0) + total(lns, 0)  # (F, 6, 6)
+    bc = total(pts, 1) + total(lns, 1)
     if problem.imu is not None:
         Hff, bf, Hfg, Hgg, bg_grav = _imu_blocks(problem, cfg, Hcc, bc, robust)
-
-    # -- landmark-block damping + closed-form inverses ---------------------
-    def damped(Hb, k):
-        eye = torch.eye(k, dtype=dtype, device=dev)
-        unseen = (torch.einsum("nii->n", Hb) < 1e-10).to(dtype)  # pinned to identity
-        return Hb + lam * eye + eye * unseen[:, None, None]
-
-    Hpp_inv = inv3_spd(damped(Hpp, 3))
-    Hll_inv = inv4_spd(damped(Hll, 4))
-
-    # -- Schur complement onto the pose rows -------------------------------
-    # Y = W · Hinv per landmark, then ONE real contraction per family over
-    # (landmark, landmark-dof): the only matmul-shaped op of the assembly.
-    Y = (Wcp[..., :, None] * Hpp_inv[:, None, None, :, :]).sum(dim=3)
-    Yl = (Wcl[..., :, None] * Hll_inv[:, None, None, :, :]).sum(dim=3)
-    n = f * POSE_DIM
-    S_big6 = (torch.einsum("pfac,pgdc->fagd", Y, Wcp).reshape(n, n)
-              + torch.einsum("lfac,lgdc->fagd", Yl, Wcl).reshape(n, n))
-    bs = ((Y * bp[:, None, None, :]).sum(dim=(0, 3))
-          + (Yl * bl[:, None, None, :]).sum(dim=(0, 3)))  # (F, 6)
+    S_big6 = total(pts, 2) + total(lns, 2)
+    bs = total(pts, 3) + total(lns, 3)  # (F, 6)
 
     if problem.imu is not None:
         # fold the landmark Schur complement into the pose sub-blocks, then
@@ -567,10 +654,8 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
         dg = torch.zeros(GRAV_DIM, dtype=dtype, device=dev)
 
     # -- back-substitute landmarks ----------------------------------------
-    gp = bp - (Wcp * dxc[None, :, :, None]).sum(dim=(1, 2))  # (P, 3)
-    gl = bl - (Wcl * dxc[None, :, :, None]).sum(dim=(1, 2))  # (L, 4)
-    dp = (Hpp_inv * gp[:, None, :]).sum(dim=2)
-    dl = (Hll_inv * gl[:, None, :]).sum(dim=2)
+    dp = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in pts])
+    dl = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in lns])
     return dx_frames, dg, dp, dl
 
 
@@ -672,7 +757,7 @@ def apply_update(problem: BAProblem, dx_frames, dg, dp, dl) -> BAProblem:
 
 
 def optimize(problem: BAProblem, intr, cfg: BAConfig, iterations: int, robust: bool = True,
-             tau: float = 1e-5, early_exit: float = 0.0) -> BAProblem:
+             tau: float = 1e-5, early_exit: float = 0.0, mesh=None) -> BAProblem:
     """Run ``iterations`` LM steps (g2o Levenberg strategy) and return the
     updated problem. Accept/reject and the damping schedule stay on the
     device.
@@ -680,18 +765,19 @@ def optimize(problem: BAProblem, intr, cfg: BAConfig, iterations: int, robust: b
     ``early_exit`` (opt-in — deviates from g2o's fixed schedule): when > 0,
     stop once an accepted step improves the cost by less than ``early_exit``
     relative; this reads one flag per step back to the host. 0.0 keeps the
-    reference's iteration counts."""
+    reference's iteration counts. ``mesh``: the landmarks sharded over its
+    dp devices (:func:`landmark_shards`)."""
     with full_f32():
-        cost = total_cost(problem, intr, cfg, robust)
+        cost = total_cost(problem, intr, cfg, robust, mesh)
         # g2o: tau * max(diag(H)); diag ~O(1e2) for pixel terms
         lam = torch.full((), tau * 100.0, dtype=cost.dtype, device=cost.device)
         nu = torch.full((), 2.0, dtype=cost.dtype, device=cost.device)
         two = torch.full_like(nu, 2.0)
 
         for _ in range(iterations):
-            dxf, dg, dp, dl = _assemble_and_solve(problem, intr, cfg, lam, robust)
+            dxf, dg, dp, dl = _assemble_and_solve(problem, intr, cfg, lam, robust, mesh)
             cand = apply_update(problem, dxf, dg, dp, dl)
-            new_cost = total_cost(cand, intr, cfg, robust)
+            new_cost = total_cost(cand, intr, cfg, robust, mesh)
             accept = new_cost < cost  # False for a NaN candidate
 
             def pick(a, b):

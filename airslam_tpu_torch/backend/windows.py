@@ -45,13 +45,17 @@ POSE_LM_NU0 = 2.0
 
 
 def local_ba(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConfig(),
-             iters1: int = 5, iters2: int = 15, early_exit: float = 0.0):
+             iters1: int = 5, iters2: int = 15, early_exit: float = 0.0, mesh=None):
     """Two-stage sliding-window BA with chi² gating. Returns
     (problem, point_inlier (P, F), line_inlier (L, F)).
 
     ``early_exit`` > 0 (opt-in): end either LM stage when an accepted step's
-    relative improvement drops below it (see gn.optimize)."""
-    problem = gn.optimize(problem, intr, cfg, iters1, robust=True, early_exit=early_exit)
+    relative improvement drops below it (see gn.optimize). ``mesh``
+    (``parallel/mesh.py``): both LM stages with the landmarks sharded over
+    its dp devices (``gn.landmark_shards``); the gates are per observation
+    and run on the problem's device."""
+    problem = gn.optimize(problem, intr, cfg, iters1, robust=True, early_exit=early_exit,
+                          mesh=mesh)
     dtype = problem.points.dtype
 
     # gate outliers (g2o_optimization.cc:350-385)
@@ -64,7 +68,8 @@ def local_ba(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConfig(),
     l_in = (lchi2 <= lthr) & problem.line_obs_mask
 
     gated = problem._replace(point_obs_mask=p_in, line_obs_mask=l_in)
-    gated = gn.optimize(gated, intr, cfg, iters2, robust=False, early_exit=early_exit)
+    gated = gn.optimize(gated, intr, cfg, iters2, robust=False, early_exit=early_exit,
+                        mesh=mesh)
 
     # final inlier flags (g2o_optimization.cc:389-407) on the original masks
     final = gated._replace(point_obs_mask=problem.point_obs_mask,

@@ -165,13 +165,19 @@ class FeatureDetector:
     """Owns PLNet and the stage-1 LOI head, loaded from the shipped
     ``plnet_s0.npz``, and with ``config.use_superpoint`` SuperPoint from
     ``superpoint.npz``. ``device``: ``cuda`` unless the caller passes another
-    (``"cpu"`` runs the plain versions of the kernels).
+    (``"cpu"`` runs the plain versions of the kernels). ``params``: a tree in
+    the JAX ``FeatureDetector``'s layout (``{"plnet", "loi"[, "superpoint"]}``,
+    as a ``--model_dir``'s ``plnet.npz`` holds it) whose entries replace the
+    shipped ones.
     """
 
-    def __init__(self, config: DetectorConfig = DetectorConfig(), device=None):
+    def __init__(self, config: DetectorConfig = DetectorConfig(), device=None, params=None):
         self.config = config
         self.device = resolve_device(device)
-        params = wio.load_npz(wio.checkpoint_path("plnet_s0.npz"))
+        params = dict(params or {})
+        if "plnet" not in params or "loi" not in params:
+            shipped = wio.load_npz(wio.checkpoint_path("plnet_s0.npz"))
+            params = {"plnet": shipped["plnet"], "loi": shipped["loi"], **params}
         self.plnet = PLNet(dtype=config.dtype)
         self.plnet.load_state_dict(wio.plnet_from_flax(params["plnet"]))
         self.loi = LoiHeadS1(dtype=config.dtype)
@@ -182,7 +188,8 @@ class FeatureDetector:
         if config.use_superpoint:
             self.superpoint = SuperPoint(dtype=config.dtype)
             self.superpoint.load_state_dict(wio.superpoint_from_flax(
-                wio.load_npz(wio.checkpoint_path("superpoint.npz"))))
+                params.get("superpoint")
+                or wio.load_npz(wio.checkpoint_path("superpoint.npz"))))
             self.superpoint.to(self.device).eval()
 
     @torch.no_grad()

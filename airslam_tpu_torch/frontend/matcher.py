@@ -23,6 +23,9 @@ from airslam_tpu_torch.models.superglue import SuperGlue
 from airslam_tpu_torch.ops.match import Matches, mutual_match
 
 
+MATCHER_FILES = {0: "lightglue.npz", 1: "superglue.npz"}  # checkpoint per ``matcher:``
+
+
 @dataclasses.dataclass(frozen=True)
 class MatcherConfig:
     matcher: int = 0  # 0 lightglue, 1 superglue (vo_euroc.yaml:10)
@@ -57,24 +60,26 @@ def _reject_outliers(p0, p1, i0, i1, sc):
 class PointMatcher:
     """LightGlue (``matcher: 0``, the shipped ``lightglue.npz``) or SuperGlue
     (``matcher: 1``, ``superglue.npz``, Sinkhorn iterations from the config).
-    ``device``: ``cuda`` unless the caller passes another."""
+    ``device``: ``cuda`` unless the caller passes another. ``params``: the
+    matcher's tree in the JAX layout (a ``--model_dir``'s ``lightglue.npz`` /
+    ``superglue.npz``) in place of the shipped one."""
 
-    def __init__(self, config: MatcherConfig = MatcherConfig(), device=None):
+    def __init__(self, config: MatcherConfig = MatcherConfig(), device=None, params=None):
         self.config = config
         self.device = resolve_device(device)
+        if params is None:
+            params = wio.load_npz(wio.checkpoint_path(MATCHER_FILES[config.matcher]))
         if config.matcher == 0:
             self.threshold = 0.1  # exp-score gate (light_glue.cpp:214-266)
             self.norm_scale = 0.5  # NormalizeKeypoints scale
             self.model = LightGlue(dtype=config.dtype, use_flash=config.use_flash)
-            self.model.load_state_dict(wio.lightglue_from_flax(
-                wio.load_npz(wio.checkpoint_path("lightglue.npz"))))
+            self.model.load_state_dict(wio.lightglue_from_flax(params))
         else:
             self.threshold = 0.2  # super_glue.cpp:339-367
             self.norm_scale = 0.7
             self.model = SuperGlue(dtype=config.dtype,
                                    sinkhorn_iterations=config.sinkhorn_iterations)
-            self.model.load_state_dict(wio.superglue_from_flax(
-                wio.load_npz(wio.checkpoint_path("superglue.npz"))))
+            self.model.load_state_dict(wio.superglue_from_flax(params))
         self.model.to(self.device).eval()
 
     @torch.no_grad()

@@ -13,6 +13,14 @@ keypoints (…, N, 2), descriptors (…, N, dim), masks (…, N).
 Numerics follow the flax module: LayerNorm eps 1e-6 in f32, tanh-approximate
 GELU, rotary frequencies and matchability in f32, rotary cos/sin cast to the
 compute dtype, the final similarity in f32.
+
+Tensor parallelism (``parallel/mesh.shard_lightglue_params``): a block
+whose ``tp_rows`` are set splits its heads over the tp devices of the row
+that holds its input. Each device computes its heads' q/k/v projection
+(the projections' rows of those heads, read through a differentiable copy),
+their attention, and its share of the output projection (the matching
+columns); the shares are summed on the input's device and the bias added
+once.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from airslam_tpu_torch.ops.attention import flash_mha, mha
+from airslam_tpu_torch.parallel.mesh import reduce_sum, same_device
 
 _NEG = -1e9
 
@@ -77,6 +86,19 @@ class TokenUpdate(nn.Module):
         return x + h.to(x.dtype)
 
 
+def _tp_row(blk, device):
+    """The tp devices a block splits its heads over for an input on
+    ``device`` (the mesh row whose first device it is), or None."""
+    rows = getattr(blk, "tp_rows", None)
+    if not rows:
+        return None
+    return next((row for row in rows if same_device(row[0], device)), rows[0])
+
+
+def _head_cols(i: int, width: int) -> slice:
+    return slice(i * width, (i + 1) * width)
+
+
 class SelfBlock(nn.Module):
     def __init__(self, dim: int, heads: int, use_flash: bool = False):
         super().__init__()
@@ -86,13 +108,29 @@ class SelfBlock(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.update = TokenUpdate(dim)
 
-    def forward(self, x, cos, sin, mask):
-        q, k, v = (_heads_first(t, self.heads) for t in self.qkv(x).chunk(3, dim=-1))
+    def _attend(self, qkv, heads, cos, sin, mask):
+        q, k, v = (_heads_first(t, heads) for t in qkv.chunk(3, dim=-1))
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         attn = flash_mha if self.use_flash else mha
-        out = attn(q, k, v, kv_mask=mask)
-        return self.update(x, self.proj(_merge(out)))
+        return _merge(attn(q, k, v, kv_mask=mask))
+
+    def forward(self, x, cos, sin, mask):
+        row = _tp_row(self, x.device)
+        if row is None:
+            return self.update(x, self.proj(self._attend(self.qkv(x), self.heads, cos, sin,
+                                                         mask)))
+        dim, g = x.shape[-1], self.heads // len(row)
+        width = g * (dim // self.heads)
+        parts = []
+        for i, dev in enumerate(row):
+            cols = _head_cols(i, width)
+            idx = torch.cat([torch.arange(cols.start, cols.stop) + j * dim for j in range(3)])
+            idx = idx.to(self.qkv.weight.device)
+            qkv = F.linear(x.to(dev), self.qkv.weight[idx].to(dev), self.qkv.bias[idx].to(dev))
+            out = self._attend(qkv, g, cos.to(dev), sin.to(dev), mask.to(dev))
+            parts.append(F.linear(out, self.proj.weight[:, cols].to(dev)))
+        return self.update(x, reduce_sum(parts, x.device) + self.proj.bias)
 
 
 class CrossBlock(nn.Module):
@@ -109,10 +147,9 @@ class CrossBlock(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.update = TokenUpdate(dim)
 
-    def forward(self, x0, x1, mask0, mask1):
-        h = self.heads
-        qk0, qk1 = _heads_first(self.to_qk(x0), h), _heads_first(self.to_qk(x1), h)
-        v0, v1 = _heads_first(self.to_v(x0), h), _heads_first(self.to_v(x1), h)
+    def _attend(self, qk0, qk1, v0, v1, mask0, mask1, h):
+        """Both directions' messages, (…, N, h·D) each."""
+        qk0, qk1, v0, v1 = (_heads_first(t, h) for t in (qk0, qk1, v0, v1))
         if self.use_flash:
             m0 = flash_mha(qk0, qk1, v1, kv_mask=mask1)
             m1 = flash_mha(qk1, qk0, v0, kv_mask=mask0)
@@ -124,9 +161,30 @@ class CrossBlock(nn.Module):
             att10 = torch.softmax(torch.where(mask0[..., None, :, None], sim, neg), dim=-2)
             m0 = torch.einsum("...hnm,...hmd->...hnd", att01, v1)
             m1 = torch.einsum("...hnm,...hnd->...hmd", att10, v0)
-        x0 = self.update(x0, self.proj(_merge(m0)))
-        x1 = self.update(x1, self.proj(_merge(m1)))
-        return x0, x1
+        return _merge(m0), _merge(m1)
+
+    def forward(self, x0, x1, mask0, mask1):
+        row = _tp_row(self, x0.device)
+        if row is None:
+            m0, m1 = self._attend(self.to_qk(x0), self.to_qk(x1), self.to_v(x0), self.to_v(x1),
+                                  mask0, mask1, self.heads)
+            return self.update(x0, self.proj(m0)), self.update(x1, self.proj(m1))
+        g = self.heads // len(row)
+        width = g * (x0.shape[-1] // self.heads)
+        parts0, parts1 = [], []
+        for i, dev in enumerate(row):
+            cols = _head_cols(i, width)
+            wqk, bqk = self.to_qk.weight[cols].to(dev), self.to_qk.bias[cols].to(dev)
+            wv, bv = self.to_v.weight[cols].to(dev), self.to_v.bias[cols].to(dev)
+            y0, y1 = x0.to(dev), x1.to(dev)
+            m0, m1 = self._attend(F.linear(y0, wqk, bqk), F.linear(y1, wqk, bqk),
+                                  F.linear(y0, wv, bv), F.linear(y1, wv, bv),
+                                  mask0.to(dev), mask1.to(dev), g)
+            wp = self.proj.weight[:, cols].to(dev)
+            parts0.append(F.linear(m0, wp))
+            parts1.append(F.linear(m1, wp))
+        return (self.update(x0, reduce_sum(parts0, x0.device) + self.proj.bias),
+                self.update(x1, reduce_sum(parts1, x1.device) + self.proj.bias))
 
 
 class LightGlue(nn.Module):

@@ -75,6 +75,20 @@ def save_npz(path: str, tree: Dict[str, Any]):
     np.savez_compressed(path, **flat)
 
 
+def load_model_dir(model_dir, matcher: int = 0):
+    """(detector tree, matcher tree) a CLI's ``--model_dir`` gives: its
+    ``plnet.npz`` and ``lightglue.npz`` (``matcher`` 0) or ``superglue.npz``
+    (1), in the JAX layout, each None where the directory lacks the file (or
+    no directory is given), so the shipped checkpoint is used
+    (``apps/visual_odometry.py:60-72``)."""
+
+    def read(name):
+        path = os.path.join(model_dir, name) if model_dir else None
+        return load_npz(path) if path and os.path.exists(path) else None
+
+    return read("plnet.npz"), read("lightglue.npz" if matcher == 0 else "superglue.npz")
+
+
 def _params(tree):
     return tree["params"] if "params" in tree else tree
 

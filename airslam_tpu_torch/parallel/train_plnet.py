@@ -31,8 +31,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from airslam_tpu_torch.backend.gn import deterministic
 from airslam_tpu_torch.frontend import synthgen
 from airslam_tpu_torch.ops.gridsample import sample_descriptors
+from airslam_tpu_torch.parallel.mesh import dp_gradients, refresh_replicas
 
 SIZE = synthgen.SIZE
 GRID8 = SIZE // 8  # 64
@@ -62,14 +64,17 @@ def _cells(v: torch.Tensor, size: int) -> torch.Tensor:
 def _scatter(base: torch.Tensor, flat: torch.Tensor, values: torch.Tensor, reduce: str):
     """``base.at[cells].<reduce>(values)`` on (B, G, G[, K]) grids, with
     ``flat`` (B, N) the cells' row-major indices. ``set`` keeps one of
-    colliding writes, undefined which (as ``.at[].set``)."""
+    colliding writes (``.at[].set`` leaves which undefined), the same one in
+    every run: the write runs under deterministic algorithms, where a CUDA
+    write's winner would otherwise change from run to run."""
     b = base.shape[0]
     g2 = base.shape[1] * base.shape[2]
     tail = base.shape[3:]
     out = base.reshape((b, g2) + tail).clone()
     if reduce == "set":
         rows = torch.arange(b, device=base.device)[:, None].expand_as(flat)
-        out[rows, flat] = values
+        with deterministic():
+            out[rows, flat] = values
     else:
         idx = flat.reshape(flat.shape + (1,) * len(tail)).expand(flat.shape + tail)
         out.scatter_reduce_(1, idx, values, reduce, include_self=True)
@@ -234,13 +239,17 @@ def descriptor_loss(desc0, desc1, s0: synthgen.Scene, s1: synthgen.Scene,
     return ((ce_r + ce_c) * 0.5 * m).sum(1) / cnt
 
 
-def _mean_terms(total, terms):
+def _mean_terms(total, terms, per_image: bool = False):
+    if per_image:
+        return total, terms
     return total.mean(), {k: v.mean() for k, v in terms.items()}
 
 
-def plnet_loss(plnet, loi, s0: synthgen.Scene, s1: synthgen.Scene, draws):
+def plnet_loss(plnet, loi, s0: synthgen.Scene, s1: synthgen.Scene, draws,
+               per_image: bool = False):
     """Mean loss and mean terms of PLNet stage 0 and the LOI head on scenes
-    ``s0`` (and the pair's ``s1`` for the descriptor term; None without)."""
+    ``s0`` (and the pair's ``s1`` for the descriptor term; None without).
+    ``per_image``: the (B,) loss and terms instead of their means."""
     b = s0.image.shape[0]
     imgs = s0.image if s1 is None else torch.cat([s0.image, s1.image])
     out = plnet(imgs[:, None])
@@ -249,27 +258,28 @@ def plnet_loss(plnet, loi, s0: synthgen.Scene, s1: synthgen.Scene, draws):
     if s1 is not None:
         terms["desc"] = descriptor_loss(out["descriptors"][:b], out["descriptors"][b:], s0, s1)
     total = sum(WEIGHTS[k] * v for k, v in terms.items())
-    return _mean_terms(total, terms)
+    return _mean_terms(total, terms, per_image)
 
 
 def _kp_ce(logits, labels):
     return F.cross_entropy(logits.permute(0, 3, 1, 2), labels, reduction="none").mean(dim=(1, 2))
 
 
-def superpoint_loss(sp, s0: synthgen.Scene, s1: synthgen.Scene):
+def superpoint_loss(sp, s0: synthgen.Scene, s1: synthgen.Scene, per_image: bool = False):
     """SuperPoint: keypoint CE on view 0 and descriptor InfoNCE on the pair
-    (train_plnet.py:314-325)."""
+    (train_plnet.py:314-325). ``per_image`` as :func:`plnet_loss`'s."""
     b = s0.image.shape[0]
     out = sp(torch.cat([s0.image, s1.image])[:, None])
     ce = _kp_ce(out["kp_logits"][:b], scene_targets(s0).kp_label)
     dl = descriptor_loss(out["descriptors"][:b], out["descriptors"][b:], s0, s1)
-    return _mean_terms(ce + dl, {"kp": ce, "desc": dl})
+    return _mean_terms(ce + dl, {"kp": ce, "desc": dl}, per_image)
 
 
-def superpoint_distill_loss(sp, plnet, s0: synthgen.Scene, s1: synthgen.Scene):
+def superpoint_distill_loss(sp, plnet, s0: synthgen.Scene, s1: synthgen.Scene,
+                            per_image: bool = False):
     """SuperPoint with its descriptors regressed (cosine) onto the frozen
     PLNet's at the ground-truth corners, plus keypoint CE
-    (train_plnet.py:267-297)."""
+    (train_plnet.py:267-297). ``per_image`` as :func:`plnet_loss`'s."""
     b = s0.image.shape[0]
     imgs = torch.cat([s0.image, s1.image])[:, None]
     out = sp(imgs)
@@ -285,7 +295,7 @@ def superpoint_distill_loss(sp, plnet, s0: synthgen.Scene, s1: synthgen.Scene):
         dist = dist + torch.where(m, 1.0 - cos, 0.0).sum(1) / torch.clamp_min(m.sum(1).float(),
                                                                             1.0)
     dist = dist * 0.5
-    return _mean_terms(ce + 4.0 * dist, {"kp": ce, "distill": dist})
+    return _mean_terms(ce + 4.0 * dist, {"kp": ce, "distill": dist}, per_image)
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +328,13 @@ class ClippedAdam:
         """Backward of ``loss``, clip, one Adam step. Returns the norm."""
         self.adam.zero_grad(set_to_none=True)
         loss.backward()
+        return self.step([p.grad for p in self.params])
+
+    def step(self, grads) -> torch.Tensor:
+        """Clip ``grads`` (one per parameter, None where none flowed), one
+        Adam step. Returns the norm."""
+        for p, g in zip(self.params, grads):
+            p.grad = g
         norm = self.clip()
         self.adam.step()
         return norm
@@ -357,14 +374,38 @@ def _step(opt: ClippedAdam, loss, terms):
     return loss.detach(), {k: v.detach() for k, v in terms.items()}
 
 
+def _train_step(opt: ClippedAdam, mesh, modules, draw, loss_fn):
+    """``train_step(gen, batch) -> (loss, terms)``: ``draw(gen, batch)``
+    makes the step's inputs (its draws and the scenes rendered from them, on
+    ``gen``'s device), ``loss_fn(modules, inputs)`` the per-image (loss,
+    terms), and one clipped Adam update follows. Without a mesh of dp > 1,
+    one device's step on the means. Over dp (JAX ``apps/train_plnet.py:97-115``'s
+    ``dp`` mesh) the same inputs, bit for bit, are split over the dp devices
+    (``mesh.dp_gradients``), the update runs on the primary device and the
+    replicas are refreshed."""
+
+    def train_step(gen: torch.Generator, batch: int):
+        inputs = draw(gen, batch)
+        if mesh is None or mesh.shape["dp"] == 1:
+            return _step(opt, *_mean_terms(*loss_fn(modules, inputs)))
+        loss, terms, grads = dp_gradients(mesh, modules, opt.params, inputs, batch, loss_fn)
+        opt.step(grads)
+        refresh_replicas(mesh, modules, opt.params)
+        return loss, terms
+
+    return train_step
+
+
 def make_plnet_train_step(plnet, loi, opt: ClippedAdam, with_desc: bool = True,
-                          augment: float = 1.0):
+                          augment: float = 1.0, mesh=None):
     """Returns ``train_step(gen, batch) -> (loss, terms)``: scenes (pairs
     with descriptors) rendered on ``gen``'s device, the loss, and one
     clipped Adam update of PLNet and the LOI head. ``augment`` is the
-    photometric augmentation strength, independent per view (0 disables)."""
+    photometric augmentation strength, independent per view (0 disables).
+    ``mesh`` (``parallel/mesh.py``): data-parallel over its dp devices
+    (:func:`_train_step`); with dp = 1 or None, one device's step."""
 
-    def train_step(gen: torch.Generator, batch: int):
+    def draw(gen, batch):
         if with_desc:
             s0, s1 = synthgen.render_pair(synthgen.pair_draws(gen, batch, augment=augment),
                                           augment=augment)
@@ -372,30 +413,38 @@ def make_plnet_train_step(plnet, loi, opt: ClippedAdam, with_desc: bool = True,
             s0 = synthgen.render_scene(synthgen.scene_draws(gen, batch, augment=augment),
                                        augment=augment)
             s1 = None
-        return _step(opt, *plnet_loss(plnet, loi, s0, s1, loi_draws(gen, batch)))
+        return s0, s1, loi_draws(gen, batch)
 
-    return train_step
+    def loss_fn(modules, inputs):
+        return plnet_loss(*modules, *inputs, per_image=True)
+
+    return _train_step(opt, mesh, (plnet, loi), draw, loss_fn)
 
 
-def make_superpoint_distill_step(sp, opt: ClippedAdam, plnet, augment: float = 1.0):
+def _pair_scenes(augment: float):
+    """``draw`` of the SuperPoint steps: an affine pair's two scenes."""
+    return lambda gen, batch: synthgen.render_pair(
+        synthgen.pair_draws(gen, batch, augment=augment), augment=augment)
+
+
+def make_superpoint_distill_step(sp, opt: ClippedAdam, plnet, augment: float = 1.0,
+                                 mesh=None):
     """Returns ``train_step(gen, batch)`` of SuperPoint distilled onto the
-    frozen ``plnet``'s descriptors."""
+    frozen ``plnet``'s descriptors. ``mesh`` as in
+    :func:`make_plnet_train_step`."""
 
-    def train_step(gen: torch.Generator, batch: int):
-        s0, s1 = synthgen.render_pair(synthgen.pair_draws(gen, batch, augment=augment),
-                                      augment=augment)
-        return _step(opt, *superpoint_distill_loss(sp, plnet, s0, s1))
+    def loss_fn(modules, scenes):
+        return superpoint_distill_loss(*modules, *scenes, per_image=True)
 
-    return train_step
+    return _train_step(opt, mesh, (sp, plnet), _pair_scenes(augment), loss_fn)
 
 
-def make_superpoint_train_step(sp, opt: ClippedAdam, augment: float = 1.0):
+def make_superpoint_train_step(sp, opt: ClippedAdam, augment: float = 1.0, mesh=None):
     """Returns ``train_step(gen, batch)`` of SuperPoint: keypoint CE and
-    descriptor InfoNCE on affine pairs."""
+    descriptor InfoNCE on affine pairs. ``mesh`` as in
+    :func:`make_plnet_train_step`."""
 
-    def train_step(gen: torch.Generator, batch: int):
-        s0, s1 = synthgen.render_pair(synthgen.pair_draws(gen, batch, augment=augment),
-                                      augment=augment)
-        return _step(opt, *superpoint_loss(sp, s0, s1))
+    def loss_fn(modules, scenes):
+        return superpoint_loss(*modules, *scenes, per_image=True)
 
-    return train_step
+    return _train_step(opt, mesh, (sp,), _pair_scenes(augment), loss_fn)

@@ -41,6 +41,8 @@ from airslam_tpu_torch.models.lightglue import normalize_keypoints
 from airslam_tpu_torch.models.superglue import SG_SINKHORN_ITERS  # noqa: F401 (re-export)
 from airslam_tpu_torch.models.superglue import SuperGlue
 from airslam_tpu_torch.ops.detect import topk_keypoints
+from airslam_tpu_torch.parallel.mesh import (dp_gradients, refresh_replicas,
+                                             shard_lightglue_params, trainable)
 from airslam_tpu_torch.parallel.train_plnet import corner_descriptors, flax_init_
 
 K_TOKENS = 256  # detected keypoints per view
@@ -127,20 +129,44 @@ def make_batch(d, noise: float = 0.05):
     return kpts0, desc0, _take(kpts0, perm), desc1, perm
 
 
-def match_loss(model, kpts0, desc0, kpts1, desc1, perm):
+def match_loss(model, kpts0, desc0, kpts1, desc1, perm, per_pair: bool = False):
     """−mean log-assignment of the true correspondences, the mean over the
-    batch of each pair's mean."""
+    batch of each pair's mean (``per_pair``: the (B,) pair means)."""
     mask = torch.ones(kpts0.shape[:-1], dtype=torch.bool, device=kpts0.device)
     scores, _, _ = model(kpts0, desc0, mask, kpts1, desc1, mask)
     true = torch.gather(scores, -1, perm[..., None])[..., 0]
-    return (-true.mean(-1)).mean()
+    loss = -true.mean(-1)
+    return loss if per_pair else loss.mean()
 
 
-def make_train_step(state: TrainState):
+def make_train_step(state: TrainState, mesh=None):
     """Returns ``train_step(batch) -> loss``: the loss of a
-    :func:`make_batch` batch and one Adam update."""
+    :func:`make_batch` batch and one Adam update. ``mesh``
+    (``parallel/mesh.py``, JAX ``dryrun_multichip`` step (e)): the batch
+    split over dp (``mesh.dp_gradients``, one replica of the model per dp
+    device, the gradients summed on the primary) and each attention block's
+    heads over tp (``mesh.shard_lightglue_params``)."""
+    if mesh is None or mesh.size == 1:
+        def train_step(batch):
+            return _update(state, match_loss(state.model, *batch))
+
+        return train_step
+
+    shard_lightglue_params(state.model, mesh)
+    modules = (state.model,)
+    params = trainable(modules)
+
+    def loss_fn(reps, shard):
+        return match_loss(reps[0], *shard, per_pair=True), {}
+
     def train_step(batch):
-        return _update(state, match_loss(state.model, *batch))
+        loss, _, grads = dp_gradients(mesh, modules, params, tuple(batch),
+                                      batch[0].shape[0], loss_fn)
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.opt.step()
+        refresh_replicas(mesh, modules, params)
+        return loss
 
     return train_step
 

@@ -19,9 +19,10 @@ Port of ``airslam_tpu/pipelines/map_builder.py`` (which replaces
 
 The bookkeeping (``Frame``, ``Mappoint``, track ids) is numpy on the host, as
 in the JAX package; the feature tree is pulled to the host once per frame.
-The host loop is sequential by default; :class:`PipelinedRunner` queues frame
-t+1's rectification and detection on the device before frame t's features are
-pulled, so the device works while the host tracks. The initial pose comes
+The host loop is sequential by default; ``parallel/pipeline.py``'s
+``PipelinedRunner`` queues frame t+1's rectification and detection on the
+device before frame t's features are pulled, so the device works while the
+host tracks. The initial pose comes
 from OpenCV's RANSAC PnP on the host, or with ``use_jax_pnp=True`` from the
 device-resident RANSAC of ``backend/pnp.py`` (the JAX package's name for the
 option).
@@ -185,20 +186,14 @@ class MapBuilder:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-    def _detect(self, image_left, image_right):
-        """rectify → detect, queued on the device; nothing is read back.
-        Returns the FrameFeatures of the (left, right) pair as tensors."""
-        # junctions ride along: keyframes need them for the refiner's
-        # junction vocabulary and the relocalization re-rank
-        return self.detector.detect(self.rectify(image_left, image_right))
-
-    def _match_detected(self, feats_dev):
-        """ONE host pull of the feature tree → the batched stereo and temporal
-        match. Returns (feats_left, feats_right, stereo_pairs,
-        temporal_pairs-or-None)."""
-        feats = _as_np_features(feats_dev)
-        f0 = type(feats)(*(t[0] for t in feats))
-        f1 = type(feats)(*(t[1] for t in feats))
+    def _match_detected(self, feats, j: int = 0):
+        """ONE host pull of the feature tree (none when it is already on the
+        host) → frame ``j``'s batched stereo and temporal match, its views
+        at rows 2j and 2j + 1. Returns (feats_left, feats_right,
+        stereo_pairs, temporal_pairs-or-None)."""
+        feats = _as_np_features(feats)
+        f0 = type(feats)(*(t[2 * j] for t in feats))
+        f1 = type(feats)(*(t[2 * j + 1] for t in feats))
         with torch.profiler.record_function("stereo+temporal match"):
             pairs, temporal = self._stereo_and_temporal(f0, f1)
         return f0, f1, pairs, temporal
@@ -684,42 +679,3 @@ class MapBuilder:
 
         save_tum(path, self.map.keyframe_trajectory())
 
-
-class PipelinedRunner:
-    """Double-buffered sequence runner — the counterpart of the reference's
-    2-thread pipeline with bounded queues (map_builder.cc:33-49, feature
-    thread ∥ tracking thread).
-
-    Kernel launches are asynchronous: rectification and detection of frame
-    t+1 are queued on the stream *before* frame t's features are pulled to the
-    host, so the device computes detection t+1 while the host runs matching
-    bookkeeping, tracking and map maintenance for frame t. One frame of
-    latency, same results as the sequential loop.
-    """
-
-    def __init__(self, builder: MapBuilder):
-        self.builder = builder
-
-    def run(self, dataset, max_frames: int = 0, progress=None):
-        b = self.builder
-        n = len(dataset) if max_frames <= 0 else min(len(dataset), max_frames)
-        pending = None
-        for i in range(n):
-            ts, left_raw, right_raw, imu = dataset.get(i)
-            feats_dev = b._detect(left_raw, right_raw)  # queued, not read
-            if pending is not None:
-                self._consume(pending)
-                if progress is not None:
-                    progress(i - 1)
-            pending = (ts, feats_dev, imu)
-        if pending is not None:
-            self._consume(pending)
-            if progress is not None:
-                progress(n - 1)
-        return n
-
-    def _consume(self, item):
-        ts, feats_dev, imu = item
-        b = self.builder
-        f0, f1, pairs, temporal = b._match_detected(feats_dev)
-        b.track_features(ts, f0, f1, pairs, imu, temporal_matches=temporal)

@@ -14,8 +14,9 @@ power limit. The warm-up frame stays outside the timed loop.
 
 The world comes from seed 0 through PyTorch's generator, so it is another
 world than the JAX benchmark's; ``--world`` renders a stored one instead
-(see ``load_world``). ``--model_dir`` (user checkpoints)
-waits with the data-parallel tools; the shipped checkpoints are used.
+(see ``load_world``). ``--model_dir`` reads ``plnet.npz`` and
+``lightglue.npz`` in the JAX layout (the JAX benchmark takes the flag and
+ignores it); the shipped checkpoints stand in for a missing file.
 
 Usage:
   python apps/benchmark_system_torch.py [--frames 200] [--pipelined] [--json]
@@ -195,8 +196,8 @@ def parse_args(argv=None):
     ap.add_argument("--profile", default=None,
                     help="directory for a torch.profiler trace of the timed loop")
     ap.add_argument("--model_dir", default=None,
-                    help="not supported yet (waits with the data-parallel tools); the "
-                         "shipped checkpoints are used")
+                    help="directory with plnet.npz / lightglue.npz in the JAX layout "
+                         "(the shipped checkpoints stand in for a missing file)")
     ap.add_argument("--pipelined", action="store_true",
                     help="queue the next frame's detection before the current one is tracked")
     ap.add_argument("--json", action="store_true", help="print one JSON line")
@@ -207,15 +208,15 @@ def main(argv=None):
     """Returns the run's record: the JSON line's fields, the trajectory
     [(timestamp, Twc)] and the ground truth."""
     args = parse_args(argv)
-    if args.model_dir is not None:
-        raise SystemExit("--model_dir is not supported yet; the shipped checkpoints are used")
     import torch
 
     from airslam_tpu_torch import resolve_device
     from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
     from airslam_tpu_torch.frontend.matcher import MatcherConfig, PointMatcher
     from airslam_tpu_torch.io.trajectory import ate_rmse
-    from airslam_tpu_torch.pipelines.map_builder import MapBuilder, PipelinedRunner
+    from airslam_tpu_torch.models.weights import load_model_dir
+    from airslam_tpu_torch.parallel.pipeline import PipelinedRunner
+    from airslam_tpu_torch.pipelines.map_builder import MapBuilder
     from airslam_tpu_torch.utils.timing import Timer, device_label, device_trace
 
     device = resolve_device(args.device)
@@ -229,10 +230,11 @@ def main(argv=None):
     ts, lefts, rights, gt = make_sequence(args.frames, args.height, args.width, draws)
     render_ms = (time.perf_counter() - t0) * 1e3 / args.frames
 
+    det_params, mat_params = load_model_dir(args.model_dir, 0)
     det = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=False,
-                                         dtype=torch.bfloat16), device=device)
+                                         dtype=torch.bfloat16), device=device, params=det_params)
     matcher = PointMatcher(MatcherConfig(matcher=0, max_keypoints=400, dtype=torch.bfloat16),
-                           device=device)
+                           device=device, params=mat_params)
     builder = MapBuilder(SynthCamera(args.height, args.width), det, matcher, device=device)
     timer = Timer()
     builder.stage_timer = timer

@@ -10,6 +10,10 @@ TUM trajectory of the accepted queries and prints ``recall: s / t = r``
 (demo/relocalization.cpp:63). The networks run in float32, as the JAX CLI
 builds them (TF32 off), and so does the map's geometry. Runs on the GPU unless
 ``--device cpu`` is given; without a card it fails rather than fall back.
+``--model_dir`` reads ``plnet.npz`` and the configured matcher's
+``lightglue.npz`` / ``superglue.npz`` in the JAX layout, the shipped
+checkpoints standing in for a missing file (the JAX CLI reads
+``lightglue.npz`` whatever the matcher).
 
 Usage:
   python apps/relocalization_torch.py --config_path configs/relocalization/reloc_euroc.yaml \\
@@ -32,6 +36,7 @@ def parse_args(argv=None):
                     help="dir with AirSLAM_mapv1.bin, point_voc.npz and junction_voc.npz")
     ap.add_argument("--query_folder", required=True)
     ap.add_argument("--traj_path", default="reloc_trajectory.txt")
+    ap.add_argument("--model_dir", default=None, help="directory with *.npz weights")
     ap.add_argument("--query_stride", type=int, default=1,
                     help="relocalize every Nth query image")
     ap.add_argument("--no_recovery", action="store_true",
@@ -55,6 +60,7 @@ def build(args):
     from airslam_tpu_torch import resolve_device
     from airslam_tpu_torch.frontend.detector import FeatureDetector
     from airslam_tpu_torch.frontend.matcher import PointMatcher
+    from airslam_tpu_torch.models.weights import load_model_dir
     from airslam_tpu_torch.io.config import RelocalizationConfigs
     from airslam_tpu_torch.io.serialization import load_map
     from airslam_tpu_torch.loopclosure.database import Database
@@ -80,10 +86,12 @@ def build(args):
         if "junction" in dbs:
             junction_db.load_state_dict(dbs["junction"])
 
+    det_params, mat_params = load_model_dir(args.model_dir, cfg.matcher.matcher)
     detector = FeatureDetector(dataclasses.replace(cfg.detector, dtype=torch.float32),
-                               device=device)
+                               device=device, params=det_params)
     matcher = PointMatcher(dataclasses.replace(cfg.matcher, dtype=torch.float32,
-                                               use_flash=args.use_flash), device=device)
+                                               use_flash=args.use_flash), device=device,
+                           params=mat_params)
     user = MapUser(m, detector, matcher, point_db, junction_db,
                    min_inlier_num=cfg.min_inlier_num, pose_refinement=cfg.pose_refinement,
                    projection_recovery=not args.no_recovery)

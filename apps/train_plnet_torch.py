@@ -11,8 +11,11 @@ the LOI head starts from the shipped ``plnet_s1.npz``; ``--distill`` reads
 the shipped ``plnet_s0.npz`` (read only). The default ``--out`` is
 ``checkpoints_torch/`` beside the packages (git ignores it), never the JAX
 package's checkpoint folder. The networks train in float32 as the JAX
-trainer's do: no TF32 in cuDNN's convolutions or cuBLAS's products. One
-device (the JAX CLI's data-parallel mesh is not ported).
+trainer's do: no TF32 in cuDNN's convolutions or cuBLAS's products. With
+more than one visible card (and ``--device cuda``) every step is
+data-parallel over all of them, as the JAX CLI's ``dp`` mesh: the batch split
+over the cards, the gradients summed on the first (``parallel/train_plnet.py``
+``_train_step``).
 
 Usage:
   python apps/train_plnet_torch.py --steps 2000 --batch 8
@@ -65,6 +68,7 @@ def main(argv=None) -> dict:
     from airslam_tpu_torch.models.plnet import LoiHeadS1, PLNet
     from airslam_tpu_torch.models.superpoint import SuperPoint
     from airslam_tpu_torch.parallel import train_plnet as tp
+    from airslam_tpu_torch.parallel.mesh import make_mesh
 
     # float32 throughout, as the JAX trainer computes: no TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -73,6 +77,10 @@ def main(argv=None) -> dict:
     os.makedirs(args.out, exist_ok=True)
     init_gen = torch.Generator().manual_seed(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    mesh = None
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = make_mesh(tp=1)
+        print(f"data-parallel over {mesh}")
 
     if args.model == "plnet":
         plnet, loi = PLNet(), LoiHeadS1()
@@ -88,7 +96,7 @@ def main(argv=None) -> dict:
         plnet.to(dev).train()
         loi.to(dev).train()
         opt = tp.ClippedAdam(list(plnet.parameters()) + list(loi.parameters()), args.lr)
-        step_fn = tp.make_plnet_train_step(plnet, loi, opt, augment=args.augment)
+        step_fn = tp.make_plnet_train_step(plnet, loi, opt, augment=args.augment, mesh=mesh)
 
         def save():
             wio.save_npz(ckpt, {"plnet": wio.plnet_to_flax(plnet.state_dict()),
@@ -109,9 +117,10 @@ def main(argv=None) -> dict:
             plnet = PLNet()
             plnet.load_state_dict(wio.plnet_from_flax(wio.load_npz(s0)["plnet"]))
             plnet.to(dev).eval().requires_grad_(False)
-            step_fn = tp.make_superpoint_distill_step(sp, opt, plnet, augment=args.augment)
+            step_fn = tp.make_superpoint_distill_step(sp, opt, plnet, augment=args.augment,
+                                                      mesh=mesh)
         else:
-            step_fn = tp.make_superpoint_train_step(sp, opt, augment=args.augment)
+            step_fn = tp.make_superpoint_train_step(sp, opt, augment=args.augment, mesh=mesh)
 
         def save():
             wio.save_npz(ckpt, wio.superpoint_to_flax(sp.state_dict()))

@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, synth, e2e, system, vio, refine, reloc, train, matcher; ``path`` needs ``slice`` and
-``tracking``, ``e2e`` runs ``synth`` first) and then prints no
+path, vo, synth, e2e, mesh, system, vio, refine, reloc, train, matcher; ``path`` needs
+``slice`` and ``tracking``, ``e2e`` runs ``synth`` first, ``mesh`` both) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -89,7 +89,24 @@ without a result line):
    (counts set to 0 before it): R once a frame in the distorted run (0
    rectified), ``loi_features`` once a frame, P once a tracked frame, F 36 a
    frame with ``--use_flash``.
-8c. ``system``: ``apps/benchmark_system_torch.py --frames 60 --json`` on the
+8c. ``mesh``: the multi-device path (``airslam_tpu_torch/parallel/``).
+   ``entry.dryrun_multichip(8, "cuda")``: the sharded sparse and window BA,
+   frame-parallel detection (3 frames at 120×188 and 5 at 752×480, padded),
+   the F = 15 / P = 256 / L = 32 window with an IMU chain, the mesh-pipelined
+   runner and the dp/tp LightGlue step (dim 256, 9 layers), each against its
+   single-device run on a mesh of the card repeated 8 times. Then over the
+   distorted tree in f32, in turns: the VO CLI with ``--mesh_pipelined`` (the
+   default mesh, one card: a chunk of 1), and with cuDNN off
+   ``MeshPipelinedRunner`` on a virtual mesh of 4 (a chunk of 2, one image a
+   shard) and the sequential loop: the JAX CLI's keyframe decisions,
+   unaligned ATE to its trajectory ≤ 0.05 m, every pose within 1e-3 m of
+   the sequential run (the CLI's: phase e2e's, cuDNN on), launches per run
+   (R and P as sequential, ``loi_features`` once per detection shard), ms a
+   frame. One ``plnet`` step data-parallel over a virtual mesh of 2 against
+   the single-device step, ``loi_features`` and B+T′ launched once per
+   shard: loss and terms 1e-6 relative, gradients 1e-3 per leaf and 1e-4
+   over all leaves (relative L2).
+8d. ``system``: ``apps/benchmark_system_torch.py --frames 60 --json`` on the
    oracle's world (bf16, 400 keypoints, PLNet without SuperPoint,
    LightGlue): every frame tracked, the aligned ATE ≤ 0.05 m, the unaligned
    ATE to the JAX benchmark loop's trajectory ≤ 0.05 m and its keyframe
@@ -323,6 +340,31 @@ E2E_CAMERAS = {"rect": "configs/camera/synth_stereo.yaml",
                "dist": "configs/camera/synth_stereo_distorted.yaml"}
 E2E_RUNS = {"f32": ("rect", ["--dtype", "f32"]), "bf16": ("rect", ["--dtype", "bf16", "--use_flash"]),
             "dist f32": ("dist", ["--dtype", "f32"])}
+# the multi-device path (phase mesh): entry.dryrun_multichip's mesh size
+# (production shapes), the virtual mesh MeshPipelinedRunner runs on besides the
+# CLI's default mesh (one card: a chunk of 1), the dp plnet step's mesh and
+# batch (uneven: shards of 4 and 3, so a reduction that weights each shard
+# by its own size is wrong, as it is not at 4 and 4). cuDNN picks its
+# convolution algorithms by shape, so a shard of one image (or part of a
+# training batch) rounds PLNet's line head otherwise than the batch it came
+# from (up to 9e-5 in line_pred at batch 1 against 2 on an H100, 0 with cuDNN
+# off), and an f32 VO run turns that into millimetres by frame 20.
+# So the virtual mesh runs twice: with cuDNN on, as users run it, held to the
+# JAX CLI's run (keyframes, ATE) with its gap to phase e2e's sequential run
+# printed; and with cuDNN off against the sequential loop with cuDNN off
+# (every pose within seq m), which checks the sharding itself. The CLI's run
+# on its default mesh (the pair detected as one batch, as the sequential
+# loop does) runs with cuDNN on and is held to phase e2e's sequential run.
+# The dp steps (cuDNN deterministic, as phase train's steps) against the
+# one-device steps: at the first step the loss and terms within loss
+# relative, the gradients within grad_leaf relative L2 per leaf and grad_all
+# over every leaf together; at the second the loss and terms within step2
+# (its gradients are printed: two one-device runs already part there by up
+# to 2e-2, B+T′'s atomic sums flipping the sign of Adam's first update where
+# a gradient is near 0). Card readings of the sound steps, of two
+# one-device runs and of planted faults: scripts/dp_step_faults.py, PERF.md
+MESH_RUN = {"dryrun": 8, "virtual": 4, "dp": 2, "batch": 7}
+MESH_GATES = {"seq": 1e-3, "loss": 1e-6, "grad_leaf": 1e-4, "grad_all": 1e-4, "step2": 1e-5}
 TRAIN_MODES = {"plnet": [], "superpoint": ["--model", "superpoint"],
                "distill": ["--model", "superpoint", "--distill"]}
 # the matcher trainer (scripts/make_torch_oracle.py's matcher oracle): the
@@ -3761,6 +3803,238 @@ def phase_system(dev):
     return launches
 
 
+def _pose_gap(est, ref):
+    """Largest position gap (m) of two runs over their common stamps, and
+    the number of common stamps."""
+    a = {round(t, 6): T for t, T in est}
+    b = {round(t, 6): T for t, T in ref}
+    common = sorted(set(a) & set(b))
+    gap = max((float(np.linalg.norm(a[t][:3, 3] - b[t][:3, 3])) for t in common), default=np.inf)
+    return gap, len(common)
+
+
+@contextlib.contextmanager
+def _no_cudnn():
+    """cuDNN off (PyTorch's own convolution kernels, whose per-image
+    arithmetic does not depend on the batch); restored after."""
+    import torch
+
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def dp_plnet_step_gaps(dev, dp: int, batch: int):
+    """Two ``plnet`` steps of the shipped checkpoint, single-device and
+    data-parallel over a virtual mesh of ``dp`` (f32, TF32 off, cuDNN
+    deterministic): per step (``per_step``) the gaps between the two runs'
+    loss, terms and clipped gradients, each run's launches at the first
+    step, and the time of the second step."""
+    import torch
+
+    from airslam_tpu_torch.models import weights as wio
+    from airslam_tpu_torch.models.plnet import LoiHeadS1, PLNet
+    from airslam_tpu_torch.parallel import train_plnet as tp
+    from airslam_tpu_torch.parallel.mesh import make_mesh
+
+    counted = _counted()
+    tree = wio.load_npz(wio.checkpoint_path("plnet_s0.npz"))
+    runs = {}
+    for label, mesh in (("single", None), ("dp", make_mesh(tp=1, devices=[dev] * dp))):
+        plnet, loi = PLNet(), LoiHeadS1()
+        plnet.load_state_dict(wio.plnet_from_flax(tree["plnet"]))
+        loi.load_state_dict(wio.loi_s1_from_flax(tree["loi"]))
+        plnet.to(dev).train()
+        loi.to(dev).train()
+        opt = tp.ClippedAdam(list(plnet.parameters()) + list(loi.parameters()), 3e-4)
+        step = tp.make_plnet_train_step(plnet, loi, opt, mesh=mesh)
+        for fn in counted.values():
+            fn.launches = 0
+        gen = torch.Generator(device=dev).manual_seed(0)
+        steps = []
+
+        def take():
+            loss, terms = step(gen, batch)
+            torch.cuda.synchronize()
+            return time.perf_counter(), float(loss), {k: float(v) for k, v in terms.items()}
+
+        def grads():
+            return [None if p.grad is None else p.grad.detach().double().cpu().numpy()
+                    for p in opt.params]
+
+        with _no_tf32("f32"), _pinned_cudnn():
+            steps.append(take()[1:] + (grads(),))
+            launched = {k: fn.launches for k, fn in counted.items()}
+            # the second step's time: the first one's holds the warm-up
+            t0 = time.perf_counter()
+            t1, loss, terms = take()
+            steps.append((loss, terms, grads()))
+        runs[label] = (steps, launched, t1 - t0)
+    (s1, n1, w1), (s2, n2, w2) = runs["single"], runs["dp"]
+    per_step = []
+    for (l1, t1, g1), (l2, t2, g2) in zip(s1, s2):
+        flat1 = np.concatenate([a.ravel() for a in g1 if a is not None])
+        flat2 = np.concatenate([b.ravel() for b in g2 if b is not None])
+        per_step.append({
+            "loss": abs(l2 - l1) / abs(l1),
+            "terms": max(abs(t2[k] - t1[k]) / max(abs(t1[k]), 1e-12) for k in t1),
+            "grad_leaf": max(_rel_l2(b, a) for a, b in zip(g1, g2) if a is not None),
+            "grad_all": _rel_l2(flat2, flat1),
+            "none_match": [a is None for a in g1] == [b is None for b in g2]})
+    return dict(per_step=per_step, loss_single=s1[0][0], loss_dp=s2[0][0], launches_single=n1,
+                launches_dp=n2, ms_single=1e3 * w1, ms_dp=1e3 * w2)
+
+
+def phase_mesh(dev, trees, root):
+    """The multi-device path on the card: ``entry.dryrun_multichip`` at the
+    production shapes over a mesh of 8 (the card repeated); over the
+    distorted 20-frame tree in f32, in this order, the VO CLI with
+    ``--mesh_pipelined`` (the default mesh: one card, a chunk of 1) against
+    phase e2e's sequential run of the same tree, ``MeshPipelinedRunner``
+    over a virtual mesh of 4 (a chunk of 2, one image a shard) with cuDNN
+    on, then with cuDNN off against the sequential loop with cuDNN off,
+    each against the JAX CLI's run too; two data-parallel ``plnet`` steps
+    against the single-device steps (``MESH_GATES``). Returns each run's
+    launch counts."""
+    import io
+
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import visual_odometry_torch as vo
+
+    from airslam_tpu_torch import entry
+    from airslam_tpu_torch.io.serialization import load_map
+    from airslam_tpu_torch.io.trajectory import load_tum
+    from airslam_tpu_torch.parallel.mesh import make_mesh
+    from airslam_tpu_torch.parallel.pipeline import MeshPipelinedRunner
+
+    z = e2e_oracle()
+    on = card()
+    g, n = E2E_GATES, E2E_RUN["run"]
+    t_phase = time.perf_counter()
+    with _no_tf32("f32"):
+        gaps = entry.dryrun_multichip(MESH_RUN["dryrun"], device=dev)
+    dry_s = time.perf_counter() - t_phase
+    print(f"mesh dryrun_multichip({MESH_RUN['dryrun']}, cuda) at the production shapes: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + f"; {dry_s:.1f} s")
+
+    counted = _counted()
+    args = ["--config_path", os.path.join(REPO, "configs", "visual_odometry", "vo_euroc.yaml"),
+            "--camera_config_path", os.path.join(REPO, E2E_CAMERAS["dist"]), "--dataroot",
+            trees["dist"], "--max_frames", str(n), "--device", str(dev), "--dtype", "f32"]
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    runs = {}
+    # the CLI, its own timing printed (the frame loop without the model loads)
+    out = os.path.join(root, "vo mesh")
+    reset()
+    text = io.StringIO()
+    with _no_tf32("f32"), contextlib.redirect_stdout(text):
+        vo.main(args + ["--saving_dir", out, "--mesh_pipelined"])
+    fps = float(next(ln.split(":")[1] for ln in text.getvalue().splitlines()
+                     if ln.startswith("Average FPS")))
+    m, _ = load_map(os.path.join(out, "AirSLAM_mapv0.bin"), device=dev)
+    runs["cli mesh"] = (load_tum(os.path.join(out, "trajectory_v0.txt")), m.keyframe_ids,
+                        {k: fn.launches for k, fn in counted.items()}, 1e3 / fps)
+
+    def virtual(builder, data):
+        MeshPipelinedRunner(builder, make_mesh(devices=[dev] * MESH_RUN["virtual"])).run(
+            data, max_frames=n)
+
+    def sequential(builder, data):
+        for i in range(n):
+            builder.add_input(*data.get(i))
+
+    for label, loop, cudnn in (("mesh4", virtual, True), ("mesh4 cudnn off", virtual, False),
+                               ("seq cudnn off", sequential, False)):
+        with _no_tf32("f32"), contextlib.nullcontext() if cudnn else _no_cudnn():
+            builder, data, _ = vo.build(vo.parse_args(args + ["--saving_dir", root]))
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop(builder, data)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[label] = (builder.trajectory, builder.map.keyframe_ids,
+                       {k: fn.launches for k, fn in counted.items()}, 1e3 * wall / n)
+
+    jax_ids = [int(k) for k in z["dist_keyframe_ids"]]
+    per_frame = {"remap": n, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": n,
+                 "pose_only_fast": n - 1, "flash_mha": 0, "loi_features_backward": 0}
+    # a chunk of 2 frames is 4 images, one per shard: the stage-1 head runs
+    # once per image
+    want = {"cli mesh": per_frame, "seq cudnn off": per_frame,
+            "mesh4": dict(per_frame, loi_features=2 * n),
+            "mesh4 cudnn off": dict(per_frame, loi_features=2 * n)}
+    # the sequential run each is compared with, and whether that gap is
+    # gated: a run with cuDNN on against phase e2e's (gated where the images
+    # are detected in the same batches: the CLI's mesh of one card), the
+    # runner with cuDNN off against this phase's sequential loop with cuDNN
+    # off; the runs whose batches differ from their reference's are printed
+    e2e_seq = load_tum(os.path.join(root, "vo dist f32", "trajectory_v0.txt"))
+    ref = {"cli mesh": ("phase e2e's", e2e_seq, True), "mesh4": ("phase e2e's", e2e_seq, False),
+           "mesh4 cudnn off": ("seq cudnn off's", runs["seq cudnn off"][0], True),
+           "seq cudnn off": ("phase e2e's", e2e_seq, False)}
+    notes, launches, failed = [], {}, []
+    for label, (traj, ids, counts, ms) in runs.items():
+        ref_name, ref_traj, gated = ref[label]
+        gap, n_common = _ate_between(traj, _tum_rows(z["dist_traj"]))
+        seq_gap, n_seq = _pose_gap(traj, ref_traj)
+        parted = next((f for f in range(n) if (f in ids) != (f in jax_ids)), None)
+        launches[label] = counts
+        note = (f"{label}: keyframes {ids} (JAX {jax_ids}); {len(traj)} of {n} frames; "
+                f"unaligned ATE to the JAX CLI {gap:.5f} m; largest gap to {ref_name} "
+                f"sequential run {seq_gap:.2e} m over {n_seq} poses"
+                + ("" if gated else " (printed, not gated)")
+                + f"; {ms:.1f} ms a frame; launches {counts}")
+        notes.append(note)
+        failed += [f"mesh {label}: {msg}" for ok, msg in (
+            (len(traj) == n and n_common == n and n_seq == n, "frames lost"),
+            (parted is None, f"the keyframe decisions part at frame {parted}"),
+            (gap <= g["traj"], f"ATE to the JAX CLI above {g['traj']} m"),
+            (not gated or seq_gap <= MESH_GATES["seq"],
+             f"a pose above {MESH_GATES['seq']} m from {ref_name} sequential run"),
+            (counts == want[label], f"launches {counts}, not {want[label]}")) if not ok]
+
+    dp = dp_plnet_step_gaps(dev, MESH_RUN["dp"], MESH_RUN["batch"])
+    first, second = dp["per_step"]
+    launches["dp plnet step"] = dp["launches_dp"]
+    notes.append(
+        f"dp plnet steps (batch {MESH_RUN['batch']} over {MESH_RUN['dp']}, f32, TF32 off): "
+        f"first loss {dp['loss_dp']:.6f} against {dp['loss_single']:.6f}; "
+        + "; ".join(f"step {i + 1}: loss {s['loss']:.2e} relative, term {s['terms']:.2e}, "
+                    f"gradients {s['grad_leaf']:.2e} worst leaf / {s['grad_all']:.2e} all "
+                    "leaves relative L2" + (" (printed, not gated)" if i else "")
+                    for i, s in enumerate(dp["per_step"]))
+        + f"; launches at the first step {dp['launches_dp']} (single "
+        f"{dp['launches_single']}); {dp['ms_dp']:.1f} ms against "
+        f"{dp['ms_single']:.1f} ms the second step")
+    failed += [f"mesh dp plnet step: {msg}" for ok, msg in (
+        (first["none_match"] and second["none_match"], "gradients flowed to other leaves"),
+        (first["loss"] <= MESH_GATES["loss"] and first["terms"] <= MESH_GATES["loss"],
+         f"the first step's loss or terms beyond {MESH_GATES['loss']}"),
+        (first["grad_leaf"] <= MESH_GATES["grad_leaf"]
+         and first["grad_all"] <= MESH_GATES["grad_all"],
+         f"the first step's gradients beyond {MESH_GATES['grad_leaf']} / "
+         f"{MESH_GATES['grad_all']}"),
+        (second["loss"] <= MESH_GATES["step2"] and second["terms"] <= MESH_GATES["step2"],
+         f"the second step's loss or terms beyond {MESH_GATES['step2']}"),
+        (all(dp["launches_single"][k] == 1 and dp["launches_dp"][k] == MESH_RUN["dp"]
+             for k in ("loi_features", "loi_features_backward")),
+         "loi_features or B+T′ not launched once per shard")) if not ok]
+    print("mesh runs over the distorted tree (f32, in this order): " + "; ".join(notes)
+          + f"; the phase {time.perf_counter() - t_phase:.1f} s on {on}")
+    _require(not failed, "; ".join(failed))
+    return launches
+
+
 def tracking_builder_like(builder):
     """A fresh ``MapBuilder`` on ``builder``'s camera, detector and matcher
     (the networks stay loaded and warm)."""
@@ -3978,11 +4252,13 @@ def main() -> int:
         for name in short:
             if name in only:
                 short[name]()
-        if "synth" in only or "e2e" in only:
+        if only & {"synth", "e2e", "mesh"}:
             with tempfile.TemporaryDirectory() as root:
                 trees = phase_synth(dev, root)
-                if "e2e" in only:
+                if only & {"e2e", "mesh"}:
                     phase_e2e(dev, trees, root)
+                if "mesh" in only:
+                    phase_mesh(dev, trees, root)
         if "path" in only:
             phase_path(dev, phase_slice(dev, frames, refs), phase_tracking(dev, frames),
                        frames, grids_np)
@@ -4003,7 +4279,10 @@ def main() -> int:
     launches = phase_vo(dev)
     # the main path's acceptance: the CLI over rendered sequences, the system loop
     with tempfile.TemporaryDirectory() as root:
-        e2e_launches = phase_e2e(dev, phase_synth(dev, root), root)
+        trees = phase_synth(dev, root)
+        e2e_launches = phase_e2e(dev, trees, root)
+        # the multi-device path over the distorted tree
+        mesh_launches = phase_mesh(dev, trees, root)
     system_launches = phase_system(dev)
     vi_launches = phase_vio(dev)
     refine_launches, refine_p_ms = phase_refine(dev)
@@ -4034,12 +4313,16 @@ def main() -> int:
         for label, counts in e2e_launches.items():
             k["launches_e2e_" + label.replace(" ", "_")] = counts[k["name"]]
         k["launches_system"] = system_launches[k["name"]]
+        for label, counts in mesh_launches.items():
+            k["launches_" + label.replace(" ", "_")] = counts[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "on_path", "launches_vi_frame",
             "launches_refine", "launches_reloc", "launches_train_step",
             "launches_matcher_step", "refine_ms",
-            "launches_e2e_f32", "launches_e2e_bf16", "launches_e2e_dist_f32", "launches_system")
+            "launches_e2e_f32", "launches_e2e_bf16", "launches_e2e_dist_f32", "launches_system",
+            "launches_cli_mesh", "launches_mesh4", "launches_mesh4_cudnn_off",
+            "launches_seq_cudnn_off", "launches_dp_plnet_step")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,8 @@ from airslam_tpu_torch.core.imu import ImuData
 from airslam_tpu_torch.frontend.detector import FrameFeatures
 from airslam_tpu_torch.io import publisher as pub
 from airslam_tpu_torch.ops.match import Matches
-from airslam_tpu_torch.pipelines.map_builder import KeyframeConfig, MapBuilder, PipelinedRunner
+from airslam_tpu_torch.parallel.pipeline import PipelinedRunner
+from airslam_tpu_torch.pipelines.map_builder import KeyframeConfig, MapBuilder
 from airslam_tpu_torch.slam import map as tmap
 from tests import test_vo_lines as jlines
 from tests import test_vo_pipeline as jvo

@@ -467,7 +467,7 @@ def test_pipelined_runner_passes_the_imu_batches():
     as the sequential loop does: over the stream's first 4 frames the same
     keyframes, the same preintegration rows on each and the same poses."""
     from airslam_tpu_torch.frontend.detector import FrameFeatures
-    from airslam_tpu_torch.pipelines.map_builder import PipelinedRunner
+    from airslam_tpu_torch.parallel.pipeline import PipelinedRunner
 
     seq, frames = _vio_stream()
     frames = frames[:4]

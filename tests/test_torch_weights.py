@@ -163,7 +163,9 @@ def test_port_imports_no_jax():
                 "loopclosure/vocabulary.py", "loopclosure/database.py", "backend/global_ba.py",
                 "pipelines/map_refiner.py", "pipelines/map_user.py", "models/superglue.py",
                 "backend/pnp.py", "ops/match.py", "frontend/synthgen.py",
-                "parallel/train_plnet.py", "utils/timing.py", "parallel/training.py"):
+                "parallel/train_plnet.py", "utils/timing.py", "parallel/training.py",
+                "parallel/mesh.py", "parallel/frontend.py", "parallel/pipeline.py",
+                "parallel/sharded_ba.py"):
         assert mod in walked, mod
     assert len(files) > 37
     for path in files:

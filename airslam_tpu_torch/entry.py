@@ -58,7 +58,7 @@ class FrontendStep(nn.Module):
         11-tuple: (kp0, kp1, idx1, match_score, lines0, line_mask0, kp_desc0,
         kp_mask0, junctions (2, J, 2), junc_desc (2, J, 256), junc_mask (2, J))."""
         pair = torch.as_tensor(stereo_pair, dtype=torch.float32, device=self.device)
-        feats = self.detector.detect(pair)
+        feats = self.detector.detect(pair, detect_junctions=True)
         f0 = type(feats)(*(t[0] for t in feats))
         f1 = type(feats)(*(t[1] for t in feats))
         m = self.matcher.match(f0.keypoints, f0.kp_scores, f0.kp_desc, f0.kp_mask,
@@ -135,9 +135,10 @@ def point_scene(f: int, p: int, rng):
 
 
 def window_problem(scene, twb=None, points=None, pose_fixed=None, n_lines=1, imu=None,
-                   vel_fixed=None, dtype=torch.float32, device="cpu"):
+                   vel_fixed=None, dtype=torch.float32, device="cpu", Rwb=None):
     """The window ``BAProblem`` of a :func:`point_scene` (the JAX tests'
-    ``build_problem``): frame 0 fixed unless ``pose_fixed`` says otherwise,
+    ``build_problem``), its poses and points replaced by ``Rwb`` / ``twb`` /
+    ``points`` where given: frame 0 fixed unless ``pose_fixed`` says otherwise,
     ``n_lines`` fixed unobserved lines, velocities and biases fixed unless
     ``vel_fixed`` says otherwise; ``imu``: :func:`imu_chain`'s factors."""
     from airslam_tpu_torch.backend import gn
@@ -147,7 +148,8 @@ def window_problem(scene, twb=None, points=None, pose_fixed=None, n_lines=1, imu
         pose_fixed = np.arange(f) == 0
     z = np.zeros((f, 3))
     prob = {
-        "frames": gn.FrameStates(scene["Rwb"], scene["twb"] if twb is None else twb, z, z, z),
+        "frames": gn.FrameStates(scene["Rwb"] if Rwb is None else Rwb,
+                                 scene["twb"] if twb is None else twb, z, z, z),
         "pose_fixed": pose_fixed,
         "vel_fixed": np.ones(f, bool) if vel_fixed is None else vel_fixed,
         "points": scene["points"] if points is None else points,
@@ -322,7 +324,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     rb = _RecordingBuilder(det)
     runner = MeshPipelinedRunner(rb, mesh)
     runner.run(_Frames(frames6))
-    refp = det.detect(frames6)
+    refp = det.detect(frames6, detect_junctions=True)
     if [ts for ts, _, _ in rb.got] != [0.0, 1.0, 2.0]:
         raise RuntimeError(f"dryrun mesh-pipeline: consumption order {[g[0] for g in rb.got]}")
     err = max(float(np.abs(k - refp.keypoints[2 * j + s].cpu().numpy()).max())

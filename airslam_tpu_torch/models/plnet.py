@@ -1,8 +1,10 @@
 """PLNet: unified keypoint + line-segment CNN, and the stage-1 LOI head.
 
 Port of ``airslam_tpu/models/plnet.py``: ``PLNetBackbone``, ``LineHeadTrunk``,
-``PLNet`` and ``LoiHeadS1``, whose samplers ``_onnx_bilerp`` /
-``_interior_feats`` are one call of ``ops.bilerp.loi_features`` here.
+``PLNet``, ``LoiHeadS1``, whose samplers ``_onnx_bilerp`` /
+``_interior_feats`` are one call of ``ops.bilerp.loi_features`` here, and the
+fast ``LoiHead`` with its sampler ``_bilinear_lookup`` (plain PyTorch: a
+border-clamped gather, which the JAX package runs outside any Pallas kernel).
 Inside, convolutions run NCHW; the outputs keep the JAX layouts (NHWC maps)
 so the two packages compare like with like.
 
@@ -23,6 +25,7 @@ from airslam_tpu_torch.ops.bilerp import loi_features
 
 NUM_JUNCTIONS = 300  # top-k junctions, = JN in plnet.cpp:284
 NUM_PROPOSALS_PER_CELL = 3
+LOI_POINTS = 16  # samples along each candidate line (the fast head)
 LOI_DIM = 128
 
 
@@ -200,3 +203,75 @@ class LoiHeadS1(nn.Module):
         logits = self.fc2_head(x + r).float()
         scores = torch.softmax(logits, dim=-1)[:, 1].reshape(v, n)
         return (scores[0], lines[0]) if single else (scores, lines)
+
+
+class LoiHead(nn.Module):
+    """The fast stage-1 head (plnet.py:262-311): ``LOI_POINTS`` samples along
+    each junction line from the ``loi`` / ``loi_thin`` / ``loi_aux`` maps
+    (128 + 4 + 4 channels), max-pooled 4:1 along the line, then
+    fc1 544→1024 → ReLU → fc2 1024→512 → ReLU, a sigmoid ``score`` and a
+    ``delta`` of 2·tanh added to the line's endpoints. The layers run in
+    ``dtype`` (inputs and weights cast), the sampling in the maps' type
+    promoted with the f32 weights, the score and delta in f32."""
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        d_in = (LOI_POINTS // 4) * (LOI_DIM + 8)
+        self.fc1 = nn.Linear(d_in, 1024)
+        self.fc2 = nn.Linear(1024, 512)
+        self.score = nn.Linear(512, 1)
+        self.delta = nn.Linear(512, 4)
+        self.to(dtype)
+
+    def forward(self, lines, prop_lines, loi, loi_thin, loi_aux, junc_xy=None, pair_idx=None):
+        """lines: (L, 4) or (V, L, 4) candidate (x1, y1, x2, y2) in 128-grid
+        coords; maps (128, 128, C) or (V, 128, 128, C) HWC. ``prop_lines``,
+        ``junc_xy`` and ``pair_idx`` are taken for call compatibility with
+        :class:`LoiHeadS1` and ignored: this head samples only the junction
+        line. Returns (scores (…, L) f32, adjusted lines (…, L, 4))."""
+        del prop_lines, junc_xy, pair_idx
+        # jnp.linspace(0, 1, 16) in float32 is i · f32(1/15)
+        t = torch.arange(LOI_POINTS, dtype=torch.float32, device=lines.device) * (
+            1.0 / (LOI_POINTS - 1))
+        p1, p2 = lines[..., None, 0:2], lines[..., None, 2:4]
+        pts = p1 + t[:, None] * (p2 - p1)  # (…, L, T, 2)
+        feats = torch.cat([_bilinear_lookup(m, pts) for m in (loi, loi_thin, loi_aux)], dim=-1)
+        *lead, tt, c = feats.shape
+        pooled = feats.reshape(*lead, tt // 4, 4, c).amax(dim=-2)  # (…, L, T/4, C)
+        flat = pooled.reshape(*lead, -1).to(self.dtype)
+        x = F.relu(self.fc1(flat))
+        x = F.relu(self.fc2(x))
+        score = torch.sigmoid(self.score(x).float())[..., 0]
+        delta = torch.tanh(self.delta(x).float()) * 2.0
+        return score, lines + delta
+
+
+def _bilinear_lookup(fmap: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Sample (H, W, C) at float (…, 2) (x, y) locations, border-clamped
+    (plnet.py:494-510); with a leading view dimension, (V, H, W, C) at
+    (V, …, 2). The map's type promotes with the f32 weights."""
+    h, w, ch = fmap.shape[-3:]
+    x = torch.clamp(pts[..., 0], 0.0, w - 1.000001)
+    y = torch.clamp(pts[..., 1], 0.0, h - 1.000001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    x1 = torch.clamp_max(x0 + 1, w - 1)
+    y1 = torch.clamp_max(y0 + 1, h - 1)
+    wx = (x - x0.to(x.dtype))[..., None]
+    wy = (y - y0.to(y.dtype))[..., None]
+    if fmap.dim() == 3:
+        flat = fmap.reshape(h * w, ch)
+
+        def take(i):
+            return flat[i]
+    else:
+        v = fmap.shape[0]
+        flat = fmap.reshape(v, h * w, ch)
+        view = torch.arange(v, device=fmap.device).reshape((v,) + (1,) * (pts.dim() - 2))
+
+        def take(i):
+            return flat[view, i]
+    v00, v01 = take(y0 * w + x0), take(y0 * w + x1)
+    v10, v11 = take(y1 * w + x0), take(y1 * w + x1)
+    return (v00 * (1 - wx) + v01 * wx) * (1 - wy) + (v10 * (1 - wx) + v11 * wx) * wy

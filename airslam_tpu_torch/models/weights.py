@@ -144,6 +144,16 @@ def loi_s1_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def loi_fast_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """JAX fast ``LoiHead`` params (``fc1``, ``fc2``, ``score``, ``delta``) →
+    ``state_dict`` of :class:`models.plnet.LoiHead`."""
+    p = _params(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("fc1", "fc2", "score", "delta"):
+        _dense(p[name], name, sd)
+    return sd
+
+
 def superpoint_from_flax(tree) -> Dict[str, torch.Tensor]:
     """JAX ``SuperPoint`` params (``superpoint.npz``: ``backbone/conv{1..4}{a,b}``,
     ``convPa/Pb``, ``convDa/Db``) → ``state_dict`` of
@@ -254,6 +264,12 @@ def loi_s1_to_flax(sd) -> Dict[str, Any]:
          for name in ("fc2_0", "fc2_2", "fc2_4", "fc2_res", "fc2_head")}
     p["t_fwd"], p["t_rev"] = _a(sd["t_fwd"]), _a(sd["t_rev"])
     return {"params": p}
+
+
+def loi_fast_to_flax(sd) -> Dict[str, Any]:
+    """``state_dict`` of :class:`models.plnet.LoiHead` → the JAX fast
+    ``LoiHead`` params; the inverse of :func:`loi_fast_from_flax`."""
+    return {"params": {name: _dense_node(sd, name) for name in ("fc1", "fc2", "score", "delta")}}
 
 
 def superpoint_to_flax(sd) -> Dict[str, Any]:

@@ -13,8 +13,8 @@ Usage::
     mesh = parallel.mesh.make_mesh()
     feats = sharded_detect(detector, frames, mesh)   # (B, H, W) -> features
 
-The port's detector always detects junctions (as every pipeline caller of
-the JAX ``detect`` asks), so there is no ``detect_junctions`` switch.
+``detect_junctions`` defaults to False, as in the JAX ``sharded_detect``:
+the junction fields are zeros unless the caller asks for them.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def detector_replica(detector, mesh, device):
     return mesh.replica(("detector", id(detector)), device, make)
 
 
-def sharded_detect(detector, images, mesh):
+def sharded_detect(detector, images, mesh, detect_junctions: bool = False):
     """``detector.detect`` with the frame batch split over every mesh device
     (dp × tp, dp-major as ``batch_all_devices``). Returns the batched
     ``FrameFeatures`` of the single-device path on the primary device, the
@@ -76,7 +76,8 @@ def sharded_detect(detector, images, mesh):
     parts = []
     for i, dev in enumerate(devs):
         shard = torch.as_tensor(arr[i * per:(i + 1) * per], dtype=torch.float32).to(dev)
-        parts.append(detector_replica(detector, mesh, dev).detect(shard))
+        parts.append(detector_replica(detector, mesh, dev).detect(
+            shard, detect_junctions=detect_junctions))
     primary = mesh.primary
     return type(parts[0])(*(torch.cat([torch.as_tensor(p[k]).to(primary) for p in parts])[:b]
                             for k in range(len(parts[0]))))

@@ -51,7 +51,8 @@ class MeshPipelinedRunner:
                 pairs.append(b.rectify(left_raw, right_raw))  # (2, H, W)
                 metas.append((ts, imu))
             # queued before the previous chunk is consumed
-            feats_dev = sharded_detect(b.detector, torch.cat(pairs), self.mesh)
+            feats_dev = sharded_detect(b.detector, torch.cat(pairs), self.mesh,
+                                       detect_junctions=True)
             if pending is not None:
                 done += self._consume(pending, progress, done)
             pending = (metas, feats_dev)

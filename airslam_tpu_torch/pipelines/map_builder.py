@@ -205,7 +205,7 @@ class MapBuilder:
         with self._stage("rectify"):
             pair = self.rectify(image_left, image_right)
         with self._stage("detect"):
-            feats_dev = self.detector.detect(pair)
+            feats_dev = self.detector.detect(pair, detect_junctions=True)
         with self._stage("stereo_match"):
             return self._match_detected(feats_dev)
 

@@ -106,7 +106,7 @@ class MapUser:
             from airslam_tpu_torch.ops.remap import remap
 
             image = remap(image.contiguous(), ml)
-        feats = self.detector.detect(image[None])
+        feats = self.detector.detect(image[None], detect_junctions=True)
         f0 = _as_np_features(type(feats)(*(t[0] for t in feats)))
         frame = Frame(self._frame_counter, 0.0, f0, self.map.camera)
         self._frame_counter += 1

@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, synth, e2e, mesh, system, vio, refine, reloc, train, matcher; ``path`` needs
+path, vo, synth, e2e, mesh, system, vio, refine, reloc, train, matcher, tools; ``path`` needs
 ``slice`` and ``tracking``, ``e2e`` runs ``synth`` first, ``mesh`` both) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
@@ -227,6 +227,27 @@ without a result line):
    pair with finite scores; ms per step, pairs per second and peak memory;
    then each mode's step cut into render, batch and matcher, synchronised,
    with each part's peak memory.
+15. ``tools``: the last bring-up slice (``tests/data/torch_tools_oracle.npz``).
+   (a) The detector with the fast stage-1 head and the stored JAX seeded
+   weights, f32 with TF32 off, on the 3 frontend pairs (both views, line
+   threshold 0.5): each view at the f32 frontend gates against the stored
+   JAX detection; ``detect_junctions=False`` returns zero junction fields;
+   no kernel launched (the fast head samples in plain PyTorch). (b)
+   ``apps/test_feature_torch.py`` over the 3 left images rectified with
+   euroc.yaml, every count set to 0 before: kernel R and ``loi_features``
+   once per image, each image at the f32 gates against the stored JAX CLI's
+   run, every annotated image written and readable. (c) ``backend/validate``'s
+   printers on ``apps/bench_backend.py``'s window on the card, the stored JAX
+   dicts' keys and counts, values within 1e-3 relative (after the BA, chi²
+   at float32 rounding: below 1e-3). (d) Two 3-frame sequences rendered on
+   the card, ``apps/run_batch_torch.py --stage vo`` over one and
+   ``apps/run_launch_torch.py`` on a launch file of one VO node over the
+   other, at once (subprocesses of the VO CLI; the loop over several
+   sequences is the CPU test's): both exit 0 and write trajectories of every
+   frame that ``apps/evaluate_torch.py`` reads against the ground truth, ATE
+   ≤ 0.05 m. (e)
+   ``apps/bench_backend_torch.py`` alone after them: the poses within 1e-4 m
+   of the stored JAX float32 ``local_ba``, the same inliers; ms per call.
 
 Before the last line it prints the kernels' JSON record and the card's
 ``nvidia-smi`` line; the last line is
@@ -256,6 +277,7 @@ RELOC_ORACLE = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 TRAIN_ORACLE = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
 MATCHER_ORACLE = os.path.join(REPO, "tests", "data", "torch_matcher_oracle.npz")
 E2E_ORACLE = os.path.join(REPO, "tests", "data", "torch_e2e_oracle.npz")
+TOOLS_ORACLE = os.path.join(REPO, "tests", "data", "torch_tools_oracle.npz")
 EUROC = {  # configs/camera/euroc.yaml:14-15,23-24: fx, fy, cx, cy / radtan
     "cam0": ([458.654, 457.296, 367.215, 248.375],
              [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
@@ -271,6 +293,10 @@ BF16_GATES = {"kp_agree_1px": 0.90, "kp_top100_overlap": 0.85,
               "line_agree_3px": 0.80, "junc_agree_2px": 0.80, "match_agree": 0.90}
 F32_GATES = {"kp_agree_1px": 0.98, "kp_top100_overlap": 0.95,
              "line_agree_3px": 0.90, "junc_agree_2px": 0.90, "match_agree": 0.95}
+# the detector alone (no matches): fast head, test_feature CLI
+DETECT_GATES = {k: F32_GATES[k] for k in ("kp_agree_1px", "kp_top100_overlap",
+                                          "line_agree_3px", "junc_agree_2px")}
+TOOLS_FIELDS = ("keypoints", "kp_mask", "lines", "line_mask", "junctions", "junc_mask")
 # kernel P against its plain version (both f32 on the card): the accept test
 # is a strict `<` on f32 sums taken in different orders, so the two are held
 # to the solver's accuracy, not to bits
@@ -397,6 +423,31 @@ MATCHER_GATES = {"desc": 1e-5, "score": 1e-5, "token_share": 0.98, "wide_count":
                  "wide_precision": 0.9, "wide_count_rel": 0.05, "update_floor": 1e-3,
                  "null_grad": 1e-5}
 MATCHER_CLI = {"steps": 20, "batch": 4, "view": 2}
+# phase tools: the fast head's detector configuration (the seeded head's
+# scores sit just above 0.5: test_feature's line threshold keeps lines);
+# bench_backend's window (frames, points, seed); the CLI chains' sequences
+# (3 frames of ``forward``: the e2e oracle's world and the port's own of
+# seed 1 with texture, one for each CLI chain; the loop's period is the
+# sequence's length) and bench_backend's timed calls
+TOOLS_FAST = {"max_keypoints": 400, "line_threshold": 0.5}
+TOOLS_BENCH = (5, 230, 0)
+TOOLS_RUN = {"frames": 3, "calls": 3, "warmup": 0}  # the accuracy call warms each up
+TOOLS_SEQUENCES = {"SYNTH_01": ["--world", E2E_ORACLE],
+                   "SYNTH_02": ["--seed", "1", "--texture", "0.1"]}
+TOOLS_GATES = {"bench_t": 1e-4, "validate_rel": 1e-3, "after_chi2": 1e-3}
+TOOLS_LAUNCH = """<launch>
+  <arg name="config_path" default="$(find air_slam)/configs/visual_odometry/vo_euroc.yaml"/>
+  <arg name="camera_config_path" default="$(find air_slam)/configs/camera/euroc.yaml"/>
+  <arg name="dataroot"/>
+  <arg name="saving_dir"/>
+  <node name="visual_odometry" pkg="air_slam" type="visual_odometry" output="screen">
+    <param name="config_path" value="$(arg config_path)"/>
+    <param name="camera_config_path" value="$(arg camera_config_path)"/>
+    <param name="dataroot" value="$(arg dataroot)"/>
+    <param name="saving_dir" value="$(arg saving_dir)"/>
+  </node>
+</launch>
+"""
 
 
 # ---------------------------------------------------------------------------
@@ -437,18 +488,29 @@ def _match_pairs(out):
                           axis=-1)  # (M, 4)
 
 
-def frontend_metrics(ref, got):
-    """Agreement of two entry()-layout output dicts (``o0``..``o10``)."""
+def detection_metrics(ref, got):
+    """Agreement of two detections, dicts of ``TOOLS_FIELDS`` (one image's,
+    or the junctions of several pooled): the frontend metrics without the
+    matches."""
     m = {}
-    kp_c = ref["o0"][ref["o7"] > 0]
-    kp_t = got["o0"][got["o7"] > 0]
+    kp_c = ref["keypoints"][ref["kp_mask"] > 0]
+    kp_t = got["keypoints"][got["kp_mask"] > 0]
     m["kp_agree_1px"] = _pts_agree(kp_c, kp_t, 1.0)
     k = min(100, len(kp_c), len(kp_t))
-    m["kp_top100_overlap"] = _pts_agree(ref["o0"][:k], got["o0"][:k], 1.0)
-    m["line_agree_3px"] = _lines_agree(ref["o4"][ref["o5"] > 0],
-                                       got["o4"][got["o5"] > 0], 3.0)
-    m["junc_agree_2px"] = _pts_agree(ref["o8"][ref["o10"] > 0],
-                                     got["o8"][got["o10"] > 0], 2.0)
+    m["kp_top100_overlap"] = _pts_agree(ref["keypoints"][:k], got["keypoints"][:k], 1.0)
+    m["line_agree_3px"] = _lines_agree(ref["lines"][ref["line_mask"] > 0],
+                                       got["lines"][got["line_mask"] > 0], 3.0)
+    m["junc_agree_2px"] = _pts_agree(ref["junctions"][ref["junc_mask"] > 0],
+                                     got["junctions"][got["junc_mask"] > 0], 2.0)
+    return m
+
+
+def frontend_metrics(ref, got):
+    """Agreement of two entry()-layout output dicts (``o0``..``o10``)."""
+    def fields(out):
+        return dict(zip(TOOLS_FIELDS, (out[k] for k in ("o0", "o7", "o4", "o5", "o8", "o10"))))
+
+    m = detection_metrics(fields(ref), fields(got))
     mc = _match_pairs(ref)
     mt = _match_pairs(got)
     if len(mc) and len(mt):
@@ -458,6 +520,26 @@ def frontend_metrics(ref, got):
     else:
         m["match_agree"] = 1.0 if len(mc) == len(mt) else 0.0
     return m
+
+
+def tools_detection(z, prefix):
+    """One stored JAX detection of the tools oracle (``prefix`` such as
+    ``fast0_1_`` or ``feature2_``)."""
+    return {f: z[prefix + f] for f in TOOLS_FIELDS}
+
+
+def tools_loi_params(z):
+    """The JAX fast ``LoiHead``'s seeded parameters stored in the tools
+    oracle, as the nested tree ``loi_fast_from_flax`` reads."""
+    tree = {}
+    for k in z.files:
+        if k.startswith("loi/"):
+            *path, leaf = k.split("/")[1:]
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = z[k]
+    return tree
 
 
 def oracle_pairs():
@@ -2979,12 +3061,13 @@ def phase_vio(dev):
           f"VI {np.median(ba_ms[n_vision:]):.1f} (n={len(ba_ms) - n_vision}); "
           f"kernel P launches per tracked frame: {len(before)} frames before init 1 each, "
           f"{len(after)} after 0")
-    # where the time goes: one call of each again under the profiler
+    # where the time goes: one call of each again under the profiler (the VI
+    # frame's solve and the VI window, bottlenecks 1 and 2 of PERF.md
+    # section 5; imu_initialization's and the vision window's profiles, 13 s
+    # of the script, are left out since phase tools came in)
     with _no_tf32("f32"):
         for label, (_, _, args, kw), fn in (
                 ("F=2 solve", solves[-1], windows._pose_only_fast_vi),
-                ("imu_initialization", init_gns[-1], windows.imu_initialization),
-                ("local_ba vision", bas[n_vision - 1], windows.local_ba),
                 ("local_ba VI", bas[-1], windows.local_ba)):
             n_k, dev_ms, wall, _ = _profile_call(lambda: fn(*args, **kw))
             print(f"VIO profile {label}: {n_k} kernels, device ms={dev_ms:.3f}, wall ms under "
@@ -4035,6 +4118,256 @@ def phase_mesh(dev, trees, root):
     return launches
 
 
+def tools_sequences(dev, root):
+    """The two 3-frame sequences of phase ``tools`` (``TOOLS_SEQUENCES``),
+    rendered on ``dev`` by ``apps/make_synth_dataset_torch.py``, each under
+    a dataset root of its own in ``root``. Returns {sequence: its root}."""
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import make_synth_dataset_torch as msd
+
+    roots = {}
+    for seq, extra in TOOLS_SEQUENCES.items():
+        roots[seq] = os.path.join(root, "data " + seq)
+        msd.main(["--out", roots[seq], "--seq", seq, "--frames", str(TOOLS_RUN["frames"]),
+                  "--traj", "forward", "--device", str(dev)] + extra)
+    return roots
+
+
+def tools_cli_runs(device_name, roots, root):
+    """Starts ``apps/run_batch_torch.py --stage vo`` over the first
+    sequence's dataset root and ``apps/run_launch_torch.py`` on a launch
+    file of one VO node over the second, at once, each in a thread (both run
+    the VO CLI in a subprocess; the loop over several sequences is
+    ``tests/test_torch_tools.py``'s). Returns a function that waits for both
+    and returns {run: (exit status, saving dir, the sequence's mav0)}."""
+    import threading
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import run_batch_torch
+    import run_launch_torch
+
+    cfg = os.path.join(REPO, "configs", "visual_odometry", "vo_euroc.yaml")
+    cam = os.path.join(REPO, "configs", "camera", "synth_stereo.yaml")
+    n = str(TOOLS_RUN["frames"])
+    batch_seq, launch_seq = sorted(TOOLS_SEQUENCES)
+    launch = os.path.join(root, "vo.launch")
+    with open(launch, "w") as f:
+        f.write(TOOLS_LAUNCH)
+    out = {}
+
+    def batch():
+        try:
+            res = run_batch_torch.main([
+                "--stage", "vo", "--config_path", cfg, "--camera_config_path", cam,
+                "--dataset_root", roots[batch_seq], "--out_root", os.path.join(root, "batch"),
+                "--max_frames", n, "--device", device_name])
+        except BaseException as e:  # reported by the caller
+            res = {batch_seq: f"raised {e!r}"}
+        out[f"run_batch {batch_seq}"] = (res.get(batch_seq, "not run"),
+                                         os.path.join(root, "batch", batch_seq),
+                                         os.path.join(roots[batch_seq], batch_seq, "mav0"))
+
+    def launched():
+        saving = os.path.join(root, "launch")
+        mav0 = os.path.join(roots[launch_seq], launch_seq, "mav0")
+        try:
+            run_launch_torch.main([launch, f"config_path:={cfg}", f"camera_config_path:={cam}",
+                                   f"dataroot:={mav0}", f"saving_dir:={saving}",
+                                   "--device", device_name, "--max_frames", n])
+            status = "ok"
+        except SystemExit as e:
+            status = f"exit {e.code}"
+        except BaseException as e:
+            status = f"raised {e!r}"
+        out[f"run_launch {launch_seq}"] = (status, saving, mav0)
+
+    threads = [threading.Thread(target=t) for t in (batch, launched)]
+    for t in threads:
+        t.start()
+
+    def wait():
+        for t in threads:
+            t.join()
+        return out
+
+    return wait
+
+
+def phase_tools(dev):
+    """The last bring-up slice on the card. The detector with the fast
+    stage-1 head (the stored JAX seeded weights) against the stored JAX
+    detection, and with ``detect_junctions=False``;
+    ``apps/test_feature_torch.py`` over the oracle's three left images
+    rectified with euroc.yaml (kernel R and ``loi_features`` once per image)
+    against the stored JAX CLI's run; ``apps/run_batch_torch.py`` and
+    ``apps/run_launch_torch.py`` running the VO CLI over one rendered 3-frame
+    sequence each, their trajectories read by ``apps/evaluate_torch.py``; the
+    ``backend/validate.py`` printers on ``apps/bench_backend_torch.py``'s
+    window against the stored JAX dicts; ``apps/bench_backend_torch.py``
+    against the stored JAX float32 ``local_ba`` (1e-4 m) and its ms per call.
+    Returns the launch counts of the fast-head detection and of the
+    test_feature CLI run."""
+    import cv2
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import bench_backend_torch
+    import evaluate_torch
+    import run_batch_torch
+    import test_feature_torch
+
+    from airslam_tpu_torch.backend import validate, windows
+    from airslam_tpu_torch.entry import _intrinsics, imu_chain, window_problem
+    from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu_torch.io.trajectory import load_tum
+
+    t_phase = time.perf_counter()
+    z = np.load(TOOLS_ORACLE)
+    counted = _counted()
+    failed, launches = [], {}
+
+    def note(text):
+        print(f"tools: {text}", flush=True)
+
+    with tempfile.TemporaryDirectory() as root:
+        # the CLI chains run in subprocesses while this process gates the rest
+        roots = tools_sequences(dev, root)
+        t_cli = time.perf_counter()
+        wait = tools_cli_runs(dev.type, roots, root)
+
+        try:
+            # the fast head, f32 with TF32 off, the stored JAX seeded weights
+            frames, _ = oracle_pairs()
+            det = FeatureDetector(DetectorConfig(loi_head="fast", use_superpoint=False,
+                                                 **TOOLS_FAST), device=dev,
+                                  params={"loi": tools_loi_params(z)})
+            for fn in counted.values():
+                fn.launches = 0
+            metrics, n_lines, jax_lines = [], [], []
+            with _no_tf32("f32"):
+                for i in range(frames.shape[0]):
+                    f = det.detect(frames[i], detect_junctions=True)
+                    metrics += [detection_metrics(
+                        tools_detection(z, f"fast{i}_{v}_"),
+                        {k: getattr(f, k)[v].cpu().numpy() for k in TOOLS_FIELDS}) for v in (0, 1)]
+                    n_lines += [int(f.line_mask[v].sum()) for v in (0, 1)]
+                    jax_lines += [int(z[f"fast{i}_{v}_line_mask"].sum()) for v in (0, 1)]
+                off = det.detect(frames[0])
+                torch.cuda.synchronize()
+            launches["fast head"] = {k: fn.launches for k, fn in counted.items()}
+            worst = {k: min(m[k] for m in metrics) for k in DETECT_GATES}
+            note("fast head (3 pairs, both views, f32, TF32 off): worst view "
+                 + " ".join(f"{k}={v:.4f}(>={DETECT_GATES[k]})" for k, v in worst.items())
+                 + f"; lines {n_lines} (JAX {jax_lines}); launches "
+                 f"{launches['fast head']}")
+            junc_off = [k for k in ("junctions", "junc_scores", "junc_desc", "junc_mask")
+                        if bool(getattr(off, k).any())]
+            failed += [f"tools fast head: {msg}" for ok, msg in (
+                (all(v >= DETECT_GATES[k] for k, v in worst.items()), f"gates: {worst}"),
+                (not junc_off, f"detect_junctions=False returned {junc_off}"),
+                (not any(launches["fast head"].values()),
+                 f"launches {launches['fast head']}, not none")) if not ok]
+
+            # test_feature_torch over the three left images, rectified
+            img_dir = os.path.join(root, "images")
+            os.makedirs(img_dir)
+            for i, u8 in enumerate(np.load(ORACLE)["frames_u8"][:, 0]):
+                cv2.imwrite(os.path.join(img_dir, f"{i:02d}.png"), u8)
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with _no_tf32("f32"):  # the CLI turns TF32 off; restored after it
+                runs = test_feature_torch.main([
+                    "--image_dir", img_dir, "--save_dir", os.path.join(root, "features"),
+                    "--camera_config_path", os.path.join(REPO, "configs", "camera", "euroc.yaml"),
+                    "--device", dev.type])
+            wall = time.perf_counter() - t0
+            launches["test feature"] = {k: fn.launches for k, fn in counted.items()}
+            names = [n for n, _ in runs]
+            want = dict({k: 0 for k in counted}, remap=len(runs), loi_features=len(runs))
+            fmetrics = [detection_metrics(tools_detection(z, f"feature{i}_"),
+                                          {k: np.asarray(getattr(f, k)) for k in TOOLS_FIELDS})
+                        for i, (_, f) in enumerate(runs)]
+            worst = {k: min((m[k] for m in fmetrics), default=0.0) for k in DETECT_GATES}
+            drawn = [cv2.imread(os.path.join(root, "features", n)) for n in names]
+            note(f"test_feature_torch ({len(runs)} images, euroc.yaml, f32): worst image "
+                 + " ".join(f"{k}={v:.4f}(>={DETECT_GATES[k]})" for k, v in worst.items())
+                 + f"; lines {[int(f.line_mask.sum()) for _, f in runs]} (JAX "
+                 f"{[int(z[f'feature{i}_line_mask'].sum()) for i in range(len(names))]}); "
+                 f"launches {launches['test feature']}; {wall:.2f} s with the model load")
+            failed += [f"tools test_feature: {msg}" for ok, msg in (
+                (names == [str(s) for s in z["feature_names"]], f"images {names}"),
+                (all(v >= DETECT_GATES[k] for k, v in worst.items()), f"gates: {worst}"),
+                (launches["test feature"] == want,
+                 f"launches {launches['test feature']}, not {want}"),
+                (all(d is not None and d.shape == (HEIGHT, WIDTH, 3) for d in drawn),
+                 "an annotated image is missing or unreadable")) if not ok]
+
+            # the validate printers on the card, on bench_backend's window, f32
+            prob, scene = bench_backend_torch.window(*TOOLS_BENCH, torch.float32, dev)
+            intr = _intrinsics()
+            nf = int(prob.frames.twb.shape[0])
+            chain = imu_chain(np.arange(nf - 1), np.arange(1, nf))
+            prob_imu = window_problem(scene, Rwb=prob.frames.Rwb.cpu().numpy(),
+                                      twb=prob.frames.twb.cpu().numpy(),
+                                      points=prob.points.cpu().numpy(), dtype=torch.float32,
+                                      device=dev, imu=chain)
+            got = {"before": validate.validate_reprojection(prob, intr, "before"),
+                   "after": validate.validate_reprojection(windows.local_ba(prob, intr)[0], intr,
+                                                           "after"),
+                   "imu": validate.validate_imu(prob_imu, "imu")}
+            jv = json.loads(str(z["validate"]))
+            rel = TOOLS_GATES["validate_rel"]
+            for label in got:
+                g, w = got[label], jv[label]
+                failed += [f"tools validate {label}: {msg} ({g} against JAX {w})" for ok, msg in (
+                    (list(g) == list(w), "other keys"),
+                    (all(g[k] == v for k, v in w.items() if isinstance(v, int)), "other counts"),
+                    # after the BA the chi² values are float32 rounding: held to convergence
+                    (all(abs(g[k] - v) <= rel * abs(v) for k, v in w.items()
+                         if isinstance(v, float)) if label != "after"
+                     else g["point_chi2_max"] <= TOOLS_GATES["after_chi2"],
+                     "values apart")) if not ok]
+            note(f"validate (bench window, f32): {got} (JAX {jv})")
+            t_own = time.perf_counter() - t_cli
+        finally:  # the subprocesses end before their tree goes
+            results = wait()
+        note(f"the CLI chains took {time.perf_counter() - t_cli:.1f} s; this process's gates "
+             f"{t_own:.1f} s meanwhile")
+        for run, (status, saving, mav0) in sorted(results.items()):
+            traj_path = os.path.join(saving, "trajectory_v0.txt")
+            gt_path = os.path.join(saving, "gt_tum.txt")
+            if status == "ok" and not os.path.exists(gt_path):
+                run_batch_torch._euroc_gt_to_tum(
+                    os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"), gt_path)
+            traj = load_tum(traj_path) if os.path.exists(traj_path) else []
+            ate, n_gt = (evaluate_torch.evaluate(traj, load_tum(gt_path))
+                         if os.path.exists(gt_path) else (None, "no ground truth"))
+            note(f"{run}: {status}; {len(traj)} poses; ATE {_m(ate)} over {n_gt}")
+            failed += [f"tools {run}: {msg}" for ok, msg in (
+                (status == "ok", f"exited {status}"),
+                (len(traj) == TOOLS_RUN["frames"], f"{len(traj)} poses written"),
+                (ate is not None and ate <= E2E_GATES["ate"],
+                 f"evaluate_torch: ATE {_m(ate)} ({n_gt}), gate {E2E_GATES['ate']} m")) if not ok]
+
+    # bench_backend_torch alone on the card (after the subprocesses ended)
+    rec = bench_backend_torch.main(["--device", dev.type, "--calls", str(TOOLS_RUN["calls"]),
+                                    "--warmup", str(TOOLS_RUN["warmup"])])
+    gap = float(np.abs(rec["twb"] - z["bench_twb"]).max())
+    note(f"bench_backend_torch (F={TOOLS_BENCH[0]}, P={TOOLS_BENCH[1]}, f32): poses "
+         f"{gap:.2e} m from the JAX f32 local_ba (gate {TOOLS_GATES['bench_t']}), error "
+         f"to the ground truth {rec['err']:.2e} m (JAX {float(z['bench_err']):.2e}), "
+         f"inliers {rec['inliers']}/{rec['n_obs']} (JAX {int(z['bench_inliers'])}); "
+         f"{rec['ms']:.3f} ms a call, early_exit=1e-6 {rec['ms_early']:.3f} ms "
+         f"(medians of {TOOLS_RUN['calls']}) on {rec['device']}")
+    failed += [f"tools bench_backend: {msg}" for ok, msg in (
+        (gap <= TOOLS_GATES["bench_t"], f"poses {gap:.2e} m from the JAX run"),
+        (rec["inliers"] == int(z["bench_inliers"]), "other inliers")) if not ok]
+    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s")
+    _require(not failed, "; ".join(failed))
+    return launches
+
+
 def tracking_builder_like(builder):
     """A fresh ``MapBuilder`` on ``builder``'s camera, detector and matcher
     (the networks stay loaded and warm)."""
@@ -4248,7 +4581,7 @@ def main() -> int:
                  "vio": lambda: phase_vio(dev), "refine": lambda: phase_refine(dev),
                  "reloc": lambda: phase_reloc(dev), "train": lambda: phase_train(dev),
                  "matcher": lambda: phase_matcher(dev),
-                 "system": lambda: phase_system(dev)}
+                 "system": lambda: phase_system(dev), "tools": lambda: phase_tools(dev)}
         for name in short:
             if name in only:
                 short[name]()
@@ -4269,28 +4602,38 @@ def main() -> int:
                 phase_tracking(dev, frames)
         print(f"chip_smoke: phases {sorted(only)} ran; no result line for a partial run")
         return 3
-    kernels = [phase_kernel_r(dev, grids_np), phase_kernel_bt(dev, "B"),
-               phase_kernel_bt(dev, "T"), phase_kernel_loi(dev), phase_kernel_p(dev),
-               phase_kernel_f(dev)]
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds printed: the script's time budget by phase."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"chip_smoke: phase {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    kernels = timed("kernels", lambda: [
+        phase_kernel_r(dev, grids_np), phase_kernel_bt(dev, "B"), phase_kernel_bt(dev, "T"),
+        phase_kernel_loi(dev), phase_kernel_p(dev), phase_kernel_f(dev)])
     frames, refs = oracle_pairs()
-    steps = phase_slice(dev, frames, refs)
-    builders = phase_tracking(dev, frames)
-    phase_path(dev, steps, builders, frames, grids_np)
-    launches = phase_vo(dev)
+    steps = timed("slice", phase_slice, dev, frames, refs)
+    builders = timed("tracking", phase_tracking, dev, frames)
+    timed("path", phase_path, dev, steps, builders, frames, grids_np)
+    launches = timed("vo", phase_vo, dev)
     # the main path's acceptance: the CLI over rendered sequences, the system loop
     with tempfile.TemporaryDirectory() as root:
-        trees = phase_synth(dev, root)
-        e2e_launches = phase_e2e(dev, trees, root)
+        trees = timed("synth", phase_synth, dev, root)
+        e2e_launches = timed("e2e", phase_e2e, dev, trees, root)
         # the multi-device path over the distorted tree
-        mesh_launches = phase_mesh(dev, trees, root)
-    system_launches = phase_system(dev)
-    vi_launches = phase_vio(dev)
-    refine_launches, refine_p_ms = phase_refine(dev)
-    reloc_launches = phase_reloc(dev)
+        mesh_launches = timed("mesh", phase_mesh, dev, trees, root)
+    system_launches = timed("system", phase_system, dev)
+    vi_launches = timed("vio", phase_vio, dev)
+    refine_launches, refine_p_ms = timed("refine", phase_refine, dev)
+    reloc_launches = timed("reloc", phase_reloc, dev)
     # the detector trainer: every count set to 0 before each CLI run
-    train_record, train_launches, train_per_step = phase_train(dev)
+    train_record, train_launches, train_per_step = timed("train", phase_train, dev)
     # the matcher trainer: every count set to 0 before each CLI run
-    matcher_per_step = phase_matcher(dev)
+    matcher_per_step = timed("matcher", phase_matcher, dev)
+    # the last slice's tools: every count set to 0 before the fast-head
+    # detection and before the test_feature CLI run
+    tools_launches = timed("tools", phase_tools, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_vi_frame"] = vi_launches[k["name"]]
@@ -4313,6 +4656,8 @@ def main() -> int:
         for label, counts in e2e_launches.items():
             k["launches_e2e_" + label.replace(" ", "_")] = counts[k["name"]]
         k["launches_system"] = system_launches[k["name"]]
+        k["launches_test_feature"] = tools_launches["test feature"][k["name"]]
+        k["launches_fast_head"] = tools_launches["fast head"][k["name"]]
         for label, counts in mesh_launches.items():
             k["launches_" + label.replace(" ", "_")] = counts[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -4322,7 +4667,8 @@ def main() -> int:
             "launches_matcher_step", "refine_ms",
             "launches_e2e_f32", "launches_e2e_bf16", "launches_e2e_dist_f32", "launches_system",
             "launches_cli_mesh", "launches_mesh4", "launches_mesh4_cudnn_off",
-            "launches_seq_cudnn_off", "launches_dp_plnet_step")
+            "launches_seq_cudnn_off", "launches_dp_plnet_step", "launches_test_feature",
+            "launches_fast_head")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -177,7 +177,23 @@ oracle), patched into JAX's ``render_from_shapes``; the JAX test's detector
 and LightGlue on those renders: the accepted match count and precision per
 pair (and, for the record, the count on the test's own renders).
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train|e2e|matcher]
+Tools oracle
+------------
+The last bring-up slice's modules, in ``tests/data/torch_tools_oracle.npz``:
+the JAX fast ``LoiHead``'s parameters as ``FeatureDetector`` initialises
+them for seed ``TOOLS["seed"]`` (``_init_loi_params`` with the second key of
+``split(PRNGKey(seed), 3)``; about 4.3 MB of float32); the JAX detector with
+that head and the shipped PLNet (400 keypoints, line threshold 0.5, no
+SuperPoint, float32, ``detect_junctions=True``) on both views of the 3 frontend-oracle pairs;
+``apps/test_feature.py --camera_config_path configs/camera/euroc.yaml``
+(float32) on their left images, written as PNGs: each image's detections
+and printed line; the JAX float32 ``windows.local_ba`` on
+``apps/bench_backend.py``'s window (``make_point_scene(f=5, p=230)`` from
+``RandomState(0)`` and its perturbation): the poses, and the
+``backend/validate.py`` dicts of that window before and after the BA and
+with a synthetic IMU chain (``__graft_entry__._synthetic_imu_chain``).
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_oracle.py [frontend|tracking|vo|vio|refine|reloc|train|e2e|matcher|tools]
 
 ``chip_smoke.py`` and ``tests/test_torch_*.py`` read the files; the port
 itself never imports JAX.
@@ -209,6 +225,13 @@ OUT_RELOC = os.path.join(REPO, "tests", "data", "torch_reloc_oracle.npz")
 OUT_TRAIN = os.path.join(REPO, "tests", "data", "torch_train_oracle.npz")
 OUT_MATCHER = os.path.join(REPO, "tests", "data", "torch_matcher_oracle.npz")
 OUT_E2E = os.path.join(REPO, "tests", "data", "torch_e2e_oracle.npz")
+OUT_TOOLS = os.path.join(REPO, "tests", "data", "torch_tools_oracle.npz")
+# the fast head's seed and detector configuration (apps/test_feature.py's line
+# threshold: at the default 0.75 the seeded head, whose scores sit just above
+# 0.5, keeps no line); apps/bench_backend.py's window (frames, points, seed)
+TOOLS = {"seed": 0, "fast_cfg": {"max_keypoints": 400, "line_threshold": 0.5},
+         "bench": (5, 230, 0)}
+TOOLS_FIELDS = ("keypoints", "kp_mask", "lines", "line_mask", "junctions", "junc_mask")
 # the stage-1 sequence of scripts/verify_tpu_e2e.py:149-151 (E2E_TPU.json)
 E2E = {"frames": 40, "run": 20, "stride": 2, "traj": "loop", "seed": 0, "noise_seed": 1}
 E2E_PNG_FRAMES = (0, 19)  # frames whose PNGs gate the card's render
@@ -1617,6 +1640,144 @@ def write_matcher_oracle():
     print(f"oracle written: {OUT_MATCHER} ({os.path.getsize(OUT_MATCHER)} bytes)")
 
 
+
+def jax_fast_detector(seed=0, dtype=None, **cfg):
+    """The JAX ``FeatureDetector`` with the fast ``LoiHead`` as it
+    initialises the head for ``seed`` and the shipped PLNet (no SuperPoint)."""
+    import jax
+    import jax.numpy as jnp
+
+    from airslam_tpu.frontend.detector import DetectorConfig, FeatureDetector
+    from airslam_tpu.models.weights import load_default_frontend
+
+    shipped, _ = load_default_frontend(use_superpoint=False)
+    det = FeatureDetector(DetectorConfig(loi_head="fast", use_superpoint=False,
+                                         dtype=dtype or jnp.float32, **cfg),
+                          params={"plnet": shipped["plnet"]})
+    det.params["loi"] = det._init_loi_params(jax.random.split(jax.random.PRNGKey(seed), 3)[1])
+    return det
+
+
+def jax_bench_window(frames, points, seed, dtype=None):
+    """``apps/bench_backend.py``'s window: (the perturbed problem in
+    ``dtype`` (float32 by default, as the app runs it), its intrinsics, the
+    scene)."""
+    import jax.numpy as jnp
+    from scipy.spatial.transform import Rotation
+
+    from airslam_tpu.core.camera import Intrinsics
+    from tests.synthetic import build_problem, make_point_scene
+
+    dtype = dtype or jnp.float32
+    rng = np.random.RandomState(seed)
+    scene = make_point_scene(f=frames, p=points, rng=rng)
+    Rwb0, twb0 = scene["Rwb"].copy(), scene["twb"].copy()
+    for i in range(1, frames):
+        Rwb0[i] = Rwb0[i] @ Rotation.from_rotvec(rng.randn(3) * 0.02).as_matrix()
+        twb0[i] = twb0[i] + rng.randn(3) * 0.05
+    pts0 = scene["points"] + rng.randn(*scene["points"].shape) * 0.05
+    prob = build_problem(scene, Rwb=Rwb0, twb=twb0, points=pts0, dtype=dtype)
+    i64 = scene["intr"]
+    intr = Intrinsics(fx=dtype(i64.fx), fy=dtype(i64.fy), cx=dtype(i64.cx), cy=dtype(i64.cy),
+                      bf=dtype(i64.bf), width=752, height=480)
+    return prob, intr, scene
+
+
+def jax_test_feature(image_dir, save_dir, extra=()):
+    """``apps/test_feature.py`` on ``image_dir``: [(name, FrameFeatures of
+    the image as numpy)] and its printed lines. Its compilation cache is not
+    written."""
+    import contextlib
+    import io
+
+    import jax.tree_util as jtu
+
+    import apps.test_feature as tf
+    from airslam_tpu.frontend import detector as jdetector
+    from airslam_tpu.utils import jaxcache
+
+    got = []
+    detect = jdetector.FeatureDetector.detect
+
+    def recording(self, images, detect_junctions=False):
+        out = detect(self, images, detect_junctions=detect_junctions)
+        got.append(jtu.tree_map(lambda t: np.asarray(t[0]), out))
+        return out
+
+    saved = sys.argv, jdetector.FeatureDetector.detect, jaxcache.enable
+    sys.argv = ["test_feature.py", "--image_dir", image_dir, "--save_dir", save_dir,
+                "--device", "cpu", *extra]
+    jdetector.FeatureDetector.detect = recording
+    jaxcache.enable = lambda *a, **k: None
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tf.main()
+    finally:
+        sys.argv, jdetector.FeatureDetector.detect, jaxcache.enable = saved
+    lines = buf.getvalue().strip().splitlines()
+    return list(zip([ln.split(":")[0] for ln in lines], got)), lines
+
+
+def write_tools_oracle():
+    import json
+    import tempfile
+
+    import cv2
+    import jax
+    import jax.numpy as jnp
+
+    from __graft_entry__ import _synthetic_imu_chain
+    from airslam_tpu.backend import validate, windows
+
+    blob = {}
+    fr = np.load(OUT)
+    frames = fr["frames_u8"].astype(np.float32) / np.float32(255.0)
+    with jax.enable_x64(False):  # float32, as the JAX CLIs run
+        det = jax_fast_detector(TOOLS["seed"], **TOOLS["fast_cfg"])
+        for k, v in flat_tree(det.params["loi"]).items():
+            blob["loi/" + k] = np.asarray(v, np.float32)
+        for i in range(frames.shape[0]):
+            f = det.detect(frames[i], detect_junctions=True)
+            for v in range(2):
+                for name in TOOLS_FIELDS:
+                    blob[f"fast{i}_{v}_{name}"] = np.asarray(getattr(f, name)[v])
+            print(f"fast head, pair {i}: lines {np.asarray(f.line_mask).sum(-1)}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            img_dir, out_dir = os.path.join(tmp, "images"), os.path.join(tmp, "out")
+            os.makedirs(img_dir)
+            for i in range(frames.shape[0]):
+                cv2.imwrite(os.path.join(img_dir, f"{i:02d}.png"), fr["frames_u8"][i, 0])
+            runs, printed = jax_test_feature(
+                img_dir, out_dir, ["--camera_config_path",
+                                   os.path.join(REPO, "configs", "camera", "euroc.yaml")])
+        for i, (name, f) in enumerate(runs):
+            for field in TOOLS_FIELDS:
+                blob[f"feature{i}_{field}"] = np.asarray(getattr(f, field))
+        blob["feature_names"] = np.array([n for n, _ in runs])
+        blob["feature_printed"] = np.array(printed)
+        print("\n".join(printed))
+
+        prob, intr, scene = jax_bench_window(*TOOLS["bench"])
+        out, p_in, _ = windows.local_ba(prob, intr)
+        f = prob.frames.twb.shape[0]
+        prob_imu = prob._replace(imu=_synthetic_imu_chain(np.arange(f - 1), np.arange(1, f),
+                                                          jnp.float32))
+        dicts = {"before": validate.validate_reprojection(prob, intr, "before"),
+                 "after": validate.validate_reprojection(out, intr, "after"),
+                 "imu": validate.validate_imu(prob_imu, "imu")}
+        blob["bench_twb"] = np.asarray(out.frames.twb)
+        blob["bench_Rwb"] = np.asarray(out.frames.Rwb)
+        blob["bench_inliers"] = np.int64(np.asarray(p_in).sum())
+    blob["bench_err"] = np.float64(np.abs(blob["bench_twb"] - scene["twb"]).max())
+    blob["validate"] = np.array(json.dumps(dicts))
+    print(f"bench window: pose err {float(blob['bench_err']):.2e} m, "
+          f"inliers {int(blob['bench_inliers'])}")
+
+    np.savez_compressed(OUT_TOOLS, **blob)
+    print(f"oracle written: {OUT_TOOLS} ({os.path.getsize(OUT_TOOLS)} bytes)")
+
 def main():
     import jax
 
@@ -1641,6 +1802,8 @@ def main():
         # float32, as the JAX matcher trainer runs
         with jax.enable_x64(False):
             write_matcher_oracle()
+    if which in ("all", "tools"):
+        write_tools_oracle()
     if which in ("all", "reloc", "e2e"):
         # float32, as the JAX CLIs run (they enable no x64)
         jax.config.update("jax_enable_x64", False)

@@ -695,6 +695,36 @@ def test_loi_backward_kernel_equals_autograd_through_plain(dev, shape):
 
 
 @pytest.mark.cuda
+def test_fast_head_detector_on_the_card_vs_cpu(dev):
+    """The detector with the fast stage-1 head and the stored JAX seeded
+    weights (``torch_tools_oracle.npz``) on the card, f32 with TF32 off,
+    against the port's CPU run on the same pair, both views at the card's
+    f32 frontend gates (``chip_smoke.DETECT_GATES``: cuDNN's convolutions
+    round otherwise than the CPU's, and the seeded head's scores sit near
+    the 0.5 threshold); ``loi_features`` is not launched (the fast head
+    samples in plain PyTorch)."""
+    from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
+
+    z = np.load(chip_smoke.TOOLS_ORACLE)
+    frames, _ = chip_smoke.oracle_pairs()
+    cfg = DetectorConfig(loi_head="fast", use_superpoint=False, **chip_smoke.TOOLS_FAST)
+    params = {"loi": chip_smoke.tools_loi_params(z)}
+    with chip_smoke._no_tf32("f32"):
+        before = bilerp.loi_features.launches
+        got = FeatureDetector(cfg, device=dev, params=params).detect(frames[0],
+                                                                     detect_junctions=True)
+        assert bilerp.loi_features.launches == before
+    want = FeatureDetector(cfg, device="cpu", params=params).detect(frames[0],
+                                                                    detect_junctions=True)
+    for v in range(2):
+        m = chip_smoke.detection_metrics(
+            {k: getattr(want, k)[v].numpy() for k in chip_smoke.TOOLS_FIELDS},
+            {k: getattr(got, k)[v].cpu().numpy() for k in chip_smoke.TOOLS_FIELDS})
+        assert all(m[k] >= g for k, g in chip_smoke.DETECT_GATES.items()), m
+    assert int(want.line_mask.sum()) > 50
+
+
+@pytest.mark.cuda
 def test_loi_backward_kernel_refusals(dev):
     """bf16 maps and a wrongly shaped gradient raise."""
     ops = chip_smoke.train_loi_inputs(np.random.RandomState(4), 2, dev)

@@ -118,7 +118,7 @@ def test_split_detect_batch_matches_the_frontend_oracle():
     frames, refs = chip_smoke.oracle_pairs()
     det = FeatureDetector(DetectorConfig(max_keypoints=400, use_superpoint=False), device="cpu")
     for pair, ref in zip(frames, refs):
-        f = det.detect(pair)
+        f = det.detect(pair, detect_junctions=True)
         np.testing.assert_array_equal(_np(f.line_mask[0]) > 0, ref["o5"])
         np.testing.assert_allclose(_np(f.lines[0]), ref["o4"], rtol=0, atol=6.2e-5)
         np.testing.assert_array_equal(_np(f.junc_mask) > 0, ref["o10"])

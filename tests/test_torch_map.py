@@ -207,7 +207,7 @@ def test_pipelined_runner_equals_sequential_loop_and_jax():
         def __init__(self):
             self.i = 0
 
-        def detect(self, images):
+        def detect(self, images, detect_junctions=False):
             fl, fr, _ = rendered[self.i]
             self.i += 1
             return FrameFeatures(*(torch.stack([torch.as_tensor(a), torch.as_tensor(b)])

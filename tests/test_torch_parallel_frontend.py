@@ -67,14 +67,14 @@ def test_sharded_detect_against_jax(detectors):
     assert padded.shape == (8, 120, 188) and b == 3 and not padded[3:].any()
     with jax.enable_x64(False):
         want = jfrontend.sharded_detect(jdet, frames, jmesh.make_mesh(8), detect_junctions=True)
-    got = sharded_detect(tdet, frames, tmesh.make_mesh(devices=CPU8))
+    got = sharded_detect(tdet, frames, tmesh.make_mesh(devices=CPU8), detect_junctions=True)
     assert got.keypoints.shape == (3, 64, 2)
     np.testing.assert_array_equal(got.kp_mask.numpy(), np.asarray(want.kp_mask))
     valid = got.kp_mask.numpy()
     assert valid.sum() > 100
     gap = np.abs(got.keypoints.numpy() - np.asarray(want.keypoints))[valid].max()
     assert gap <= 1e-2, gap
-    single = tdet.detect(frames)
+    single = tdet.detect(frames, detect_junctions=True)
     for a, b in zip(got, single):
         assert torch.equal(a, b)
 

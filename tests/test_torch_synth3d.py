@@ -106,16 +106,18 @@ def test_octave_noise_equals_jax():
     assert np.abs(got - want).max() <= 1e-5
 
 
-@pytest.mark.parametrize("noise", (False, True), ids=("clean", "noise"))
-@pytest.mark.parametrize("texture", (0.0, 0.1))
-@pytest.mark.parametrize("size", ((60, 94), (480, 752)), ids=("60x94", "480x752"))
-def test_render_view3d_equals_jax(size, texture, noise):
-    """One view on a pose of the loop trajectory (the right camera of frame
-    7 of 40, stride 2)."""
-    h, w = size
-    jw, tw = _worlds(0)
+def _pose_7():
+    """The right camera of frame 7 of 40 on the loop trajectory (stride 2):
+    its world-to-camera translation (the rotation is the identity)."""
     pos = BENCH.traj_position(0.7, "loop", 4.0)
-    tcw = (-pos - np.array([0.11, 0.0, 0.0])).astype(np.float32)
+    return (-pos - np.array([0.11, 0.0, 0.0])).astype(np.float32)
+
+
+def _render_pair(tw, jw, size, texture, noise):
+    """(port, JAX) renders of one view at ``_pose_7``: the port's of world
+    ``tw``, JAX's of ``jw``."""
+    h, w = size
+    tcw = _pose_7()
     key = jax.random.PRNGKey(5) if noise else None
     want = np.asarray(J.render_view3d(jw, jnp.eye(3, dtype=jnp.float32), jnp.asarray(tcw),
                                       *INTR, h, w, key, texture=texture,
@@ -124,7 +126,64 @@ def test_render_view3d_equals_jax(size, texture, noise):
     got = T.render_view3d(tw, torch.eye(3)[None], torch.as_tensor(tcw)[None], *INTR, h, w,
                           noise=nz, texture=texture, texture_theta=_theta(0))
     assert got.shape == (1, h, w) and got.dtype == torch.float32
-    assert np.abs(got[0].numpy() - want).max() <= 1e-5
+    return got[0].numpy(), want
+
+
+@pytest.mark.parametrize("noise", (False, True), ids=("clean", "noise"))
+@pytest.mark.parametrize("texture", (0.0, 0.1))
+@pytest.mark.parametrize("size", ((60, 94), (480, 752)), ids=("60x94", "480x752"))
+def test_render_view3d_equals_jax(size, texture, noise):
+    """The render alone: one view on a pose of the loop trajectory, the port
+    handed the JAX world's own arrays, so that the world's known gap (see
+    ``test_make_world3d_equals_jax``) stays out of it."""
+    jw, _ = _worlds(0)
+    tw = T.World3D(*(torch.from_numpy(np.array(a)) for a in jw))
+    got, want = _render_pair(tw, jw, size, texture, noise)
+    assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.parametrize("noise", (False, True), ids=("clean", "noise"))
+@pytest.mark.parametrize("texture", (0.0, 0.1))
+def test_render_view3d_of_the_rebuilt_world(texture, noise):
+    """The port's own world, rebuilt from the JAX draws, rendered at 480×752
+    against the JAX render of the JAX world. The worlds differ only in some
+    segments' far ends (``test_make_world3d_equals_jax``): at this seed by at
+    most 2.4e-7 m. A stroke is the image of its segment: a point of the
+    segment moves by at most as far as the moved end, and a point at depth z
+    and (x, y) = (X/z, Y/z) moves on the image by at most f/z·√(1 + x² + y²)
+    times that (the largest singular value of the projection's Jacobian),
+    wherever the stroke meets the image. The stroke's alpha
+    ``clip(1.8 - d)`` has slope 1 in the distance d, and a stroke's shade is
+    below 0.55. So a pixel moves by at most the render's own gate (1e-5,
+    ``test_render_view3d_equals_jax``) plus, summed over the strokes whose
+    far end moved, that end's move · the largest f/z·√(1 + x² + y²) over the
+    stroke's points in the image · 1 · 0.55. At this pose three ends move
+    and the bound is 3.2e-5, against the 1.97e-5 measured. The 8-bit images must
+    also meet the card's gate (``chip_smoke.E2E_GATES``): at most 1 grey
+    level apart, on at most 1e-3 of the pixels."""
+    h, w = 480, 752
+    jw, tw = _worlds(0)
+    got, want = _render_pair(tw, jw, (h, w), texture, noise)
+    fx, fy, cx, cy = INTR
+    segs = np.asarray(jw.segments, np.float64) + _pose_7()  # the camera frame (R = I)
+    gap = np.linalg.norm(np.asarray(jw.segments, np.float64) - tw.segments.numpy(),
+                         axis=-1).max(axis=1)
+    s = np.linspace(0.0, 1.0, 4001)[:, None]
+    bound = 1e-5
+    for (a, b), moved in zip(segs[gap > 0], gap[gap > 0]):
+        if a[2] <= 0.25 or b[2] <= 0.25:
+            continue  # not drawn
+        p = a + s * (b - a)
+        x, y = p[:, 0] / p[:, 2], p[:, 1] / p[:, 2]
+        u, v = fx * x + cx, fy * y + cy
+        seen = (u > -2) & (u < w + 2) & (v > -2) & (v < h + 2)  # alpha reaches 1.8 px out
+        if seen.any():
+            gain = (max(fx, fy) / p[:, 2] * np.sqrt(1.0 + x * x + y * y))[seen].max()
+            bound += moved * gain * 1.0 * 0.55
+    assert np.abs(got - want).max() <= bound
+    u8 = [np.clip(im * 255.0, 0, 255).astype(np.uint8).astype(np.int16) for im in (got, want)]
+    d = np.abs(u8[0] - u8[1])
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
 
 
 def test_render_view3d_rotated_pose_and_batch():

@@ -110,7 +110,7 @@ def test_detector_use_superpoint_default_and_vs_jax(frames, port_builder_factory
     assert DetectorConfig().use_superpoint is JaxDetectorConfig().use_superpoint is True
     detector = port_builder_factory().detector
     assert detector.superpoint is not None
-    got = detector.detect(frames[1])
+    got = detector.detect(frames[1], detect_junctions=True)
     want = jax_side[3][1]  # (f0, f1, pairs, temporal) of pair 1
     for view in (0, 1):
         ref = want[view]

@@ -491,7 +491,7 @@ def test_pipelined_runner_passes_the_imu_batches():
         def __init__(self):
             self.n = 0
 
-        def detect(self, images):
+        def detect(self, images, detect_junctions=False):
             fl, fr, _ = frames[self.n][1]
             self.n += 1
             return FrameFeatures(*(torch.stack([torch.as_tensor(a), torch.as_tensor(b)])

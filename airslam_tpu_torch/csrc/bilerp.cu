@@ -53,8 +53,9 @@
 //   explicitly rounded intrinsics, since one ulp there can move a floor.
 //
 // loi_features_backward (kernel B+T', below) is loi_features' gradient for
-// training: f32 maps, atomicAdd scatter into the map gradients, the ramps'
-// gradient from each interior sample's coordinate derivative.
+// training: f32 maps; the LOI map's gradient written once by the blocks
+// that own its rows, the thin / aux maps' by 16-byte vector reductions, the
+// ramps' from each interior sample's coordinate derivative.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -360,26 +361,278 @@ void launch_loi(const void* loi, const void* thin, const void* aux, const float*
 // f32 maps only. No TPU kernel has it: the JAX trainer takes it from XLA's
 // autodiff of the einsum sampler (airslam_tpu/models/plnet.py:428-491).
 //
-// One warp per (view, line), as the forward. The row's gradient g flows
+// The row's gradient g flows
 //   - into the maps: each sample's four taps receive (g * wx) * wy (the
-//     plain version's autograd order) by atomicAdd into zeroed (V, H, W, C)
-//     maps: the endpoints into d_loi through the clamped pair_idx junctions
-//     (lanes over 2 x 32 chunks of 4 channels, a 16-byte load of g each),
-//     the interior points into d_thin / d_aux (lane t < nt, point t);
+//     plain version's autograd order): the endpoints into d_loi through the
+//     clamped pair_idx junctions, the interior points into d_thin / d_aux;
 //   - into t_fwd / t_rev: point t sits at x = s0*t_fwd[t] + s2*t_rev[t] - 0.5
 //     (likewise y with s1, s3), and with the forward's unclamped weights
 //       d/dx = sum_c g_c (b_c - a_c),  a = wy0 f00 + wy1 f10, b = wy0 f01 + wy1 f11,
 //       d/dy = sum_c g_c (wx0 (f10 - f00) + wx1 (f11 - f01)),
 //     zero along an axis whose two taps clamp onto one texel (floor and clip
 //     carry no gradient; the merged weights' derivatives cancel), so
-//       d t_fwd[t] += dx s0 + dy s1,  d t_rev[t] += dx s2 + dy s3,
-//     summed over both branches, the block's lines in shared memory, then
-//     one atomicAdd per block and ramp entry.
-// Junctions, lines and proposals are data: no gradient. Bound: the dense map gradients the
-// wrapper zeroes dwarf what the kernel touches (V x 128^2 x 136 floats
-// against a few taps per sample), so the memset, not the kernel, is the
-// floor of the whole backward.
-__global__ void __launch_bounds__(kLoiMaxWarps * 32)
+//       d t_fwd[t] += dx s0 + dy s1,  d t_rev[t] += dx s2 + dy s3.
+// Junctions, lines and proposals are data: no gradient.
+//
+// Bound: d_loi, V x H x W x 128 floats (67.1 MB at the training shape, 8
+// views of 128 x 128), dwarfs everything else the call reads or writes (the
+// row gradient 2.6 MB, d_thin / d_aux 4.2 MB), so one write of d_loi at the
+// card's memory rate is the floor. What replaces the memset and the atomics
+// on d_loi (the earlier design zeroed all five outputs, then scattered 2.6 M
+// scalar atomicAdds; the zeroing of d_loi alone took 95 % of the bound):
+//   - tile owners: the grid's last blocks each OWN one tile of one view's
+//     d_loi, `tile` texels (default kBwdTile: one texel row). An owner
+//     scans the view's 2 x L endpoint references (line l, endpoint e; index
+//     2l + e) in passes of kSegment, each thread's loads issued together,
+//     forms their taps, and lists in shared memory, in index order (a ballot
+//     and a prefix over the block's warps), those with a tap in its tile;
+//     it stages the first kStaged entries' 512-byte gradient rows in shared
+//     memory. Then warp k takes the tile's texels k, k + 8, ...: lane c
+//     holds channels 4c..4c+3 of the texel in registers, finds the list's
+//     entries with a tap there 32 at a time (ballot), adds their
+//     (g * wx) * wy in list order (a merged pair's second weight is 0, so
+//     picking the tap's one weight is exact), and stores the texel's 512
+//     bytes, zeros included, one 16-byte store a lane;
+//   - so d_loi needs no atomics: each texel has one owner thread, which
+//     writes it once (a tile touched by more than kSegment references is
+//     read back and added to by the same threads on each further pass), and
+//     its sums run in list order, so d_loi is the same bits from call to
+//     call and for every tile size. A tile that many endpoints share makes
+//     its owner slow, not wrong;
+//   - the interior points take the grid's first blocks, one thread per
+//     (view, line, branch, point), so that their latency hides under the
+//     owners' stores: each tap's four channels go to d_thin / d_aux in one
+//     16-byte vector reduction (sm_90's float4 atomicAdd, REDG.E.ADD.F32x4)
+//     into the one buffer the wrapper zeroes for d_thin, d_aux, d_t_fwd and
+//     d_t_rev (4.2 MB, the call's only memset); the ramps' sums gather per
+//     block in shared memory, then one atomicAdd per block and ramp entry.
+//     Those sums' order still varies from run to run.
+// A call is one zero fill and one launch. What bounds it now is how fast
+// the owners keep the memory busy: each owner scans and lists before its
+// first store, four blocks fit a SM (64 registers, 45 KB of shared
+// memory), and the interior blocks hold slots at the start, so d_loi
+// streams out slower than a plain zero fill of its size (chip_smoke.py
+// prints both, and sweeps the tile size). One-row tiles, staged gradient
+// rows and interior blocks first were the fastest of the variants tried on
+// the card (tiles of 16 texels to 16 rows, interior blocks last, one
+// prefix for a whole pass, grouped gradient loads, cp.async staging, fewer
+// registers by launch bounds).
+
+constexpr int kBwdThreads = 256;  // block of loi_features_backward, both roles
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kSegment = 1024;    // endpoint references a tile owner lists per pass
+constexpr int kRefsPerThread = kSegment / kBwdThreads;
+constexpr int kStaged = 32;       // listed references whose gradient rows a pass stages
+constexpr int kBwdTile = 128;     // default texels of d_loi a tile owner writes
+constexpr int kBwdMaxTile = 2048;
+
+struct TileList {  // one pass's references that touch the owner's tile, in index order
+  int ref[kSegment];  // 2 * line + endpoint
+  int ys[kSegment], xs[kSegment];  // y0 | y1 << 16, x0 | x1 << 16
+  float wy0[kSegment], wy1[kSegment], wx0[kSegment], wx1[kSegment];
+};
+
+__device__ __forceinline__ int lo16(int v) { return v & 0xffff; }
+__device__ __forceinline__ int hi16(int v) { return v >> 16; }
+
+__device__ __forceinline__ bool inside(int v, int lo, int hi) { return v >= lo && v < hi; }
+
+// The texels [y_lo, y_hi) x [x_lo, x_hi) of view `view` of d_loi, every one
+// written once.
+__device__ __forceinline__ void own_loi_tile(const float* __restrict__ grad,
+                                             const float* __restrict__ junc_xy,
+                                             const long long* __restrict__ pair_idx,
+                                             float* __restrict__ d_loi, int view, int y_lo,
+                                             int y_hi, int x_lo, int x_hi, int n_lines,
+                                             int n_junc, int h, int w, int row_len,
+                                             TileList& list, float4 (*staged)[32],
+                                             int* counts) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_refs = 2 * n_lines;
+  const int cols = x_hi - x_lo, texels = (y_hi - y_lo) * cols;
+  const long long* pairs = pair_idx + static_cast<long long>(view) * n_refs;
+  const float* junc = junc_xy + static_cast<long long>(view) * n_junc * 2;
+  const float* g_view = grad + static_cast<long long>(view) * n_lines * row_len + lane * 4;
+  float* out = d_loi + static_cast<long long>(view) * h * w * kLoiC + lane * 4;
+  int seg = 0;
+  do {
+    const int end = min(seg + kSegment, n_refs);
+    // this thread's references of the pass, their loads issued together
+    long long j[kRefsPerThread];
+    float jx[kRefsPerThread], jy[kRefsPerThread];
+#pragma unroll
+    for (int u = 0; u < kRefsPerThread; ++u) {
+      const int i = seg + u * kBwdThreads + tid;
+      j[u] = i < end ? __ldg(pairs + i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRefsPerThread; ++u) {
+      const long long c = j[u] < 0 ? 0 : (j[u] >= n_junc ? n_junc - 1 : j[u]);
+      const bool live = seg + u * kBwdThreads + tid < end;
+      jx[u] = live ? __ldg(junc + 2 * c) : 0.0f;
+      jy[u] = live ? __ldg(junc + 2 * c + 1) : 0.0f;
+    }
+    int n = 0;  // entries listed in this pass, the same in every thread
+#pragma unroll
+    for (int u = 0; u < kRefsPerThread; ++u) {
+      const int i = seg + u * kBwdThreads + tid;
+      const Taps t = make_taps<float>(jx[u] - 0.5f, jy[u] - 0.5f, h, w);
+      const bool hit = i < end && (inside(t.y0, y_lo, y_hi) || inside(t.y1, y_lo, y_hi)) &&
+                       (inside(t.x0, x_lo, x_hi) || inside(t.x1, x_lo, x_hi));
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) counts[warp] = __popc(mask);
+      __syncthreads();
+      int at = n + __popc(mask & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+      for (int k = 0; k < kBwdWarps; ++k) {
+        at += k < warp ? counts[k] : 0;
+        total += counts[k];
+      }
+      if (hit) {
+        list.ref[at] = i;
+        list.ys[at] = t.y0 | (t.y1 << 16);
+        list.xs[at] = t.x0 | (t.x1 << 16);
+        list.wy0[at] = t.wy0;
+        list.wy1[at] = t.wy1;
+        list.wx0[at] = t.wx0;
+        list.wx1[at] = t.wx1;
+      }
+      n += total;
+      __syncthreads();  // counts and the list are complete
+      if (seg + (u + 1) * kBwdThreads >= end) break;
+    }
+    // the first kStaged entries' gradient rows, their loads issued together
+    float4 gv[kStaged / kBwdWarps];
+#pragma unroll
+    for (int u = 0; u < kStaged / kBwdWarps; ++u) {
+      const int e = warp + u * kBwdWarps, r = e < n ? list.ref[e] : 0;
+      if (e < n)
+        gv[u] = __ldg(reinterpret_cast<const float4*>(
+            g_view + static_cast<long long>(r >> 1) * row_len + (r & 1) * kLoiC));
+    }
+#pragma unroll
+    for (int u = 0; u < kStaged / kBwdWarps; ++u)
+      if (warp + u * kBwdWarps < n) staged[warp + u * kBwdWarps][lane] = gv[u];
+    __syncthreads();
+    for (int q = warp; q < texels; q += kBwdWarps) {
+      const int y = y_lo + q / cols, x = x_lo + q % cols;
+      float* o = out + (static_cast<long long>(y) * w + x) * kLoiC;
+      float4 acc = seg == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                            : *reinterpret_cast<const float4*>(o);
+      for (int b = 0; b < n; b += 32) {
+        const int k = b + lane;
+        bool m = false;
+        if (k < n) {
+          const int ys = list.ys[k], xs = list.xs[k];
+          m = (lo16(ys) == y || hi16(ys) == y) && (lo16(xs) == x || hi16(xs) == x);
+        }
+        unsigned bits = __ballot_sync(0xffffffffu, m);
+        while (bits) {
+          const int e = b + __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const int r = list.ref[e];
+          const float4 g = e < kStaged
+                               ? staged[e][lane]
+                               : __ldg(reinterpret_cast<const float4*>(
+                                     g_view + static_cast<long long>(r >> 1) * row_len +
+                                     (r & 1) * kLoiC));
+          // this row's weight: exact, since a merged pair's second weight is 0
+          const float wr = lo16(list.ys[e]) == y ? list.wy0[e] : list.wy1[e];
+          const int xs = list.xs[e];
+          if (lo16(xs) == x) {
+            const float wx = list.wx0[e];
+            acc.x += (g.x * wx) * wr;
+            acc.y += (g.y * wx) * wr;
+            acc.z += (g.z * wx) * wr;
+            acc.w += (g.w * wx) * wr;
+          }
+          if (hi16(xs) == x && hi16(xs) != lo16(xs)) {  // likewise wx1
+            const float wx = list.wx1[e];
+            acc.x += (g.x * wx) * wr;
+            acc.y += (g.y * wx) * wr;
+            acc.z += (g.z * wx) * wr;
+            acc.w += (g.w * wx) * wr;
+          }
+        }
+      }
+      *reinterpret_cast<float4*>(o) = acc;
+    }
+    seg += kSegment;
+    __syncthreads();  // the next pass rebuilds the list
+  } while (seg < n_refs);
+}
+
+// 16 bytes added to global memory in one vector reduction (sm_90)
+__device__ __forceinline__ void add4(float* p, float a, float b, float c, float d) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+// One interior point per thread: i = (row * 2 + branch) * nt + t.
+__device__ __forceinline__ void interior_point(
+    const float* __restrict__ grad, const float* __restrict__ thin, const float* __restrict__ aux,
+    const float* __restrict__ lines, const float* __restrict__ prop_lines,
+    const float* __restrict__ t_fwd, const float* __restrict__ t_rev, float* __restrict__ d_thin,
+    float* __restrict__ d_aux, long long i, int n_lines, int h, int w, int nt, int row_len,
+    float (*acc)[32]) {
+  const int t = static_cast<int>(i % nt);
+  const long long rb = i / nt;
+  const int b = static_cast<int>(rb & 1);
+  const long long row = rb >> 1;
+  const long long view = row / n_lines;
+  const long long texels = static_cast<long long>(h) * w;
+  const float tf = __ldg(t_fwd + t), tr = __ldg(t_rev + t);
+  const float* s = (b == 0 ? lines : prop_lines) + row * 4;
+  const float s0 = __ldg(s), s1 = __ldg(s + 1), s2 = __ldg(s + 2), s3 = __ldg(s + 3);
+  const float x = __fsub_rn(__fadd_rn(__fmul_rn(s0, tf), __fmul_rn(s2, tr)), 0.5f);
+  const float y = __fsub_rn(__fadd_rn(__fmul_rn(s1, tf), __fmul_rn(s3, tr)), 0.5f);
+  const Taps tp = make_taps<float>(x, y, h, w);
+  const long long r0 = static_cast<long long>(tp.y0) * w, r1 = static_cast<long long>(tp.y1) * w;
+  const float* gb = grad + row * row_len + 2 * kLoiC + b * kIntC * nt + t;
+  float gc[kIntC];
+#pragma unroll
+  for (int c = 0; c < kIntC; ++c) gc[c] = __ldg(gb + c * nt);
+  float* dm = (b == 0 ? d_thin : d_aux) + view * texels * kIntC;
+  float g0[kIntC], g1[kIntC];
+#pragma unroll
+  for (int c = 0; c < kIntC; ++c) {
+    g0[c] = gc[c] * tp.wx0;
+    g1[c] = gc[c] * tp.wx1;
+  }
+  // a merged pair's second weight is 0: its tap would add zeros
+  add4(dm + (r0 + tp.x0) * kIntC, g0[0] * tp.wy0, g0[1] * tp.wy0, g0[2] * tp.wy0, g0[3] * tp.wy0);
+  if (tp.y1 != tp.y0)
+    add4(dm + (r1 + tp.x0) * kIntC, g0[0] * tp.wy1, g0[1] * tp.wy1, g0[2] * tp.wy1,
+         g0[3] * tp.wy1);
+  if (tp.x1 != tp.x0) {
+    add4(dm + (r0 + tp.x1) * kIntC, g1[0] * tp.wy0, g1[1] * tp.wy0, g1[2] * tp.wy0,
+         g1[3] * tp.wy0);
+    if (tp.y1 != tp.y0)
+      add4(dm + (r1 + tp.x1) * kIntC, g1[0] * tp.wy1, g1[1] * tp.wy1, g1[2] * tp.wy1,
+           g1[3] * tp.wy1);
+  }
+  const float* fm = (b == 0 ? thin : aux) + view * texels * kIntC;
+  float f00[kIntC], f10[kIntC], f01[kIntC], f11[kIntC];
+  Chunk<float, kIntC>::load(fm + (r0 + tp.x0) * kIntC, f00);
+  Chunk<float, kIntC>::load(fm + (r1 + tp.x0) * kIntC, f10);
+  Chunk<float, kIntC>::load(fm + (r0 + tp.x1) * kIntC, f01);
+  Chunk<float, kIntC>::load(fm + (r1 + tp.x1) * kIntC, f11);
+  float dx = 0.0f, dy = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kIntC; ++c) {
+    const float a = tp.wy0 * f00[c] + tp.wy1 * f10[c];
+    const float bb = tp.wy0 * f01[c] + tp.wy1 * f11[c];
+    dx += gc[c] * (bb - a);
+    dy += gc[c] * (tp.wx0 * (f10[c] - f00[c]) + tp.wx1 * (f11[c] - f01[c]));
+  }
+  if (tp.x0 == tp.x1) dx = 0.0f;
+  if (tp.y0 == tp.y1) dy = 0.0f;
+  atomicAdd(&acc[0][t], dx * s0 + dy * s1);
+  atomicAdd(&acc[1][t], dx * s2 + dy * s3);
+}
+
+// Blocks [0, interior_blocks): the interior points; the rest: one tile of
+// d_loi each, `tile` texels (a part of a row, or whole rows), view-major.
+__global__ void __launch_bounds__(kBwdThreads)
 loi_features_backward_kernel(const float* __restrict__ grad, const float* __restrict__ thin,
                              const float* __restrict__ aux, const float* __restrict__ junc_xy,
                              const long long* __restrict__ pair_idx,
@@ -388,91 +641,31 @@ loi_features_backward_kernel(const float* __restrict__ grad, const float* __rest
                              float* __restrict__ d_loi, float* __restrict__ d_thin,
                              float* __restrict__ d_aux, float* __restrict__ d_tf,
                              float* __restrict__ d_tr, int n_views, int n_lines, int n_junc,
-                             int h, int w, int nt) {
+                             int h, int w, int nt, int tile, int interior_blocks) {
+  __shared__ TileList list;
+  __shared__ float4 staged[kStaged][32];  // the listed references' gradient rows
+  __shared__ int counts[kBwdWarps];
   __shared__ float acc[2][32];  // this block's d t_fwd, d t_rev
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) acc[i >> 5][i & 31] = 0.0f;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row < static_cast<long long>(n_views) * n_lines) {
-    const long long view = row / n_lines;
-    const long long texels = static_cast<long long>(h) * w;
-    const float* g = grad + row * (2 * kLoiC + 2 * kIntC * nt);
-
-    constexpr int kChunks = kLoiC / 4;  // per endpoint
-    float* dm = d_loi + view * texels * kLoiC;
-    for (int i = lane; i < 2 * kChunks; i += 32) {
-      const int e = i / kChunks;
-      const int ch0 = (i - e * kChunks) * 4;
-      long long j = __ldg(pair_idx + row * 2 + e);
-      j = j < 0 ? 0 : (j >= n_junc ? n_junc - 1 : j);
-      const float* p = junc_xy + (view * n_junc + j) * 2;
-      const Taps t = make_taps<float>(__ldg(p) - 0.5f, __ldg(p + 1) - 0.5f, h, w);
-      const float4 gv = __ldg(reinterpret_cast<const float4*>(g + e * kLoiC + ch0));
-      const float gc[4] = {gv.x, gv.y, gv.z, gv.w};
-      const long long r0 = static_cast<long long>(t.y0) * w, r1 = static_cast<long long>(t.y1) * w;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float g0 = gc[c] * t.wx0, g1 = gc[c] * t.wx1;
-        atomicAdd(dm + (r0 + t.x0) * kLoiC + ch0 + c, g0 * t.wy0);
-        atomicAdd(dm + (r1 + t.x0) * kLoiC + ch0 + c, g0 * t.wy1);
-        atomicAdd(dm + (r0 + t.x1) * kLoiC + ch0 + c, g1 * t.wy0);
-        atomicAdd(dm + (r1 + t.x1) * kLoiC + ch0 + c, g1 * t.wy1);
-      }
-    }
-
-    if (lane < nt) {
-      const float tf = __ldg(t_fwd + lane), tr = __ldg(t_rev + lane);
-      float dtf = 0.0f, dtr = 0.0f;
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const float* s = (b == 0 ? lines : prop_lines) + row * 4;
-        const float s0 = __ldg(s), s1 = __ldg(s + 1), s2 = __ldg(s + 2), s3 = __ldg(s + 3);
-        const float x = __fsub_rn(__fadd_rn(__fmul_rn(s0, tf), __fmul_rn(s2, tr)), 0.5f);
-        const float y = __fsub_rn(__fadd_rn(__fmul_rn(s1, tf), __fmul_rn(s3, tr)), 0.5f);
-        const Taps t = make_taps<float>(x, y, h, w);
-        const long long r0 = static_cast<long long>(t.y0) * w, r1 = static_cast<long long>(t.y1) * w;
-        const float* gb = g + 2 * kLoiC + b * kIntC * nt + lane;
-        float gc[kIntC];
-#pragma unroll
-        for (int c = 0; c < kIntC; ++c) gc[c] = __ldg(gb + c * nt);
-        float* dmi = (b == 0 ? d_thin : d_aux) + view * texels * kIntC;
-#pragma unroll
-        for (int c = 0; c < kIntC; ++c) {
-          const float g0 = gc[c] * t.wx0, g1 = gc[c] * t.wx1;
-          atomicAdd(dmi + (r0 + t.x0) * kIntC + c, g0 * t.wy0);
-          atomicAdd(dmi + (r1 + t.x0) * kIntC + c, g0 * t.wy1);
-          atomicAdd(dmi + (r0 + t.x1) * kIntC + c, g1 * t.wy0);
-          atomicAdd(dmi + (r1 + t.x1) * kIntC + c, g1 * t.wy1);
-        }
-        const float* fm = (b == 0 ? thin : aux) + view * texels * kIntC;
-        float f00[kIntC], f10[kIntC], f01[kIntC], f11[kIntC];
-        Chunk<float, kIntC>::load(fm + (r0 + t.x0) * kIntC, f00);
-        Chunk<float, kIntC>::load(fm + (r1 + t.x0) * kIntC, f10);
-        Chunk<float, kIntC>::load(fm + (r0 + t.x1) * kIntC, f01);
-        Chunk<float, kIntC>::load(fm + (r1 + t.x1) * kIntC, f11);
-        float dx = 0.0f, dy = 0.0f;
-#pragma unroll
-        for (int c = 0; c < kIntC; ++c) {
-          const float a = t.wy0 * f00[c] + t.wy1 * f10[c];
-          const float bb = t.wy0 * f01[c] + t.wy1 * f11[c];
-          dx += gc[c] * (bb - a);
-          dy += gc[c] * (t.wx0 * (f10[c] - f00[c]) + t.wx1 * (f11[c] - f01[c]));
-        }
-        if (t.x0 == t.x1) dx = 0.0f;
-        if (t.y0 == t.y1) dy = 0.0f;
-        dtf += dx * s0 + dy * s1;
-        dtr += dx * s2 + dy * s3;
-      }
-      atomicAdd(&acc[0][lane], dtf);
-      atomicAdd(&acc[1][lane], dtr);
-    }
+  const int row_len = 2 * kLoiC + 2 * kIntC * nt;
+  if (static_cast<int>(blockIdx.x) >= interior_blocks) {
+    const int cols = min(tile, w), rows = max(1, tile / w);
+    const int tiles_x = (w + cols - 1) / cols, tiles = tiles_x * ((h + rows - 1) / rows);
+    const int b = blockIdx.x - interior_blocks, k = b % tiles;
+    const int y_lo = k / tiles_x * rows, x_lo = k % tiles_x * cols;
+    own_loi_tile(grad, junc_xy, pair_idx, d_loi, b / tiles, y_lo, min(y_lo + rows, h), x_lo,
+                 min(x_lo + cols, w), n_lines, n_junc, h, w, row_len, list, staged, counts);
+    return;
   }
+  if (threadIdx.x < 64) acc[threadIdx.x >> 5][threadIdx.x & 31] = 0.0f;
   __syncthreads();
-  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
-    atomicAdd(d_tf + i, acc[0][i]);
-    atomicAdd(d_tr + i, acc[1][i]);
+  const long long i = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (i < static_cast<long long>(n_views) * n_lines * 2 * nt)
+    interior_point(grad, thin, aux, lines, prop_lines, t_fwd, t_rev, d_thin, d_aux, i, n_lines,
+                   h, w, nt, row_len, acc);
+  __syncthreads();
+  if (threadIdx.x < nt) {
+    atomicAdd(d_tf + threadIdx.x, acc[0][threadIdx.x]);
+    atomicAdd(d_tr + threadIdx.x, acc[1][threadIdx.x]);
   }
 }
 
@@ -527,24 +720,49 @@ extern "C" int airslam_loi_features(const void* loi, const void* thin, const voi
 
 // loi_features_backward: grad (V, L, 256 + 8 * nt) f32 on 16 bytes, the
 // forward's f32 operands (thin / aux maps on 16 bytes; the LOI map is not
-// read), and the zeroed outputs d_loi (V, H, W, 128), d_thin / d_aux
-// (V, H, W, 4), d_tf / d_tr (nt,). Every operand contiguous on the
-// current device, 1 <= nt <= 32, j >= 1. Returns cudaGetLastError().
+// read), and the outputs: d_loi (V, H, W, 128) on 16 bytes, written whole
+// (it need not be zeroed), and the ZEROED d_thin / d_aux (V, H, W, 4) on 16
+// bytes and d_tf / d_tr (nt,). Every operand contiguous on the current
+// device, 1 <= nt <= 32, j >= 1, h and w below 32768; tile: texels of d_loi
+// a block owns, 1-2048 (0: kBwdTile; a tile is a part of a row, or whole
+// rows). Returns cudaGetLastError().
 extern "C" int airslam_loi_features_backward(const float* grad, const float* thin,
                                              const float* aux, const float* junc_xy,
                                              const long long* pair_idx, const float* lines,
                                              const float* prop_lines, const float* t_fwd,
                                              const float* t_rev, float* d_loi, float* d_thin,
                                              float* d_aux, float* d_tf, float* d_tr, int v, int l,
-                                             int j, int h, int w, int nt, void* stream) {
+                                             int j, int h, int w, int nt, int tile,
+                                             void* stream) {
   if (v == 0 || l == 0) return 0;
-  if (j < 1 || nt < 1 || nt > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(v) * l;
-  const unsigned blocks = static_cast<unsigned>((rows + kLoiWarps - 1) / kLoiWarps);
-  loi_features_backward_kernel<<<blocks, kLoiWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (tile == 0) tile = kBwdTile;
+  if (j < 1 || nt < 1 || nt > 32 || h >= 32768 || w >= 32768 || tile < 1 ||
+      tile > kBwdMaxTile || l > 0x3fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long points = static_cast<long long>(v) * l * 2 * nt;
+  const long long interior = (points + kBwdThreads - 1) / kBwdThreads;
+  const int cols = tile < w ? tile : w, rows = tile / w > 1 ? tile / w : 1;
+  const long long tiles = static_cast<long long>((w + cols - 1) / cols) * ((h + rows - 1) / rows);
+  const long long blocks = interior + v * tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  loi_features_backward_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       grad, thin, aux, junc_xy, pair_idx, lines, prop_lines, t_fwd, t_rev, d_loi, d_thin, d_aux,
-      d_tf, d_tr, v, l, j, h, w, nt);
+      d_tf, d_tr, v, l, j, h, w, nt, tile, static_cast<int>(interior));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared and local bytes, threads per block of
+// loi_features_backward (cudaFuncGetAttributes).
+extern "C" int airslam_loi_features_backward_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, &loi_features_backward_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = kBwdThreads;
+  return 0;
 }
 
 // Registers, static shared and local bytes, threads per block of the

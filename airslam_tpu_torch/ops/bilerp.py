@@ -106,13 +106,17 @@ def _lib():
     lib.airslam_loi_features.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                                          + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                                          + [ctypes.c_void_p])
-    lib.airslam_loi_features_backward.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    lib.airslam_loi_features_backward.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                                                   + [ctypes.c_void_p])
     lib.airslam_loi_features_attributes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.airslam_loi_features_backward_attributes.argtypes = [ctypes.c_void_p]
     for fn in (lib.airslam_bilerp, lib.airslam_loi_features, lib.airslam_loi_features_backward,
-               lib.airslam_loi_features_attributes):
+               lib.airslam_loi_features_attributes, lib.airslam_loi_features_backward_attributes):
         fn.restype = ctypes.c_int
     return lib
+
+
+_ATTRIBUTES = ("registers", "static_smem", "local_bytes", "threads")
 
 
 def kernel_attributes(map_dtype, out_dtype) -> dict:
@@ -123,7 +127,16 @@ def kernel_attributes(map_dtype, out_dtype) -> dict:
                                                  int(out_dtype == torch.bfloat16), out)
     if err:
         raise RuntimeError(f"loi_features attributes: CUDA error {err}")
-    return dict(zip(("registers", "static_smem", "local_bytes", "threads"), out))
+    return dict(zip(_ATTRIBUTES, out))
+
+
+def backward_kernel_attributes() -> dict:
+    """What the compiler gave kernel B+T′ (``cudaFuncGetAttributes``)."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().airslam_loi_features_backward_attributes(out)
+    if err:
+        raise RuntimeError(f"loi_features_backward attributes: CUDA error {err}")
+    return dict(zip(_ATTRIBUTES, out))
 
 
 def _launch(fmap, x, y, wrapper) -> torch.Tensor:
@@ -271,11 +284,22 @@ def loi_features_backward(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines
     three maps and the two interior ramps, for float32 maps (training).
     ``grad`` (V, L, 256 + 8·T) float32; the other operands as
     :func:`loi_features`. Junctions, lines and proposals take no gradient.
-    Returns (d_loi, d_thin, d_aux, d_t_fwd, d_t_rev). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    Returns (d_loi, d_thin, d_aux, d_t_fwd, d_t_rev); the kernel writes each
+    texel of ``d_loi`` once, in a fixed order, so ``d_loi`` is the same bits
+    from call to call. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     if loi.device.type == "cpu":
         return loi_features_backward_plain(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx,
                                            lines, prop_lines, t_fwd, t_rev)
+    return _launch_backward(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines,
+                            t_fwd, t_rev)
+
+
+def _launch_backward(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines, prop_lines, t_fwd,
+                     t_rev, tile: int = 0):
+    """Check the operands, launch kernel B+T′ once after one zero fill, and
+    count the launch. ``tile``: texels of ``d_loi`` a block writes, 1-2048
+    (0: the kernel's default)."""
     name = "loi_features_backward"
     v, h, w, n_junc, n_lines, nt = _check_loi(name, loi, loi_thin, loi_aux, junc_xy, pair_idx,
                                               lines, prop_lines, t_fwd, t_rev)
@@ -286,19 +310,27 @@ def loi_features_backward(grad, loi, loi_thin, loi_aux, junc_xy, pair_idx, lines
             or not grad.is_contiguous() or grad.data_ptr() % 16):
         raise ValueError(f"{name}: grad {tuple(grad.shape)} {grad.dtype} on {grad.device} must "
                          f"be a contiguous float32 {shape} on {loi.device}, on 16 bytes")
-    dev = loi.device
-    out = tuple(torch.zeros_like(t) for t in (loi, loi_thin, loi_aux, t_fwd, t_rev))
-    if grad.numel():
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib().airslam_loi_features_backward(
-                grad.data_ptr(), loi_thin.data_ptr(), loi_aux.data_ptr(), junc_xy.data_ptr(),
-                pair_idx.data_ptr(), lines.data_ptr(), prop_lines.data_ptr(), t_fwd.data_ptr(),
-                t_rev.data_ptr(), *(t.data_ptr() for t in out), v, n_lines, n_junc, h, w, nt,
-                stream)
-        if err:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-        loi_features_backward.launches += 1
+    if tile not in range(2049):
+        raise ValueError(f"{name}: tile={tile} (0-2048)")
+    if not grad.numel():
+        return tuple(torch.zeros_like(t) for t in (loi, loi_thin, loi_aux, t_fwd, t_rev))
+    # d_loi is written whole by the kernel; the rest are views of one zeroed buffer
+    d_loi = torch.empty_like(loi)
+    n_map = loi_thin.numel()
+    rest = torch.zeros(2 * n_map + 2 * nt, dtype=torch.float32, device=loi.device)
+    d_thin, d_aux = (rest[k * n_map:(k + 1) * n_map].view(loi_thin.shape) for k in range(2))
+    d_tf, d_tr = rest[2 * n_map:2 * n_map + nt], rest[2 * n_map + nt:]
+    out = (d_loi, d_thin, d_aux, d_tf, d_tr)
+    with torch.cuda.device(loi.device):
+        stream = torch.cuda.current_stream(loi.device).cuda_stream
+        err = _lib().airslam_loi_features_backward(
+            grad.data_ptr(), loi_thin.data_ptr(), loi_aux.data_ptr(), junc_xy.data_ptr(),
+            pair_idx.data_ptr(), lines.data_ptr(), prop_lines.data_ptr(), t_fwd.data_ptr(),
+            t_rev.data_ptr(), *(t.data_ptr() for t in out), v, n_lines, n_junc, h, w, nt, tile,
+            stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    loi_features_backward.launches += 1
     return out
 
 

@@ -180,10 +180,14 @@ without a result line):
    330 endpoints as junctions) and the VO path's (2 views, 512 lines, 300
    junctions, points on and beyond the borders): map gradients within 1e-5
    of the largest |gradient|, the ramps' within 1e-4 of theirs; the
-   autograd function behind ``loi_features`` gives the same; bf16 maps
-   raise; its time (the zeroed map gradients and the kernel), the plain
-   version's, ``F.grid_sample``'s backward at the same samples (timed only),
-   the bound and the launch floor. (b) One step of each mode
+   autograd function behind ``loi_features`` gives the same; two calls give
+   the same ``d_loi`` bits; the same gates on 2 views whose endpoints crowd
+   one texel row (600 lines) or one texel, or whose lines lie beyond every
+   border; bf16 maps raise; the kernel's registers, shared and local bytes;
+   its time (the call's one zero fill and the kernel), its kernels and
+   memsets per call (a CUDA graph's nodes), the plain version's time,
+   ``F.grid_sample``'s backward at the same samples (timed only), the bound
+   and the launch floor. (b) One step of each mode
    (``plnet`` with the LOI head and descriptors, ``superpoint``,
    ``distill``) from the shipped checkpoints on the stored pairs of
    ``tests/data/torch_train_oracle.npz`` (the JAX trainer's step on the
@@ -1561,6 +1565,65 @@ def train_loi_inputs(rng, n_views, device, n_lines=None):
     return (*maps, t(junc), t(pairs, torch.int64), t(lines), t(props), t(ramps[0]), t(ramps[1]))
 
 
+LOI_BACKWARD_CASES = {"one_row": 600, "one_texel": 165, "beyond_borders": 165}
+LOI_BACKWARD_TILES = (32, 64, 128, 256)  # kernel B+T′'s texels per block, swept
+
+
+def crowded_loi_inputs(rng, n_views, device, case):
+    """:func:`train_loi_inputs` bent to stress kernel B+T′'s tile owners:
+    ``one_row`` every endpoint junction at y − 0.5 = 40.25 (all 1,200 taps
+    of 600 lines on rows 40 and 41: more than one pass of the owners' list),
+    ``one_texel`` every one at (50, 30) + 0.5 (weight 1 on texel (30, 50)),
+    ``beyond_borders`` lines and proposals (and so junctions and interior
+    points) at coordinates beyond every border, where the far border's taps
+    merge and the near border's weights extrapolate."""
+    import torch
+
+    n = LOI_BACKWARD_CASES[case]
+    ops = list(train_loi_inputs(rng, n_views, device, n_lines=n))
+    junc = ops[3].clone()
+    if case == "one_row":
+        junc[..., 1] = 40.75
+    elif case == "one_texel":
+        junc[..., 0], junc[..., 1] = 50.5, 30.5
+    else:
+        beyond = np.asarray([-7.5, -2.25, -1.0, -0.5, 127.0, 128.5, 129.0, 131.75, 140.0],
+                            np.float32)
+        lines = beyond[rng.randint(0, len(beyond), (n_views, n, 4))]
+        props = lines + rng.uniform(-2, 2, lines.shape).astype(np.float32)
+        ops[5], ops[6] = (torch.as_tensor(a, device=device) for a in (lines, props))
+        junc = torch.cat([ops[5][..., 0:2], ops[5][..., 2:4]], dim=1).contiguous()
+    ops[3] = junc
+    return tuple(ops)
+
+
+def _device_ops(fn):
+    """(kernels, memsets) one call of ``fn`` puts on the card: the nodes of
+    a CUDA graph that captures the call, by type (``libcuda``'s
+    ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    fn()  # allocations and builds off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    _require(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _require(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        _require(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                 "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    return kinds.count(0), kinds.count(2)  # CU_GRAPH_NODE_TYPE_KERNEL, _MEMSET
+
+
 def _loi_backward_work(ops):
     """(bytes, f32 operations) of one ``loi_features_backward`` call: the
     row gradient and every small operand read once, the texels of the thin
@@ -1585,10 +1648,12 @@ def _loi_backward_work(ops):
 def phase_kernel_loi_backward(dev):
     """Kernel B+T′ against autograd through the plain forward, at the
     training shape (8 views, 165 candidates, the endpoint path) and the VO
-    path's (2 views, 512 lines, 300 junctions); the autograd function
-    behind ``loi_features`` (the training path's launch) gives the plain
-    forward's rows under phase l's gate and the kernel's gradients; times
-    beside the plain version, the bound and the launch floor."""
+    path's (2 views, 512 lines, 300 junctions), and on the crowded inputs
+    of :func:`crowded_loi_inputs`; ``d_loi`` bit-equal over two calls; the
+    autograd function behind ``loi_features`` (the training path's launch)
+    gives the plain forward's rows under phase l's gate and the kernel's
+    gradients; the kernel's attributes; times beside the plain version, the
+    bound and the launch floor, and the call's zero fills and kernels."""
     import ctypes
 
     import torch
@@ -1640,6 +1705,23 @@ def phase_kernel_loi_backward(dev):
                      <= tol * float(want_g.abs().max()),
                      f"kernel B+T' ({label}): autograd through loi_features gave another {name}")
         notes.append(f"{label}: " + ", ".join(errs))
+        # d_loi is written once per texel in a fixed order: the same bits again
+        _require(torch.equal(bilerp.loi_features_backward(grad, *ops)[0], got[0]),
+                 f"kernel B+T' ({label}): two calls gave other d_loi bits")
+    for case in LOI_BACKWARD_CASES:
+        ops = crowded_loi_inputs(rng, 2, dev, case)
+        grad = torch.as_tensor(rng.randn(2, ops[5].shape[1], 496).astype(np.float32),
+                               device=dev)
+        got = bilerp.loi_features_backward(grad, *ops)
+        want = bilerp.loi_features_backward_plain(grad, *ops)
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(got, want)]
+        _require(all(e <= tol for e, tol in zip(errs, (g["map_grad"],) * 3
+                                                + (g["ramp_grad"],) * 2))
+                 and torch.equal(bilerp.loi_features_backward(grad, *ops)[0], got[0]),
+                 f"kernel B+T' ({case}): {errs} of the largest |gradient|, or other bits again")
+        notes.append(f"{case} (2 views, {ops[5].shape[1]} lines): worst "
+                     f"{max(errs[:3]):.1e} / ramps {max(errs[3:]):.1e} of the largest")
     label, ops = next(iter(shapes.items()))
     try:
         bilerp.loi_features_backward(grads[label], *(t.to(torch.bfloat16) for t in ops[:3]),
@@ -1651,7 +1733,11 @@ def phase_kernel_loi_backward(dev):
     print("kernel B+T' (loi_features_backward): " + "; ".join(notes)
           + f" (gates: maps <= {g['map_grad']} of the largest |gradient|, ramps <= "
           f"{g['ramp_grad']} of theirs; the autograd function's forward against "
-          f"loi_features_plain <= 1e-5, its gradients the same; bf16 maps raise)")
+          f"loi_features_plain <= 1e-5, its gradients the same; d_loi bit-equal over two "
+          f"calls; bf16 maps raise)")
+    a = bilerp.backward_kernel_attributes()
+    print(f"kernel B+T' attributes: registers={a['registers']} static_smem={a['static_smem']} "
+          f"local_bytes={a['local_bytes']} threads={a['threads']}")
 
     lib = cuda_build.library("bilerp")
     lib.airslam_empty_launch.argtypes = [ctypes.c_void_p]
@@ -1673,13 +1759,29 @@ def phase_kernel_loi_backward(dev):
                  library_ms=loi_backward_library_ms(ops))
         t["bound_ms"], t["bound_by"] = _bound_ms(*_loi_backward_work(ops))
         times[label] = t
-        print(f"kernel B+T' {label}: ms={t['ms']:.5f} (the three zeroed map gradients and the "
+        before = bilerp.loi_features_backward.launches
+        kernels, memsets = _device_ops(lambda: bilerp.loi_features_backward(grad, *ops))
+        ours = bilerp.loi_features_backward.launches - before - 1  # the capture's
+        print(f"kernel B+T' {label}: ms={t['ms']:.5f} (the call: its zero fills and the "
               f"kernel) eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.5f} (eager, "
               f"autograd through the plain forward, forward included) bound_ms="
-              f"{t['bound_ms']:.6f} ({t['bound_by']}); zeroing the LOI map's gradient alone "
-              f"ms={t['zeros_ms']:.5f}; F.grid_sample's backward at the same samples (3 "
-              f"calls) ms={t['library_ms']:.5f}")
+              f"{t['bound_ms']:.6f} ({t['bound_by']}); zeroing a tensor of the LOI map's "
+              f"gradient's size alone ms={t['zeros_ms']:.5f}; F.grid_sample's backward at the "
+              f"same samples (3 calls) ms={t['library_ms']:.5f}; per call on the card (the "
+              f"nodes of a CUDA graph of one call): {kernels} kernels, {memsets} memsets, "
+              f"{ours} of the kernels kernel B+T′ (its launch counter), so "
+              f"{kernels + memsets - ours} zero fill(s)")
     print(f"empty kernel (launch floor): ms={_time_ms(empty):.5f}")
+    for label, ops in shapes.items():
+        grad = grads[label]
+        first = bilerp.loi_features_backward(grad, *ops)[0]
+        sweep = {r: [] for r in LOI_BACKWARD_TILES}
+        for r in LOI_BACKWARD_TILES + LOI_BACKWARD_TILES[::-1]:  # in turns
+            _require(torch.equal(bilerp._launch_backward(grad, *ops, tile=r)[0], first),
+                     f"kernel B+T' ({label}) tile={r} gave other d_loi bits")
+            sweep[r].append(_time_ms(lambda: bilerp._launch_backward(grad, *ops, tile=r)))
+        print(f"kernel B+T' {label} texels-per-block sweep ms (d_loi bit-equal across it): "
+              + " ".join(f"{r}: {min(t):.5f}" for r, t in sweep.items()))
     t = times[next(iter(shapes))]
     return {"name": "loi_features_backward", "route": "cuda",
             "source": "airslam_tpu_torch/csrc/bilerp.cu",

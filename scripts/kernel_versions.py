@@ -1,4 +1,4 @@
-"""Kernels P and F of two checkouts side by side on one NVIDIA GPU.
+"""Kernels P, F and B+T′ of two checkouts side by side on one NVIDIA GPU.
 
     python3 scripts/kernel_versions.py --base DIR
 
@@ -22,11 +22,18 @@ base, on the same inputs (made from seeds by this checkout's
   calls issued after a synchronisation and timed on the host's clock (the
   device's queue takes them without blocking, so this is the host's cost
   whatever the kernel's), and the same for the layout step ``_bhnd`` of q, k
-  and v alone.
+  and v alone;
+- kernel B+T′ through ``loi_features_backward`` at the training shape (8
+  views, 165 lines) and the VO shape (2 views, 512 lines, 300 junctions):
+  its five gradients and device ms by CUDA-graph replay (the call: its zero
+  fills and the kernel).
 
 It prints the gaps between the two checkouts (P: max abs of t and R against
 each other and against the plain version, inlier agreement, counts, the
-first round's accepted iterates, bit-equality; F: bit-equality and max abs)
+first round's accepted iterates, bit-equality; F: bit-equality and max abs;
+B+T′: each gradient's max abs between the checkouts and each checkout's
+against autograd through this checkout's plain version, as a share of the
+largest |gradient|; the runs' outputs pass through a temporary directory)
 and each run's times, then the card's name and power limit, and writes them
 to ``chiprun_out/kernel_versions_<last part of DIR>.json``.
 """
@@ -39,6 +46,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,7 +125,45 @@ def child(tree: str, out: str) -> None:
     res["f_host_us"] = np.array(_host_us(lambda: attention.flash_mha(q, k, v, mask)))
     res["f_layout_host_us"] = np.array(_host_us(
         lambda: (attention._bhnd(q), attention._bhnd(k), attention._bhnd(v)), calls=2000))
+
+    from airslam_tpu_torch.ops import bilerp
+
+    for name, (ops, grad) in _backward_shapes(cs, dev).items():
+        for k, d in zip(GRADS, bilerp.loi_features_backward(grad, *ops)):
+            res[f"{name}_{k}"] = d.cpu().numpy()
+        res[f"{name}_ms"] = np.array(cs._time_ms(lambda: bilerp.loi_features_backward(grad,
+                                                                                      *ops)))
     np.savez(out, **res)
+
+
+GRADS = ("d_loi", "d_thin", "d_aux", "d_t_fwd", "d_t_rev")
+
+
+def _backward_shapes(cs, dev):
+    """Kernel B+T′'s operands and row gradient at the training and VO
+    shapes, from seeds."""
+    import torch
+
+    shapes = {"btp_train": cs.train_loi_inputs(np.random.RandomState(5), 8, dev),
+              "btp_vo": cs.loi_inputs(np.random.RandomState(6), 2, 512, 300, torch.float32, dev)}
+    return {name: (ops, torch.as_tensor(np.random.RandomState(7).randn(
+        ops[5].shape[0], ops[5].shape[1], 496).astype(np.float32), device=dev))
+        for name, ops in shapes.items()}
+
+
+def _backward_plain() -> dict:
+    """Autograd through this checkout's plain version at the runs' inputs,
+    on the card."""
+    import torch
+
+    cs = _chip_smoke()
+    from airslam_tpu_torch.ops import bilerp
+
+    out = {}
+    for name, (ops, grad) in _backward_shapes(cs, torch.device("cuda")).items():
+        for k, d in zip(GRADS, bilerp.loi_features_backward_plain(grad, *ops)):
+            out[f"{name}_{k}"] = d.cpu().numpy()
+    return out
 
 
 def _accepted(round1: np.ndarray) -> list:
@@ -125,7 +171,7 @@ def _accepted(round1: np.ndarray) -> list:
     return [k for k in range(1, len(round1)) if not np.array_equal(round1[k], round1[k - 1])]
 
 
-def compare(base: dict, this: dict) -> dict:
+def compare(base: dict, this: dict, plain_grads: dict) -> dict:
     rep = {}
     for name in ("path", "full"):
         pb, pt = base[f"{name}_pose"].astype(np.float64), this[f"{name}_pose"].astype(np.float64)
@@ -146,6 +192,15 @@ def compare(base: dict, this: dict) -> dict:
     rep["F bf16 (2, 4, 400, 64)"] = {
         "bit_equal": bool(np.array_equal(base["f_out"], this["f_out"])),
         "max_abs": float(np.abs(base["f_out"] - this["f_out"]).max())}
+    for name in ("btp_train", "btp_vo"):
+        gaps = {}
+        for k in GRADS:
+            a, b, want = base[f"{name}_{k}"], this[f"{name}_{k}"], plain_grads[f"{name}_{k}"]
+            scale = max(float(np.abs(want).max()), 1e-30)
+            gaps[k] = {"base_vs_this": float(np.abs(a - b).max()) / scale,
+                       "base_vs_plain": float(np.abs(a - want).max()) / scale,
+                       "this_vs_plain": float(np.abs(b - want).max()) / scale}
+        rep[f"B+T' {name[4:]} (share of the largest |gradient|)"] = gaps
     return rep
 
 
@@ -163,23 +218,31 @@ def main() -> int:
         return 2
     os.makedirs(OUT, exist_ok=True)
     runs = []
-    for i, (label, tree) in enumerate((("base", args.base), ("this", REPO), ("this", REPO),
-                                       ("base", args.base))):
-        path = os.path.join(OUT, f"kernel_versions_{i}.npz")
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
-                        "--out", path], check=True)
-        with np.load(path) as z:
-            runs.append((label, {k: z[k] for k in z.files}))
-        os.remove(path)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, tree) in enumerate((("base", args.base), ("this", REPO), ("this", REPO),
+                                           ("base", args.base))):
+            path = os.path.join(tmp, f"run_{i}.npz")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
+                            "--out", path], check=True)
+            with np.load(path) as z:
+                runs.append((label, {k: z[k] for k in z.files}))
+    sys.path.insert(0, REPO)
+    plain = _backward_plain()
     times = [{"run": label, "P path ms": float(r["path_ms"]), "P full ms": float(r["full_ms"]),
               "F ms": float(r["f_ms"]), "F eager ms": float(r["f_eager_ms"]),
-              "F host us": float(r["f_host_us"]), "F layout host us": float(r["f_layout_host_us"])}
+              "F host us": float(r["f_host_us"]), "F layout host us": float(r["f_layout_host_us"]),
+              "B+T' train ms": float(r["btp_train_ms"]), "B+T' VO ms": float(r["btp_vo_ms"])}
              for label, r in runs]
-    rep = {"gaps (base run 1 vs this run 1)": compare(runs[0][1], runs[1][1]),
-           "repeat bit-equal": {"base": bool(np.array_equal(runs[0][1]["path_pose"],
-                                                            runs[3][1]["path_pose"])),
-                                "this": bool(np.array_equal(runs[1][1]["path_pose"],
-                                                            runs[2][1]["path_pose"]))},
+
+    def same_d_loi(a, b):
+        return all(np.array_equal(runs[a][1][f"{n}_d_loi"], runs[b][1][f"{n}_d_loi"])
+                   for n in ("btp_train", "btp_vo"))
+
+    rep = {"gaps (base run 1 vs this run 1)": compare(runs[0][1], runs[1][1], plain),
+           "repeat bit-equal": {
+               "base": bool(np.array_equal(runs[0][1]["path_pose"], runs[3][1]["path_pose"])),
+               "this": bool(np.array_equal(runs[1][1]["path_pose"], runs[2][1]["path_pose"])),
+               "B+T' d_loi base": same_d_loi(0, 3), "B+T' d_loi this": same_d_loi(1, 2)},
            "times": times}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()

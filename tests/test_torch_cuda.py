@@ -660,20 +660,31 @@ def test_device_pnp_on_the_card(dev, name):
         assert torch.equal(on_card[2].cpu(), on_cpu[2])
 
 
+def _backward_inputs(shape, rng, dev):
+    """Kernel B+T′'s operands: the training and VO shapes, one view, one
+    line, and ``chip_smoke.crowded_loi_inputs``' cases (every endpoint on
+    one texel row, over two passes of the row owners' list; on one texel;
+    lines beyond every border)."""
+    if shape in chip_smoke.LOI_BACKWARD_CASES:
+        return chip_smoke.crowded_loi_inputs(rng, 2, dev, shape)
+    return {"train": lambda: chip_smoke.train_loi_inputs(rng, 8, dev),
+            "vo": lambda: chip_smoke.loi_inputs(rng, 2, 512, 300, torch.float32, dev),
+            "one_view": lambda: chip_smoke.train_loi_inputs(rng, 1, dev),
+            "one_line": lambda: chip_smoke.train_loi_inputs(rng, 3, dev, n_lines=1)}[shape]()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["train", "vo", "one_view", "one_line"])
+@pytest.mark.parametrize("shape", ["train", "vo", "one_view", "one_line", "one_row", "one_texel",
+                                   "beyond_borders"])
 def test_loi_backward_kernel_equals_autograd_through_plain(dev, shape):
     """Kernel B+T′ against autograd through ``loi_features_plain`` (map
     gradients within 1e-5 of the largest |gradient|, the ramps' within 1e-4
-    of theirs: atomics sum in another order), and the autograd function
+    of theirs: both sum in another order), and the autograd function
     behind ``loi_features`` gives the plain forward's rows (f32 maps and
     output: within 1e-5, ``chip_smoke.loi_gate``) and the kernel's
     gradients, and counts one forward and one backward launch."""
     rng = np.random.RandomState(len(shape))
-    ops = {"train": lambda: chip_smoke.train_loi_inputs(rng, 8, dev),
-           "vo": lambda: chip_smoke.loi_inputs(rng, 2, 512, 300, torch.float32, dev),
-           "one_view": lambda: chip_smoke.train_loi_inputs(rng, 1, dev),
-           "one_line": lambda: chip_smoke.train_loi_inputs(rng, 3, dev, n_lines=1)}[shape]()
+    ops = _backward_inputs(shape, rng, dev)
     v, n = ops[5].shape[:2]
     grad = torch.as_tensor(rng.randn(v, n, 496).astype(np.float32), device=dev)
     got = bilerp.loi_features_backward(grad, *ops)
@@ -692,6 +703,19 @@ def test_loi_backward_kernel_equals_autograd_through_plain(dev, shape):
                                                                                      bwd + 1)
     for leaf, g in zip(leaves, got):
         torch.testing.assert_close(leaf.grad, g, rtol=0, atol=1e-4 * float(g.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["train", "one_row"])
+def test_loi_backward_kernel_is_deterministic(dev, shape):
+    """Kernel B+T′ writes each texel of ``d_loi`` once, summing in the row
+    owner's list order: two calls give the same bits."""
+    rng = np.random.RandomState(11)
+    ops = _backward_inputs(shape, rng, dev)
+    grad = torch.as_tensor(rng.randn(ops[5].shape[0], ops[5].shape[1], 496).astype(np.float32),
+                           device=dev)
+    first = bilerp.loi_features_backward(grad, *ops)[0]
+    assert torch.equal(bilerp.loi_features_backward(grad, *ops)[0], first)
 
 
 @pytest.mark.cuda

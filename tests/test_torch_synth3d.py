@@ -5,7 +5,8 @@
 The JAX draws are rebuilt from the JAX keys (``scripts/make_torch_oracle.py``'s
 ``jax_world3d_draws`` / ``jax_texture_draws``) and handed to the port, with
 JAX in float32 as its applications run. Gates: the world bit-equal (the
-segments' far ends within 5e-7 m, see the test); renders
+segments' far ends within a per-element bound of three roundings, see
+``_far_end_bound``); renders
 within 1e-5 on the sequences' poses (identity rotations: the projections
 are exact products in both packages, so what differs is the transcendental
 functions' last ulps and the summation order); on a rotated pose within
@@ -63,17 +64,50 @@ def _theta(seed):
     return torch.as_tensor(np.array(MTO.jax_texture_draws(jax.random.PRNGKey(seed + 31))["theta"]))
 
 
+def _far_end_bound(draws, b):
+    """Per-element bound on the far ends' gap between the two packages,
+    ``L·ulp(v) + ulp(v·L) + ulp(b)``, from the three roundings that
+    ``b = a + v·L`` makes after ``a`` (bit-equal in both):
+
+    - the unit direction ``v``: XLA fuses its norm, whose square root then
+      differs from an exact one in the last ulp for 0.7 % of vectors
+      (measured on 200k normals), so a component may differ by one ulp of
+      ``v``, which the length ``L`` (≤ 3 m) carries: ``L·ulp(v)``;
+    - the product ``v·L``, rounded once in each package, lands on either
+      side of a rounding boundary: ``ulp(v·L)``;
+    - the sum ``a + v·L``, rounded once, likewise: ``ulp(b)``.
+
+    ``v`` is formed in float64 from the draws (the ulp of its float32
+    neighbour is what either package's ``v`` has)."""
+    d = np.asarray(draws["seg_dir"], np.float64)
+    d = d * (1.0 - np.eye(3)[np.asarray(draws["seg_axis"])] * 0.95)
+    v = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    length = np.asarray(draws["seg_length"], np.float64)
+
+    def ulp(x):
+        return np.spacing(np.abs(x).astype(np.float32)).astype(np.float64)
+
+    return length * ulp(v) + ulp(v * length) + ulp(b)
+
+
 @pytest.mark.parametrize("seed", (0, 1, 2))
 def test_make_world3d_equals_jax(seed):
-    """Bit-equal but for the segments' far ends: XLA fuses the directions'
-    norm, whose square root then differs from an exact one in the last ulp
-    for 0.7 % of vectors (measured on 200k normals), so an end may move by
-    one ulp of the direction times the length (≤ 3 m): held to 5e-7 m."""
-    jw, tw = _worlds(seed)
+    """Bit-equal but for the segments' far ends, which stay within the
+    per-element bound of :func:`_far_end_bound` (a flat 5e-7 m failed on
+    some hosts: an end of |b| = 8.28 m is one ulp, 9.5e-7 m, from JAX's);
+    their start points are bit-equal. Prints the largest gap / bound."""
+    key = jax.random.PRNGKey(seed)
+    draws = MTO.jax_world3d_draws(key)
+    jw, tw = J.make_world3d(key), T.make_world3d(_t(draws))
     for name, a, b in zip(jw._fields, jw, tw):
         if name == "segments":
-            assert np.array_equal(np.asarray(a)[:, 0], b.numpy()[:, 0])
-            assert np.abs(np.asarray(a) - b.numpy()).max() <= 5e-7
+            a, b = np.asarray(a), b.numpy()
+            assert np.array_equal(a[:, 0], b[:, 0])
+            gap = np.abs(a[:, 1].astype(np.float64) - b[:, 1])
+            bound = _far_end_bound(draws, b[:, 1])
+            print(f"seed {seed}: far ends' largest gap / bound {(gap / bound).max():.3f}, "
+                  f"largest gap {gap.max():.3e} m")
+            assert (gap <= bound).all(), (gap / bound).max()
         else:
             assert np.array_equal(np.asarray(a), b.numpy()), name
 

@@ -264,6 +264,50 @@ def test_loi_features_backward_plain_on_the_cpu():
         assert torch.equal(leaf.grad, b)
 
 
+def _jax_loi_rows(ops):
+    """``loi_features``' rows with the JAX package's sampler
+    (``plnet._onnx_bilerp``, f32 einsum), as a function of the three maps
+    and the two ramps, for ``jax.vjp``."""
+    _, _, _, junc, pairs, lines, props, _, _ = (np.asarray(t) for t in ops)
+    idx = np.clip(pairs, 0, junc.shape[1] - 1)
+
+    def rows(loi, thin, aux, t_fwd, t_rev):
+        out = []
+        for v in range(loi.shape[0]):
+            f_junc = jplnet._onnx_bilerp(loi[v], junc[v, :, 0] - 0.5, junc[v, :, 1] - 0.5)
+            parts = [f_junc[idx[v, :, 0]], f_junc[idx[v, :, 1]]]
+            for fmap, seg in ((thin[v], lines[v]), (aux[v], props[v])):
+                x = seg[:, 0:1] * t_fwd[None] + seg[:, 2:3] * t_rev[None] - 0.5
+                y = seg[:, 1:2] * t_fwd[None] + seg[:, 3:4] * t_rev[None] - 0.5
+                parts.append(jplnet._onnx_bilerp(fmap, x, y).transpose(0, 2, 1)
+                             .reshape(seg.shape[0], -1))
+            out.append(jnp.concatenate(parts, axis=-1))
+        return jnp.stack(out)
+
+    return rows
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.LOI_BACKWARD_CASES))
+def test_loi_features_backward_on_crowded_endpoints_equals_jax_autodiff(case):
+    """The inputs that stress kernel B+T′'s tile owners on the card
+    (``chip_smoke.crowded_loi_inputs``: 600 lines' endpoints on one texel
+    row, every endpoint on one texel, lines beyond every border): the
+    backward's plain version, which the kernel is held to there, against
+    ``jax.vjp`` of the JAX sampler's rows, the map gradients within 1e-5 of
+    the largest |gradient| and the ramps' within 1e-4 of theirs."""
+    rng = np.random.RandomState(3)
+    ops = chip_smoke.crowded_loi_inputs(rng, 2, "cpu", case)
+    grad = rng.randn(2, ops[5].shape[1], 496).astype(np.float32)
+    got = bilerp.loi_features_backward(torch.as_tensor(grad), *ops)
+    leaves = [jnp.asarray(ops[k].numpy()) for k in (0, 1, 2, 7, 8)]
+    _, vjp = jax.vjp(_jax_loi_rows(ops), *leaves)
+    want = vjp(jnp.asarray(grad))
+    for a, b, tol in zip(got, want, (1e-5,) * 3 + (1e-4,) * 2):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= tol * np.abs(b).max()
+    assert float(got[0].abs().max()) > 0 and float(got[3].abs().max()) > 0
+
+
 # ---------------------------------------------------------------------------
 # optimizer and initialisation
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ head, which runs once over every view's candidate lines.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -31,6 +32,10 @@ from airslam_tpu_torch.ops.gather import take_rows, take_values
 from airslam_tpu_torch.ops.gridsample import sample_descriptors
 
 DETECT_SIZE = 512  # network input resolution (plnet.cpp:17-22)
+# the upstream AirSLAM export of the stage-1 head, read when no plnet_s1.npz
+# is found; a bare name is looked up as a checkpoint (AIRSLAM_CHECKPOINT_DIR,
+# then the shipped folder), an absolute path as it is
+PLNET_S1_ONNX = "plnet_s1.onnx"
 # window-max prestage of the proposal prefilter: best proposal per 6
 # consecutive proposals (2 cells), then top-max_proposals over the maxima
 PROPOSAL_WINDOW = 6
@@ -176,6 +181,19 @@ def resize_to_detect(images: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def stage1_head_params():
+    """The stage-1 head's parameter tree in the JAX detector's order
+    (``airslam_tpu/frontend/detector.py:243-259``): ``plnet_s1.npz``, else
+    :data:`PLNET_S1_ONNX` through ``weights.import_plnet_s1``, else None."""
+    ckpt = wio.checkpoint_path("plnet_s1.npz")
+    if os.path.exists(ckpt):
+        return wio.load_npz(ckpt)
+    onnx = wio.checkpoint_path(PLNET_S1_ONNX)
+    if os.path.exists(onnx):
+        return wio.import_plnet_s1(onnx)
+    return None
+
+
 class FeatureDetector:
     """Owns PLNet and the stage-1 LOI head, loaded from the shipped
     ``plnet_s0.npz``, and with ``config.use_superpoint`` SuperPoint from
@@ -183,7 +201,9 @@ class FeatureDetector:
     (``"cpu"`` runs the plain versions of the kernels). ``params``: a tree in
     the JAX ``FeatureDetector``'s layout (``{"plnet", "loi"[, "superpoint"]}``,
     as a ``--model_dir``'s ``plnet.npz`` holds it) whose entries replace the
-    shipped ones.
+    shipped ones. A ``"plnet"`` tree without a ``"loi"`` one gets the
+    stage-1 head of :func:`stage1_head_params` (``plnet_s1.npz``, else the
+    upstream ONNX), else the shipped ``plnet_s0.npz``'s.
 
     With ``config.loi_head="fast"``, ``params["loi"]`` holds the JAX fast
     head's parameters. No weights ship for that head: without them it is
@@ -202,6 +222,12 @@ class FeatureDetector:
         if config.loi_head not in ("s1", "fast"):
             raise ValueError(f"unknown loi_head {config.loi_head!r} (s1 or fast)")
         params = dict(params or {})
+        if "plnet" in params and "loi" not in params and not fast:
+            # a PLNet without its head: the head's own checkpoint, in the JAX
+            # detector's order (airslam_tpu/frontend/detector.py:243-259)
+            head = stage1_head_params()
+            if head is not None:
+                params["loi"] = head
         if "plnet" not in params or ("loi" not in params and not fast):
             shipped = wio.load_npz(wio.checkpoint_path("plnet_s0.npz"))
             # the shipped "loi" entry is the stage-1 head's; the fast head has none

@@ -144,6 +144,27 @@ def loi_s1_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def import_plnet_s1(onnx_path: str) -> Dict[str, Any]:
+    """The upstream ``plnet_s1.onnx``'s initializers as the JAX ``LoiHeadS1``
+    parameter tree (``airslam_tpu/models/weights.py::import_plnet_s1``), which
+    :func:`loi_s1_from_flax` loads: the Linear weights (out, in) transposed
+    to Dense kernels (in, out), and the graph's exact sampling ramps."""
+    from airslam_tpu_torch.models.onnx_import import load_onnx
+
+    w, _ = load_onnx(onnx_path)
+
+    def lin(prefix):
+        return {"kernel": np.ascontiguousarray(w[f"{prefix}.weight"].T),
+                "bias": np.ascontiguousarray(w[f"{prefix}.bias"])}
+
+    return {"params": {
+        "fc2_0": lin("fc2.0"), "fc2_2": lin("fc2.2"), "fc2_4": lin("fc2.4"),
+        "fc2_res": lin("fc2_res.0"), "fc2_head": lin("fc2_head"),
+        # the ramps' LSBs are not those of arange/31
+        "t_fwd": np.ascontiguousarray(w["onnx::Mul_1141"].reshape(-1)),
+        "t_rev": np.ascontiguousarray(w["onnx::Mul_1142"].reshape(-1))}}
+
+
 def loi_fast_from_flax(tree) -> Dict[str, torch.Tensor]:
     """JAX fast ``LoiHead`` params (``fc1``, ``fc2``, ``score``, ``delta``) →
     ``state_dict`` of :class:`models.plnet.LoiHead`."""

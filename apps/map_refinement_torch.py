@@ -7,8 +7,8 @@ same flags plus ``--device`` and ``--use_flash``: loads
 pose graph (maps of at least the config's ``pose_graph_min_mappoints``),
 landmark merging, the global BA and the junction vocabulary, and writes
 ``trajectory_v1.txt``, ``AirSLAM_mapv1.bin``, ``point_voc.npz`` and
-``junction_voc.npz``. The networks run in float32, as the JAX CLI builds
-them, and so does the map's geometry. Runs on the GPU unless ``--device
+``junction_voc.npz``. The networks run in float32 with TF32 off, as the JAX
+CLI builds them, and so does the map's geometry. Runs on the GPU unless ``--device
 cpu`` is given; without a card it fails rather than fall back.
 
 Usage:
@@ -53,6 +53,10 @@ def main(argv=None):
     from airslam_tpu_torch.models import weights as wio
     from airslam_tpu_torch.pipelines.map_refiner import MapRefiner
 
+    # float32 networks compute in float32, as the JAX CLI's: no TF32 in
+    # cuDNN's convolutions (on by default) or cuBLAS's products
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     device = resolve_device(args.device)
     cfg = MapRefinementConfigs.load(args.config_path)
     m, _ = load_map(os.path.join(args.map_root, "AirSLAM_mapv0.bin"), device=device,

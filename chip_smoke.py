@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--phases f,vo]
 
 ``--phases`` runs only the named phases (r, b, t, l, p, f, slice, tracking,
-path, vo, synth, e2e, mesh, system, vio, refine, reloc, train, matcher, tools; ``path`` needs
-``slice`` and ``tracking``, ``e2e`` runs ``synth`` first, ``mesh`` both) and then prints no
+path, vo, synth, e2e, mesh, stage2, system, vio, refine, reloc, train, matcher, tools;
+``path`` needs ``slice`` and ``tracking``, ``e2e`` and ``stage2`` run ``synth`` first, ``mesh``
+``synth`` and ``e2e``) and then prints no
 result line: it is for a short first run of a new kernel. Without it every
 phase runs. Phases, one line each (any failure raises and the script exits non-zero
 without a result line):
@@ -106,7 +107,27 @@ without a result line):
    the single-device step, ``loi_features`` and B+T′ launched once per
    shard: loss and terms 1e-6 relative, gradients 1e-3 per leaf and 1e-4
    over all leaves (relative L2).
-8d. ``system``: ``apps/benchmark_system_torch.py --frames 60 --json`` on the
+8d. ``stage2`` (ROADMAP A.1): stage 2 of scripts/verify_tpu_e2e.py on the
+   rendered loop, against the JAX CLIs' runs stored in the e2e oracle (all
+   40 frames). (a) ``apps/map_refinement_torch.py`` (in this process) on the
+   JAX VO CLI's mapv0 with the point vocabulary the JAX refinement CLI
+   trained on it, f32, without and with ``--use_flash``: the JAX CLI's loop
+   pairs (Rlq / tlq within 1e-3 / 1e-3 m), its merged counts, trajectory_v1's
+   keyframes within 0.02 m / 5e-3 of its, the Sim(3)-aligned ATE to the
+   truth ≤ 0.05 m (``REFINE_GATES``); launches P once per pose-only solve,
+   F 36 per LightGlue call with ``--use_flash`` (else 0), nothing else;
+   stage ms. (b) The port's own chain over the rectified tree:
+   ``apps/visual_odometry_torch.py --dtype f32`` over all 40 frames (the
+   JAX 40-frame run's keyframes, ATE to it and to the truth ≤ 0.05 m;
+   launches R 0, ``loi_features`` 40, P 39, F 0), the refinement CLI with
+   ``--use_flash`` on that mapv0 with its own vocabulary (ATE to the truth
+   ≤ 0.05 m; loops and merges printed beside the JAX chain's), and
+   ``apps/relocalization_torch.py --use_flash`` on its mapv1 with the ten
+   hard queries of ``tests/data/torch_reloc_oracle.npz`` (the same world
+   and loop: recall ≥ 0.8 and ≥ the JAX chain's − 0.1, accepted-pose ATE ≤
+   0.05 m; launches ``loi_features`` once a query, F 36 per LightGlue call,
+   P once per pose refinement, R, B and T 0).
+8e. ``system``: ``apps/benchmark_system_torch.py --frames 60 --json`` on the
    oracle's world (bf16, 400 keypoints, PLNet without SuperPoint,
    LightGlue): every frame tracked, the aligned ATE ≤ 0.05 m, the unaligned
    ATE to the JAX benchmark loop's trajectory ≤ 0.05 m and its keyframe
@@ -370,6 +391,14 @@ E2E_CAMERAS = {"rect": "configs/camera/synth_stereo.yaml",
                "dist": "configs/camera/synth_stereo_distorted.yaml"}
 E2E_RUNS = {"f32": ("rect", ["--dtype", "f32"]), "bf16": ("rect", ["--dtype", "bf16", "--use_flash"]),
             "dist f32": ("dist", ["--dtype", "f32"])}
+# stage 2 on the same loop (scripts/make_torch_oracle.py's e2e_stages): the
+# refinement CLI on the stored JAX mapv0 of all 40 frames with the stored
+# point vocabulary, without and with the fused attention, held to the JAX
+# refinement CLI's run by REFINE_GATES (loop pairs, merges, refined
+# keyframes, ATE to the truth); then the port's own chain of the three CLIs
+# over the rectified tree, each stage held to the truth (E2E_GATES,
+# REFINE_GATES' ATE, RELOC_GATES) with the JAX chain's counts beside it
+STAGE2_REFINE_RUNS = {"stage2 refine": [], "stage2 refine flash": ["--use_flash"]}
 # the multi-device path (phase mesh): entry.dryrun_multichip's mesh size
 # (production shapes), the virtual mesh MeshPipelinedRunner runs on besides the
 # CLI's default mesh (one card: a chunk of 1), the dp plnet step's mesh and
@@ -3406,9 +3435,11 @@ def phase_refine(dev):
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cli = map_refinement_torch.main([
-            "--config_path", os.path.join(REPO, "configs", "map_refinement", "mr_euroc.yaml"),
-            "--map_root", tmp, "--voc_path", voc_path, "--device", str(dev), "--use_flash"])
+        with _no_tf32("f32"):  # the CLI turns TF32 off; restored after it
+            cli = map_refinement_torch.main([
+                "--config_path", os.path.join(REPO, "configs", "map_refinement",
+                                              "mr_euroc.yaml"),
+                "--map_root", tmp, "--voc_path", voc_path, "--device", str(dev), "--use_flash"])
         cli_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counted.items()}
         got = [len(cli.loop_pairs), cli.n_merged_mappoints, cli.n_merged_maplines]
@@ -3950,6 +3981,247 @@ def phase_e2e(dev, trees, root):
                                      f"{parted}: {note}")
         print(f"e2e {label} (apps/visual_odometry_torch.py {' '.join(extra)}, {seq}): {note}; "
               f"{wall:.1f} s wall with the model loads, {1e3 * wall / n:.1f} ms a frame, on {on}")
+    return launches
+
+
+def write_stage2_tree(z, root):
+    """The JAX VO CLI's mapv0 of the whole rendered loop and the point
+    vocabulary the JAX refinement CLI trained on it, as those CLIs left them:
+    ``root/AirSLAM_mapv0.bin`` and ``root/point_voc_shared.npz``. Returns
+    (map root, vocabulary path)."""
+    import lzma
+
+    os.makedirs(root, exist_ok=True)
+    voc = os.path.join(root, "point_voc_shared.npz")
+    for path, data in ((os.path.join(root, "AirSLAM_mapv0.bin"),
+                        lzma.decompress(z["full_mapv0_xz"].tobytes())),
+                       (voc, z["s2_point_voc"].tobytes())):
+        with open(path, "wb") as f:
+            f.write(data)
+    return root, voc
+
+
+def stage2_truth(z):
+    """The rectified loop's ground truth as [(t, Twc)] (positions only)."""
+    gt = z["rect_gt"]
+    return _tum_rows(np.column_stack([gt[:, 0] * 1e-9, gt[:, 1:4]]))
+
+
+def stage2_gaps(z, refiner, traj):
+    """The port's refinement of the stored JAX mapv0 (``refiner`` and its
+    ``trajectory_v1`` as [(t, Twc)]) against the JAX refinement CLI's run:
+    the loop pairs and their largest Rlq / tlq gaps, the merged counts, the
+    refined keyframes' largest position (m) and rotation-entry gaps, and
+    both runs' Sim(3)-aligned ATE to the truth."""
+    from airslam_tpu_torch.io.trajectory import load_tum
+
+    loops = [[lp.query_id, lp.loop_id] for lp in refiner.loop_pairs]
+    g = {"loops": loops, "jax_loops": z["s2_loop"].tolist(),
+         "merged": [refiner.n_merged_mappoints, refiner.n_merged_maplines],
+         "jax_merged": z["s2_n_merged"].tolist(), "loop_R": float("inf"),
+         "loop_t": float("inf"), "pose_t": float("inf"), "pose_R": float("inf")}
+    if loops == g["jax_loops"]:
+        g["loop_R"] = max((float(np.abs(np.asarray(lp.Rlq) - R).max())
+                           for lp, R in zip(refiner.loop_pairs, z["s2_Rlq"])), default=0.0)
+        g["loop_t"] = max((float(np.abs(np.asarray(lp.tlq) - t).max())
+                           for lp, t in zip(refiner.loop_pairs, z["s2_tlq"])), default=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savetxt(os.path.join(tmp, "jax.txt"), z["s2_traj_v1"], fmt="%.9f")
+        jax = load_tum(os.path.join(tmp, "jax.txt"))
+    if [round(t, 6) for t, _ in traj] == [round(t, 6) for t, _ in jax]:
+        g["pose_t"] = max(float(np.abs(a[:3, 3] - b[:3, 3]).max()) for (_, a), (_, b)
+                          in zip(traj, jax))
+        g["pose_R"] = max(float(np.abs(a[:3, :3] - b[:3, :3]).max()) for (_, a), (_, b)
+                          in zip(traj, jax))
+    truth = stage2_truth(z)
+    g["ate"], g["n_ate"] = reloc_ate(traj, truth)
+    g["jax_ate"], _ = reloc_ate(jax, truth)
+    g["keyframes"] = len(traj)
+    return g
+
+
+def stage2_failures(g):
+    """The REFINE_GATES that the gaps of :func:`stage2_gaps` miss."""
+    r = REFINE_GATES
+    bad = []
+    if g["loops"] != g["jax_loops"]:
+        bad.append(f"loops {g['loops']}, JAX {g['jax_loops']}")
+    if not (g["loop_R"] <= r["loop_R"] and g["loop_t"] <= r["loop_t"]):
+        bad.append(f"loop transforms {g['loop_R']:.2e} / {g['loop_t']:.2e} m off")
+    if g["merged"] != g["jax_merged"]:
+        bad.append(f"merged {g['merged']}, JAX {g['jax_merged']}")
+    if not (g["pose_t"] <= r["pose_t"] and g["pose_R"] <= r["pose_R"]):
+        bad.append(f"refined keyframes {g['pose_t']:.2e} m / {g['pose_R']:.2e} off")
+    if not g["ate"] <= r["ate"]:
+        bad.append(f"ATE to the truth {g['ate']:.4e} m")
+    return bad
+
+
+def _launch_note(launches):
+    return " ".join(f"{k}={v}" for k, v in launches.items() if v)
+
+
+def phase_stage2(dev, trees, root):
+    """Stage 2 against the JAX refinement CLI on the rendered loop, then the
+    port's three CLIs chained over it against the truth (ROADMAP A.1).
+    Returns the launch counts of each run."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "apps"))
+    import map_refinement_torch
+    import relocalization_torch
+    import visual_odometry_torch
+
+    from airslam_tpu_torch.frontend.matcher import PointMatcher
+    from airslam_tpu_torch.io.serialization import load_map
+    from airslam_tpu_torch.io.trajectory import load_tum
+    from airslam_tpu_torch.pipelines.map_user import MapUser
+
+    t_phase = time.perf_counter()
+    z, zr = e2e_oracle(), reloc_oracle()
+    on = card()
+    counted = _counted()
+    launches = {}
+    mr_cfg = os.path.join(REPO, "configs", "map_refinement", "mr_euroc.yaml")
+
+    def refine(map_root, extra, label):
+        """The refinement CLI in this process, its launches held to the
+        refiner's pose-only solves and LightGlue calls. Returns (refiner,
+        trajectory_v1, seconds, LightGlue calls)."""
+        calls = []
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _no_tf32("f32"), _timed(PointMatcher, "matching_points_batched", calls):
+            r = map_refinement_torch.main(["--config_path", mr_cfg, "--map_root", map_root,
+                                           "--device", str(dev)] + extra)
+        wall = time.perf_counter() - t0
+        launches[label] = {k: fn.launches for k, fn in counted.items()}
+        want = {"remap": 0, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": 0,
+                "pose_only_fast": r.n_pose_only,
+                "flash_mha": 36 * len(calls) if "--use_flash" in extra else 0,
+                "loi_features_backward": 0}
+        _require(launches[label] == want, f"{label}: launches {launches[label]}, "
+                                          f"expected {want}")
+        return r, load_tum(os.path.join(map_root, "trajectory_v1.txt")), wall, len(calls)
+
+    # (1) the refinement CLI on the stored JAX mapv0 and vocabulary, f32
+    for label, extra in STAGE2_REFINE_RUNS.items():
+        map_root, voc = write_stage2_tree(z, os.path.join(root, label))
+        r, traj, wall, n_lg = refine(map_root, ["--voc_path", voc] + extra, label)
+        g = stage2_gaps(z, r, traj)
+        bad = stage2_failures(g)
+        _require(not bad, f"{label}: " + "; ".join(bad))
+        print(f"{label} (apps/map_refinement_torch.py {' '.join(extra)} on the JAX "
+              f"mapv0 of {len(z['full_keyframe_ids'])} keyframes with the JAX CLI's point "
+              f"vocabulary, f32): loops {g['loops']} (JAX equal), Rlq within "
+              f"{g['loop_R']:.2e}, tlq within {g['loop_t']:.2e} m (gates {REFINE_GATES['loop_R']}"
+              f" / {REFINE_GATES['loop_t']}); merged {g['merged']} (JAX equal); refined "
+              f"keyframes within {g['pose_t']:.2e} m / {g['pose_R']:.2e} of the JAX CLI's "
+              f"(gates {REFINE_GATES['pose_t']} / {REFINE_GATES['pose_R']}); aligned ATE to the "
+              f"truth {g['ate']:.5f} m over {g['n_ate']} keyframes (gate {REFINE_GATES['ate']}; "
+              f"the JAX CLI's {g['jax_ate']:.5f} m); {wall:.1f} s wall; P {r.n_pose_only} and F "
+              f"{launches[label]['flash_mha']} launches ({n_lg} LightGlue calls); stage ms "
+              + " ".join(f"{k}={v:.1f}" for k, v in r.stage_ms.items()) + f" on {on}")
+
+    # (2) the port's own chain: VO over every frame, refinement with its own
+    # vocabulary, relocalization of the ten hard queries
+    n = E2E_RUN["frames"]
+    vo_out = os.path.join(root, "chain vo")
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with _no_tf32("f32"):
+        visual_odometry_torch.main([
+            "--config_path", os.path.join(REPO, "configs", "visual_odometry", "vo_euroc.yaml"),
+            "--camera_config_path", os.path.join(REPO, E2E_CAMERAS["rect"]), "--dataroot",
+            trees["rect"], "--saving_dir", vo_out, "--device", str(dev), "--dtype", "f32"])
+    vo_s = time.perf_counter() - t0
+    launches["chain vo"] = {k: fn.launches for k, fn in counted.items()}
+    m, _ = load_map(os.path.join(vo_out, "AirSLAM_mapv0.bin"), device=dev)
+    traj = load_tum(os.path.join(vo_out, "trajectory_v0.txt"))
+    jax_ids = [int(k) for k in z["full_keyframe_ids"]]
+    truth = stage2_truth(z)
+    gap, n_common = _ate_between(traj, _tum_rows(z["full_traj"]))
+    ate, n_gt = reloc_ate(traj, truth)
+    jax_ate, _ = reloc_ate(_tum_rows(z["full_traj"]), truth)
+    want = {"remap": 0, "bilerp_points": 0, "bilerp_points_t": 0, "loi_features": n,
+            "pose_only_fast": n - 1, "flash_mha": 0, "loi_features_backward": 0}
+    note = (f"keyframes {m.keyframe_ids} (JAX {jax_ids}); {len(traj)} of {n} frames; "
+            f"unaligned ATE to the JAX CLI {gap:.5f} m over {n_common} poses; aligned ATE "
+            f"{ate:.5f} m over {n_gt} poses (the JAX CLI's {jax_ate:.5f} m); mappoints "
+            f"{sum(p.is_valid for p in m.mappoints.values())} (JAX "
+            f"{int(z['full_n_mappoints'])}), maplines "
+            f"{sum(l.is_valid for l in m.maplines.values())} (JAX {int(z['full_n_maplines'])})")
+    _require(len(traj) == n and n_common == n, f"stage2 chain VO: {note}")
+    _require(launches["chain vo"] == want, f"stage2 chain VO: launches "
+                                           f"{launches['chain vo']}, not {want}")
+    _require(m.keyframe_ids == jax_ids, f"stage2 chain VO: the keyframes part: {note}")
+    _require(gap <= E2E_GATES["traj"] and ate <= E2E_GATES["ate"],
+             f"stage2 chain VO (gates {E2E_GATES['traj']} m to the JAX CLI, "
+             f"{E2E_GATES['ate']} m ATE): {note}")
+    print(f"stage2 chain VO (apps/visual_odometry_torch.py --dtype f32, all {n} frames of the "
+          f"rectified tree): {note}; launches {_launch_note(launches['chain vo'])}; {vo_s:.1f} s "
+          f"wall with the model loads, {1e3 * vo_s / n:.1f} ms a frame, on {on}")
+
+    map_root = os.path.join(root, "chain map")
+    os.makedirs(map_root)
+    with open(os.path.join(vo_out, "AirSLAM_mapv0.bin"), "rb") as src, \
+            open(os.path.join(map_root, "AirSLAM_mapv0.bin"), "wb") as dst:
+        dst.write(src.read())
+    r, traj1, wall, n_lg = refine(map_root, ["--use_flash"], "chain refine")
+    ate1, n1 = reloc_ate(traj1, truth)
+    loops = [[lp.query_id, lp.loop_id] for lp in r.loop_pairs]
+    _require(ate1 <= REFINE_GATES["ate"], f"stage2 chain refinement: ATE {ate1:.4e} m")
+    print(f"stage2 chain refinement (apps/map_refinement_torch.py --use_flash on the chain's "
+          f"mapv0, its own point vocabulary): aligned ATE to the truth {ate1:.5f} m over {n1} "
+          f"keyframes (gate {REFINE_GATES['ate']}); loops {loops} (the JAX chain "
+          f"{z['s2_loop'].tolist()}), merged {[r.n_merged_mappoints, r.n_merged_maplines]} (JAX "
+          f"{z['s2_n_merged'].tolist()}); {wall:.1f} s wall; P {r.n_pose_only} and F "
+          f"{launches['chain refine']['flash_mha']} launches ({n_lg} LightGlue calls); stage "
+          "ms " + " ".join(f"{k}={v:.1f}" for k, v in r.stage_ms.items()))
+
+    _, qdir, names = write_reloc_tree(zr, os.path.join(root, "chain queries"))
+    _require(np.array_equal(zr["gt_tum"], z["s3_gt_tum"]),
+             "stage2: the relocalization oracle's queries are not the e2e tree's")
+    gt = load_tum(os.path.join(root, "chain queries", "gt_tum.txt"))
+    traj_path = os.path.join(root, "chain reloc.txt")
+    batched, refines = [], []
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with _no_tf32("f32"), _timed(PointMatcher, "matching_points_batched", batched), \
+            _timed(MapUser, "_refine_pose", refines):
+        _, records = relocalization_torch.main([
+            "--config_path", os.path.join(REPO, "configs", "relocalization", "reloc_euroc.yaml"),
+            "--map_root", map_root, "--query_folder", qdir, "--traj_path", traj_path,
+            "--device", str(dev), "--use_flash", "--diagnose"])
+    rel_s = time.perf_counter() - t0
+    launches["chain reloc"] = {k: fn.launches for k, fn in counted.items()}
+    ok = np.asarray([bool(rec[1]) for rec in records])
+    recall, jax_recall = float(ok.mean()), float(z["s3_recall"])
+    rate, n_pairs = reloc_ate(load_tum(traj_path), gt)
+    want = {"remap": 0, "bilerp_points": 0, "bilerp_points_t": 0,
+            "loi_features": len(records), "flash_mha": 36 * len(batched),
+            "pose_only_fast": len(refines), "loi_features_backward": 0}
+    _require([rec[0] for rec in records] == names, "stage2 chain relocalization: queries "
+                                                   f"{[rec[0] for rec in records]}")
+    _require(launches["chain reloc"] == want, f"stage2 chain relocalization: launches "
+                                              f"{launches['chain reloc']}, expected {want}")
+    _require(recall >= RELOC_GATES["recall"]
+             and recall >= jax_recall - RELOC_GATES["recall_drop"],
+             f"stage2 chain relocalization: recall {recall} (JAX {jax_recall})")
+    _require(n_pairs == int(ok.sum()) and rate <= RELOC_GATES["ate"],
+             f"stage2 chain relocalization: ATE {rate:.4e} m over {n_pairs} poses")
+    print(f"stage2 chain relocalization (apps/relocalization_torch.py --use_flash on the "
+          f"chain's mapv1, the {len(names)} hard queries): recall {recall:.3f} (the JAX chain's "
+          f"{jax_recall:.3f}; gates >= {RELOC_GATES['recall']} and >= JAX - "
+          f"{RELOC_GATES['recall_drop']}); ATE {rate:.5f} m over {n_pairs} poses (gate "
+          f"{RELOC_GATES['ate']}); launches {_launch_note(launches['chain reloc'])} "
+          f"({len(batched)} LightGlue calls, {len(refines)} pose refinements); {rel_s:.1f} s "
+          f"wall with the model loads on {on}")
+    print(f"stage2: phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4687,13 +4959,15 @@ def main() -> int:
         for name in short:
             if name in only:
                 short[name]()
-        if only & {"synth", "e2e", "mesh"}:
+        if only & {"synth", "e2e", "mesh", "stage2"}:
             with tempfile.TemporaryDirectory() as root:
                 trees = phase_synth(dev, root)
                 if only & {"e2e", "mesh"}:
                     phase_e2e(dev, trees, root)
                 if "mesh" in only:
                     phase_mesh(dev, trees, root)
+                if "stage2" in only:
+                    phase_stage2(dev, trees, root)
         if "path" in only:
             phase_path(dev, phase_slice(dev, frames, refs), phase_tracking(dev, frames),
                        frames, grids_np)
@@ -4725,6 +4999,8 @@ def main() -> int:
         e2e_launches = timed("e2e", phase_e2e, dev, trees, root)
         # the multi-device path over the distorted tree
         mesh_launches = timed("mesh", phase_mesh, dev, trees, root)
+        # stage 2 against the JAX refinement CLI, then the three CLIs chained
+        stage2_launches = timed("stage2", phase_stage2, dev, trees, root)
     system_launches = timed("system", phase_system, dev)
     vi_launches = timed("vio", phase_vio, dev)
     refine_launches, refine_p_ms = timed("refine", phase_refine, dev)
@@ -4760,7 +5036,7 @@ def main() -> int:
         k["launches_system"] = system_launches[k["name"]]
         k["launches_test_feature"] = tools_launches["test feature"][k["name"]]
         k["launches_fast_head"] = tools_launches["fast head"][k["name"]]
-        for label, counts in mesh_launches.items():
+        for label, counts in list(mesh_launches.items()) + list(stage2_launches.items()):
             k["launches_" + label.replace(" ", "_")] = counts[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -4770,7 +5046,8 @@ def main() -> int:
             "launches_e2e_f32", "launches_e2e_bf16", "launches_e2e_dist_f32", "launches_system",
             "launches_cli_mesh", "launches_mesh4", "launches_mesh4_cudnn_off",
             "launches_seq_cudnn_off", "launches_dp_plnet_step", "launches_test_feature",
-            "launches_fast_head")
+            "launches_fast_head", "launches_stage2_refine", "launches_stage2_refine_flash",
+            "launches_chain_vo", "launches_chain_refine", "launches_chain_reloc")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -131,10 +131,22 @@ sequence of ``scripts/verify_tpu_e2e.py:149-151`` (``--frames 40 --stride 2
 (``vo_euroc.yaml``; ``synth_stereo.yaml`` / the distorted rig's YAML). Kept
 per sequence: the PNGs of frames 0 and 19 (both views), the ground truth,
 the CLI's ``trajectory_v0.txt``, its keyframe ids (from its mapv0) and its
-keyframe, valid mappoint and mapline counts. Then ``apps/benchmark_system.py``'s
-loop (bf16, 400 keypoints, no SuperPoint, LightGlue, ``SynthCamera``) over
-``SYSTEM_FRAMES`` frames of ``forward`` on the same world with the numpy
-noise: its trajectory and keyframe count.
+keyframe, valid mappoint and mapline counts. On the rectified tree, which
+also gets the 10 hard queries of ``--hard_queries 10`` (JAX's own noise
+keys; byte-equal to the relocalization oracle's, which is checked and
+required, so their PNGs are not stored again), stages 1-3 of
+``scripts/verify_tpu_e2e.py`` (:func:`e2e_stages`): ``apps/visual_odometry.py``
+over all 40 frames (its keyframe ids, ``trajectory_v0.txt``, landmark counts
+and the mapv0, LZMA-compressed: ``full_*``); ``apps/map_refinement.py
+--voc_path`` on that mapv0, run in this process so that its refiner can be
+read, training the shared point vocabulary (its bytes, the loop pairs with
+their Rlq / tlq, the merged counts, ``trajectory_v1.txt`` and the junction
+vocabulary's bytes: ``s2_*``); ``apps/relocalization.py --diagnose`` on the
+refined map and the queries (recall, per-query ok and Twc from the CLI's
+trajectory, NaN where rejected, and ``hard0/gt_tum.txt``: ``s3_*``). Then
+``apps/benchmark_system.py``'s loop (bf16, 400 keypoints, no SuperPoint,
+LightGlue, ``SynthCamera``) over ``SYSTEM_FRAMES`` frames of ``forward`` on
+the same world with the numpy noise: its trajectory and keyframe count.
 
 Train oracle
 ------------
@@ -233,7 +245,8 @@ TOOLS = {"seed": 0, "fast_cfg": {"max_keypoints": 400, "line_threshold": 0.5},
          "bench": (5, 230, 0)}
 TOOLS_FIELDS = ("keypoints", "kp_mask", "lines", "line_mask", "junctions", "junc_mask")
 # the stage-1 sequence of scripts/verify_tpu_e2e.py:149-151 (E2E_TPU.json)
-E2E = {"frames": 40, "run": 20, "stride": 2, "traj": "loop", "seed": 0, "noise_seed": 1}
+E2E = {"frames": 40, "run": 20, "stride": 2, "traj": "loop", "seed": 0, "noise_seed": 1,
+       "queries": 10}
 E2E_PNG_FRAMES = (0, 19)  # frames whose PNGs gate the card's render
 E2E_SEQUENCES = {"rect": ("configs/camera/synth_stereo.yaml", []),
                  "dist": ("configs/camera/synth_stereo_distorted.yaml",
@@ -1008,6 +1021,122 @@ def e2e_noise(n_frames, height=480, width=752):
         (n_frames, 2, height, width), dtype=np.float32)
 
 
+def e2e_stages(blob, mav0, work, env):
+    """Stages 1-3 of ``scripts/verify_tpu_e2e.py`` on the rectified tree at
+    ``mav0``, float32 on the CPU: the JAX VO CLI over every frame, the JAX
+    refinement CLI (run in this process, so that its loop pairs can be read)
+    on that mapv0 with the shared point vocabulary it trains, and the JAX
+    relocalization CLI on the tree's hard queries. The queries are the
+    relocalization oracle's: the same world, trajectory and JAX noise keys
+    (checked byte for byte), so only their ground truth is stored again."""
+    import lzma
+    import shutil
+    import subprocess
+
+    import airslam_tpu.pipelines.map_refiner as mr
+    import apps.map_refinement as amr
+    from airslam_tpu.io.serialization import load_map
+
+    def read(path):
+        with open(path, "rb") as f:
+            return np.frombuffer(f.read(), np.uint8)
+
+    def run(args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable] + args, cwd=REPO, capture_output=True, text=True,
+                             env=env)
+        if res.returncode:
+            raise RuntimeError(f"{args[0]} failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        print(f"{args[0]}: {time.perf_counter() - t0:.1f} s")
+        return res.stdout
+
+    qdir = os.path.join(mav0, "hard0", "data")
+    names = sorted(os.listdir(qdir), key=lambda n: float(os.path.splitext(n)[0]))
+    reloc = np.load(OUT_RELOC)
+    same = ([str(n) for n in reloc["query_names"]] == names
+            and np.array_equal(reloc["gt_tum"], read(os.path.join(mav0, "hard0", "gt_tum.txt")))
+            and all(np.array_equal(reloc[f"q{i}_png"], read(os.path.join(qdir, n)))
+                    for i, n in enumerate(names)))
+    if not same:
+        raise RuntimeError("the hard queries differ from the relocalization oracle's: "
+                           "regenerate that oracle first")
+
+    vo_dir, map_root = os.path.join(work, "vo"), os.path.join(work, "map")
+    run(["apps/visual_odometry.py", "--config_path", "configs/visual_odometry/vo_euroc.yaml",
+         "--camera_config_path", "configs/camera/synth_stereo.yaml", "--dataroot", mav0,
+         "--saving_dir", vo_dir, "--device", "cpu"])
+    mapv0 = os.path.join(vo_dir, "AirSLAM_mapv0.bin")
+    m, _ = load_map(mapv0)
+    blob.update(
+        full_keyframe_ids=np.asarray(m.keyframe_ids),
+        full_n_mappoints=np.asarray(sum(p.is_valid for p in m.mappoints.values())),
+        full_n_maplines=np.asarray(sum(l.is_valid for l in m.maplines.values())),
+        full_traj=np.loadtxt(os.path.join(vo_dir, "trajectory_v0.txt"), ndmin=2),
+        # the mapv0 pickle, LZMA-compressed as the relocalization oracle's mapv1
+        full_mapv0_xz=np.frombuffer(lzma.compress(read(mapv0).tobytes(),
+                                                  preset=9 | lzma.PRESET_EXTREME), np.uint8))
+    print(f"full: keyframes {m.keyframe_ids}, {int(blob['full_n_mappoints'])} mappoints, "
+          f"{int(blob['full_n_maplines'])} maplines")
+
+    # the refinement CLI in this process, its refiner kept
+    os.makedirs(map_root)
+    shutil.copy(mapv0, map_root)
+    voc_shared = os.path.join(work, "point_voc_shared.npz")
+    made = []
+
+    class Recording(mr.MapRefiner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    saved = mr.MapRefiner, sys.argv
+    mr.MapRefiner = Recording
+    sys.argv = ["map_refinement.py", "--config_path", os.path.join(
+        REPO, "configs", "map_refinement", "mr_euroc.yaml"), "--map_root", map_root,
+        "--voc_path", voc_shared, "--device", "cpu"]
+    t0 = time.perf_counter()
+    try:
+        amr.main()
+    finally:
+        mr.MapRefiner, sys.argv = saved
+    print(f"apps/map_refinement.py (in process): {time.perf_counter() - t0:.1f} s")
+    r = made[0]
+    pairs = r.loop_pairs
+    blob.update(
+        s2_point_voc=read(voc_shared),
+        s2_junction_voc=read(os.path.join(map_root, "junction_voc.npz")),
+        s2_loop=np.asarray([[lp.query_id, lp.loop_id] for lp in pairs]).reshape(-1, 2),
+        s2_Rlq=np.asarray([np.asarray(lp.Rlq) for lp in pairs], np.float64).reshape(-1, 3, 3),
+        s2_tlq=np.asarray([np.asarray(lp.tlq) for lp in pairs], np.float64).reshape(-1, 3),
+        s2_n_merged=np.asarray([r.n_merged_mappoints, r.n_merged_maplines]),
+        s2_traj_v1=np.loadtxt(os.path.join(map_root, "trajectory_v1.txt"), ndmin=2))
+    print(f"refinement: loops {blob['s2_loop'].tolist()}, merged "
+          f"{blob['s2_n_merged'].tolist()}, pose graph {bool(r.pose_graph_ran)}")
+
+    # the relocalization CLI on the refined map and the shared vocabulary
+    shutil.copy(voc_shared, os.path.join(map_root, "point_voc.npz"))
+    traj = os.path.join(work, "reloc.txt")
+    out = run(["apps/relocalization.py", "--config_path", "configs/relocalization/reloc_euroc.yaml",
+               "--map_root", map_root, "--query_folder", qdir, "--traj_path", traj,
+               "--diagnose", "--device", "cpu"])
+    diag = [ln for ln in out.splitlines() if ln.startswith("diag ")]
+    ok = np.asarray([ln.split(" ok=")[1].startswith("True") for ln in diag])
+    rows = np.loadtxt(traj, ndmin=2)
+    stamps = {round(float(n[:-4]) * 1e-9, 6): i for i, n in enumerate(names)}
+    Twc = np.full((len(names), 4, 4), np.nan)
+    from scipy.spatial.transform import Rotation
+
+    for row in rows:
+        i = stamps[round(row[0], 6)]
+        Twc[i] = np.eye(4)
+        Twc[i, :3, :3] = Rotation.from_quat(row[4:8]).as_matrix()
+        Twc[i, :3, 3] = row[1:4]
+    recall = [ln for ln in out.splitlines() if ln.startswith("recall:")][-1]
+    blob.update(s3_ok=ok, s3_Twc=Twc, s3_recall=np.asarray(float(ok.mean())),
+                s3_gt_tum=read(os.path.join(mav0, "hard0", "gt_tum.txt")))
+    print(f"relocalization: {recall}, ok {ok.astype(int).tolist()}")
+
+
 def write_e2e_oracle():
     import shutil
     import subprocess
@@ -1045,6 +1174,8 @@ def write_e2e_oracle():
         sys.argv = ["make_synth_dataset.py", "--out", out, "--frames", str(E2E["frames"]),
                     "--stride", str(E2E["stride"]), "--traj", E2E["traj"], "--seed",
                     str(seed)] + extra
+        if name == "rect":  # the relocalization queries (JAX's own noise)
+            sys.argv += ["--hard_queries", str(E2E["queries"])]
         try:
             msd.main()
         finally:
@@ -1075,6 +1206,8 @@ def write_e2e_oracle():
                 blob[f"{name}_{cam}_{i}_png"] = read(os.path.join(mav0, cam, "data", names[i]))
         print(f"{name}: keyframes {m.keyframe_ids}, {int(blob[f'{name}_n_mappoints'])} "
               f"mappoints, {int(blob[f'{name}_n_maplines'])} maplines")
+        if name == "rect":
+            e2e_stages(blob, mav0, os.path.join(tmp, "stages"), env)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # apps/benchmark_system.py's loop (:199-219) on the same world

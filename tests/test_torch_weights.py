@@ -172,13 +172,13 @@ def test_port_imports_no_jax():
                 "parallel/train_plnet.py", "utils/timing.py", "parallel/training.py",
                 "parallel/mesh.py", "parallel/frontend.py", "parallel/pipeline.py",
                 "parallel/sharded_ba.py", "backend/validate.py", "utils/debugviz.py",
-                "utils/device.py"):
+                "utils/device.py", "models/onnx_import.py", "models/onnx_exec.py"):
         assert mod in walked, mod
     # every module of the JAX package has its counterpart, the Pallas ones
-    # under the port's names; the ONNX readers and the XLA cache have none
+    # under the port's names; the XLA compile cache has none
     renamed = {"backend/pose_gn_pallas.py": "backend/pose_gn.py",
                "ops/bilerp_pallas.py": "ops/bilerp.py", "ops/remap_tiled.py": "ops/remap.py"}
-    none = {"models/onnx_exec.py", "models/onnx_import.py", "utils/jaxcache.py"}
+    none = {"utils/jaxcache.py"}
     jax_root = os.path.join(REPO, "airslam_tpu")
     for root, _, names in os.walk(jax_root):
         for n in names:

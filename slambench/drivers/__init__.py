@@ -1,0 +1,1 @@
+"""Part of the port's benchmark (see slambench/run.py)."""

@@ -38,6 +38,7 @@ from airslam_tpu_torch.backend import residuals as res
 from airslam_tpu_torch.backend.gn import BAConfig, IMUFactors
 from airslam_tpu_torch.core import lie
 from airslam_tpu_torch.parallel.mesh import even_bounds, reduce_sum
+from airslam_tpu_torch.utils.timing import span
 
 POSE_DIM = 6
 FRAME_DIM = 15  # pose 6 + vel 3 + bias 6 (VI maps)
@@ -400,47 +401,50 @@ def _assemble_and_solve(prob: SparseBAProblem, intr, cfg: BAConfig, lam, robust:
     Schur sums (``chunk`` landmarks' worth of pairs, chunk·K², at a time)
     and back-substitution on its device, the sums meeting on the problem's
     device in shard order; the reduced solve and the IMU system run once
-    there."""
+    there. Traced as ``lm.assemble`` (the reduced system) and ``lm.solve``
+    (the damped solve and the back-substitution)."""
     f = prob.Rwb.shape[0]
     dtype, dev = ACC, prob.points.device
     pose_free = (~prob.pose_fixed).to(dtype)
     lam = lam.to(dtype)
-    pshards, lshards = shards.bind(prob)
-    pts = [_point_system(sh, intr, cfg, lam, robust, chunk, pr) for sh, pr in pshards]
-    lns = [_line_system(sh, intr, cfg, lam, robust, chunk, pr) for sh, pr in lshards]
+    with span("lm.assemble"):
+        pshards, lshards = shards.bind(prob)
+        pts = [_point_system(sh, intr, cfg, lam, robust, chunk, pr) for sh, pr in pshards]
+        lns = [_line_system(sh, intr, cfg, lam, robust, chunk, pr) for sh, pr in lshards]
 
-    def total(fam, i):
-        return reduce_sum([t[i] for t in fam], dev)
+        def total(fam, i):
+            return reduce_sum([t[i] for t in fam], dev)
 
-    Hcc = total(pts, 0) + total(lns, 0)
-    bc = total(pts, 1) + total(lns, 1)
-    S = total(pts, 2) + total(lns, 2)
-    bs = total(pts, 3) + total(lns, 3)
+        Hcc = total(pts, 0) + total(lns, 0)
+        bc = total(pts, 1) + total(lns, 1)
+        S = total(pts, 2) + total(lns, 2)
+        bs = total(pts, 3) + total(lns, 3)
 
-    # -- reduced camera system ------------------------------------------------
-    n6 = f * POSE_DIM
-    Hvis = _blockdiag(Hcc) - S.permute(0, 2, 1, 3).reshape(n6, n6)
-    bvis = (bc - bs).reshape(n6)
-    if prob.imu is None:
-        Hred, bred = Hvis, bvis
-    else:
-        Hred, bred = _imu_system(prob, cfg, robust, Hvis, bvis, pose_free)
+        # -- reduced camera system --------------------------------------------
+        n6 = f * POSE_DIM
+        Hvis = _blockdiag(Hcc) - S.permute(0, 2, 1, 3).reshape(n6, n6)
+        bvis = (bc - bs).reshape(n6)
+        if prob.imu is None:
+            Hred, bred = Hvis, bvis
+        else:
+            Hred, bred = _imu_system(prob, cfg, robust, Hvis, bvis, pose_free)
 
-    diag = torch.diagonal(Hred)
-    Hred = Hred + torch.diag((diag < 1e-10).to(dtype) + lam * diag.clamp(min=1.0))
-    # Jacobi (symmetric diagonal) scaling: the columns mix pixel² and unitless
-    # scales (the JAX package's form, kept for the same steps)
-    d = torch.sqrt(torch.diagonal(Hred).clamp(min=1e-12))
-    dx = gn.solve_spd(Hred / (d[:, None] * d[None, :]), bred / d) / d
-    if prob.imu is None:
-        dxc, dvi = dx.reshape(f, POSE_DIM), None
-    else:
-        dx = dx.reshape(f, FRAME_DIM)
-        dxc, dvi = dx[:, 0:6], (dx[:, 6:9], dx[:, 9:12], dx[:, 12:15])
+    with span("lm.solve"):
+        diag = torch.diagonal(Hred)
+        Hred = Hred + torch.diag((diag < 1e-10).to(dtype) + lam * diag.clamp(min=1.0))
+        # Jacobi (symmetric diagonal) scaling: the columns mix pixel² and
+        # unitless scales (the JAX package's form, kept for the same steps)
+        d = torch.sqrt(torch.diagonal(Hred).clamp(min=1e-12))
+        dx = gn.solve_spd(Hred / (d[:, None] * d[None, :]), bred / d) / d
+        if prob.imu is None:
+            dxc, dvi = dx.reshape(f, POSE_DIM), None
+        else:
+            dx = dx.reshape(f, FRAME_DIM)
+            dxc, dvi = dx[:, 0:6], (dx[:, 6:9], dx[:, 9:12], dx[:, 12:15])
 
-    # -- back-substitute landmarks --------------------------------------------
-    dp = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in pts])
-    dl = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in lns])
+        # -- back-substitute landmarks ----------------------------------------
+        dp = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in pts])
+        dl = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in lns])
     return dxc, dp, dl, dvi
 
 
@@ -548,7 +552,10 @@ def optimize(prob: SparseBAProblem, intr, cfg: BAConfig, iterations: int,
              mesh=None) -> SparseBAProblem:
     """``iterations`` LM steps (g2o's Levenberg schedule: λ/3 on accept, λ·ν
     and ν·2 on reject), accept/reject on the device. ``mesh``: observations
-    and landmarks sharded over its dp devices (:func:`observation_shards`)."""
+    and landmarks sharded over its dp devices (:func:`observation_shards`).
+    Each iteration is an ``lm.step`` span holding ``lm.assemble``,
+    ``lm.solve`` and ``lm.cost`` (the update, the candidate's cost, the
+    picks), as ``gn.optimize``'s."""
     shards = observation_shards(prob, mesh)
     with gn.full_f32():
         cost = _total_cost(prob, intr, cfg, robust, shards)
@@ -556,18 +563,21 @@ def optimize(prob: SparseBAProblem, intr, cfg: BAConfig, iterations: int,
         nu = torch.full((), 2.0, dtype=cost.dtype, device=cost.device)
         two = torch.full_like(nu, 2.0)
         for _ in range(iterations):
-            cand = _apply(prob, *_assemble_and_solve(prob, intr, cfg, lam, robust, chunk, shards))
-            new_cost = _total_cost(cand, intr, cfg, robust, shards)
-            accept = new_cost < cost  # False for a NaN candidate
+            with span("lm.step"):
+                step = _assemble_and_solve(prob, intr, cfg, lam, robust, chunk, shards)
+                with span("lm.cost"):
+                    cand = _apply(prob, *step)
+                    new_cost = _total_cost(cand, intr, cfg, robust, shards)
+                    accept = new_cost < cost  # False for a NaN candidate
 
-            def pick(a, b):
-                return torch.where(accept, a, b)
+                    def pick(a, b):
+                        return torch.where(accept, a, b)
 
-            prob = prob._replace(**{n: pick(getattr(cand, n), getattr(prob, n))
-                                    for n in _STATE if getattr(prob, n) is not None})
-            lam = pick(lam / 3.0, lam * nu)
-            nu = pick(two, nu * 2.0)
-            cost = pick(new_cost, cost)
+                    prob = prob._replace(**{n: pick(getattr(cand, n), getattr(prob, n))
+                                            for n in _STATE if getattr(prob, n) is not None})
+                    lam = pick(lam / 3.0, lam * nu)
+                    nu = pick(two, nu * 2.0)
+                    cost = pick(new_cost, cost)
     return prob
 
 
@@ -577,20 +587,22 @@ def global_ba(prob: SparseBAProblem, intr, cfg: BAConfig = BAConfig(),
     on the inliers → final inlier flags on the original set. Returns
     (problem, point inliers (N,), line inliers (M,)). ``mesh``: both passes
     sharded (:func:`optimize`); the gates are per observation and run on the
-    problem's device."""
+    problem's device, each a ``ba.gate`` span."""
     prob1 = optimize(prob, intr, cfg, iters1, robust=True, chunk=chunk, mesh=mesh)
-    pthr, lthr = _thresholds(prob1, cfg, prob1.points.dtype)
 
-    def inliers(p):
+    def inliers(p, pthr, lthr):
         pchi2, depth_ok = point_chi2(p, intr)
         return ((pchi2 <= pthr) & depth_ok & prob.pobs_mask,
                 (line_chi2(p, intr) <= lthr) & prob.lobs_mask)
 
-    p_in, l_in = inliers(prob1)
+    with span("ba.gate"):
+        thr = _thresholds(prob1, cfg, prob1.points.dtype)
+        p_in, l_in = inliers(prob1, *thr)
     gated = optimize(prob1._replace(pobs_mask=p_in, lobs_mask=l_in), intr, cfg, iters2,
                      robust=False, chunk=chunk, mesh=mesh)
     final = gated._replace(pobs_mask=prob.pobs_mask, lobs_mask=prob.lobs_mask)
-    p_in, l_in = inliers(final)
+    with span("ba.gate"):
+        p_in, l_in = inliers(final, *thr)
     return final, p_in, l_in
 
 

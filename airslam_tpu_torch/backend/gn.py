@@ -41,6 +41,7 @@ import torch
 from airslam_tpu_torch.backend import residuals as res
 from airslam_tpu_torch.core import lie
 from airslam_tpu_torch.parallel.mesh import even_bounds, reduce_sum
+from airslam_tpu_torch.utils.timing import span
 
 POSE_DIM = 6
 # Smallest |det| admitted by the closed-form block inverses; far below any
@@ -611,51 +612,60 @@ def _assemble_and_solve(problem: BAProblem, intr, cfg: BAConfig, lam, robust: bo
     With a ``mesh`` (:func:`landmark_shards`) each landmark shard's blocks,
     Schur terms and back-substitution run on its device; their sums meet on
     the problem's device in shard order, where the damped solve runs once.
-    The IMU blocks and the gravity border are added once."""
+    The IMU blocks and the gravity border are added once.
+
+    Traced as two spans: ``lm.assemble`` (the reduced system) and
+    ``lm.solve`` (the damped solve and the back-substitution)."""
     f = problem.frames.Rwb.shape[0]
     dtype, dev = problem.points.dtype, problem.points.device
 
-    # The landmark-family contractions are tiny (residual rows 3/4, dof
-    # 3/4/6) and batched over the grid: they are written as
-    # broadcast-multiply-reduce, as in the JAX package.
-    pshards, lshards = landmark_shards(problem, mesh)
-    pts = [_point_system(s, intr, cfg, lam, robust) for s in pshards]
-    lns = [_line_system(s, intr, cfg, lam, robust) for s in lshards]
+    with span("lm.assemble"):
+        # The landmark-family contractions are tiny (residual rows 3/4, dof
+        # 3/4/6) and batched over the grid: they are written as
+        # broadcast-multiply-reduce, as in the JAX package.
+        pshards, lshards = landmark_shards(problem, mesh)
+        pts = [_point_system(s, intr, cfg, lam, robust) for s in pshards]
+        lns = [_line_system(s, intr, cfg, lam, robust) for s in lshards]
 
-    def total(fam, i):
-        return reduce_sum([t[i] for t in fam], dev)
+        def total(fam, i):
+            return reduce_sum([t[i] for t in fam], dev)
 
-    Hcc = total(pts, 0) + total(lns, 0)  # (F, 6, 6)
-    bc = total(pts, 1) + total(lns, 1)
-    if problem.imu is not None:
-        Hff, bf, Hfg, Hgg, bg_grav = _imu_blocks(problem, cfg, Hcc, bc, robust)
-    S_big6 = total(pts, 2) + total(lns, 2)
-    bs = total(pts, 3) + total(lns, 3)  # (F, 6)
+        Hcc = total(pts, 0) + total(lns, 0)  # (F, 6, 6)
+        bc = total(pts, 1) + total(lns, 1)
+        if problem.imu is not None:
+            Hff, bf, Hfg, Hgg, bg_grav = _imu_blocks(problem, cfg, Hcc, bc, robust)
+        S_big6 = total(pts, 2) + total(lns, 2)
+        bs = total(pts, 3) + total(lns, 3)  # (F, 6)
 
-    if problem.imu is not None:
-        # fold the landmark Schur complement into the pose sub-blocks, then
-        # densify (pure layout) with the gravity border
-        Hff[:, :POSE_DIM, :, :POSE_DIM] += -S_big6.reshape(f, POSE_DIM, f, POSE_DIM)
-        bf[:, :POSE_DIM] += -bs
-        n = f * FRAME_DIM
-        Hfg2 = Hfg.reshape(n, GRAV_DIM)
-        H = torch.cat([torch.cat([Hff.reshape(n, n), Hfg2], dim=1),
-                       torch.cat([Hfg2.T, Hgg], dim=1)])
-        b = torch.cat([bf.reshape(-1), bg_grav])
+        if problem.imu is not None:
+            # fold the landmark Schur complement into the pose sub-blocks,
+            # then densify (pure layout) with the gravity border
+            Hff[:, :POSE_DIM, :, :POSE_DIM] += -S_big6.reshape(f, POSE_DIM, f, POSE_DIM)
+            bf[:, :POSE_DIM] += -bs
+            n = f * FRAME_DIM
+            Hfg2 = Hfg.reshape(n, GRAV_DIM)
+            H = torch.cat([torch.cat([Hff.reshape(n, n), Hfg2], dim=1),
+                           torch.cat([Hfg2.T, Hgg], dim=1)])
+            b = torch.cat([bf.reshape(-1), bg_grav])
+        else:
+            H = _blockdiag(Hcc) - S_big6
+            b = (bc - bs).reshape(-1)
+
+    with span("lm.solve"):
         dx = solve_spd(_damped_pinned(H, lam), b)
-        dx_frames = dx[:n].reshape(f, FRAME_DIM)
-        dg = dx[n:]
-        dxc = dx_frames[:, :POSE_DIM]
-    else:
-        Htop = _blockdiag(Hcc) - S_big6
-        dxc = solve_spd(_damped_pinned(Htop, lam), (bc - bs).reshape(-1)).reshape(f, POSE_DIM)
-        dx_frames = torch.cat(
-            [dxc, torch.zeros((f, FRAME_DIM - POSE_DIM), dtype=dtype, device=dev)], dim=1)
-        dg = torch.zeros(GRAV_DIM, dtype=dtype, device=dev)
+        if problem.imu is not None:
+            dx_frames = dx[:n].reshape(f, FRAME_DIM)
+            dg = dx[n:]
+            dxc = dx_frames[:, :POSE_DIM]
+        else:
+            dxc = dx.reshape(f, POSE_DIM)
+            dx_frames = torch.cat(
+                [dxc, torch.zeros((f, FRAME_DIM - POSE_DIM), dtype=dtype, device=dev)], dim=1)
+            dg = torch.zeros(GRAV_DIM, dtype=dtype, device=dev)
 
-    # -- back-substitute landmarks ----------------------------------------
-    dp = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in pts])
-    dl = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in lns])
+        # -- back-substitute landmarks ------------------------------------
+        dp = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in pts])
+        dl = torch.cat([_back_substitute(t[4], dxc).to(dev) for t in lns])
     return dx_frames, dg, dp, dl
 
 
@@ -766,7 +776,11 @@ def optimize(problem: BAProblem, intr, cfg: BAConfig, iterations: int, robust: b
     stop once an accepted step improves the cost by less than ``early_exit``
     relative; this reads one flag per step back to the host. 0.0 keeps the
     reference's iteration counts. ``mesh``: the landmarks sharded over its
-    dp devices (:func:`landmark_shards`)."""
+    dp devices (:func:`landmark_shards`).
+
+    Each iteration is an ``lm.step`` span holding ``lm.assemble`` and
+    ``lm.solve`` (:func:`_assemble_and_solve`) and ``lm.cost`` (the update,
+    the candidate's cost, the accept and damping picks)."""
     with full_f32():
         cost = total_cost(problem, intr, cfg, robust, mesh)
         # g2o: tau * max(diag(H)); diag ~O(1e2) for pixel terms
@@ -775,25 +789,28 @@ def optimize(problem: BAProblem, intr, cfg: BAConfig, iterations: int, robust: b
         two = torch.full_like(nu, 2.0)
 
         for _ in range(iterations):
-            dxf, dg, dp, dl = _assemble_and_solve(problem, intr, cfg, lam, robust, mesh)
-            cand = apply_update(problem, dxf, dg, dp, dl)
-            new_cost = total_cost(cand, intr, cfg, robust, mesh)
-            accept = new_cost < cost  # False for a NaN candidate
+            with span("lm.step"):
+                dxf, dg, dp, dl = _assemble_and_solve(problem, intr, cfg, lam, robust, mesh)
+                with span("lm.cost"):
+                    cand = apply_update(problem, dxf, dg, dp, dl)
+                    new_cost = total_cost(cand, intr, cfg, robust, mesh)
+                    accept = new_cost < cost  # False for a NaN candidate
 
-            def pick(a, b):
-                return torch.where(accept, a, b)
+                    def pick(a, b):
+                        return torch.where(accept, a, b)
 
-            if early_exit > 0.0:
-                converged = accept & (cost - new_cost < early_exit * cost.clamp(min=1e-12))
-            problem = problem._replace(
-                frames=FrameStates(*(pick(a, b) for a, b in zip(cand.frames, problem.frames))),
-                points=pick(cand.points, problem.points),
-                lines=pick(cand.lines, problem.lines),
-                Rwg=pick(cand.Rwg, problem.Rwg))
-            # g2o-style damping adaptation (simplified gain ratio)
-            lam = pick(lam / 3.0, lam * nu)
-            nu = pick(two, nu * 2.0)
-            cost = pick(new_cost, cost)
-            if early_exit > 0.0 and bool(converged):
-                break
+                    if early_exit > 0.0:
+                        converged = accept & (cost - new_cost < early_exit * cost.clamp(min=1e-12))
+                    problem = problem._replace(
+                        frames=FrameStates(*(pick(a, b) for a, b in zip(cand.frames,
+                                                                        problem.frames))),
+                        points=pick(cand.points, problem.points),
+                        lines=pick(cand.lines, problem.lines),
+                        Rwg=pick(cand.Rwg, problem.Rwg))
+                    # g2o-style damping adaptation (simplified gain ratio)
+                    lam = pick(lam / 3.0, lam * nu)
+                    nu = pick(two, nu * 2.0)
+                    cost = pick(new_cost, cost)
+                if early_exit > 0.0 and bool(converged):
+                    break
     return problem

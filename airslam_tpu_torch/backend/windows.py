@@ -37,6 +37,7 @@ import torch
 from airslam_tpu_torch.backend import gn
 from airslam_tpu_torch.backend import residuals as res
 from airslam_tpu_torch.core import lie
+from airslam_tpu_torch.utils.timing import span
 
 # LM damping schedule shared by the autodiff solver below, the plain version
 # and the CUDA kernel (backend/pose_gn.py): all three read these.
@@ -53,19 +54,20 @@ def local_ba(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConfig(),
     relative improvement drops below it (see gn.optimize). ``mesh``
     (``parallel/mesh.py``): both LM stages with the landmarks sharded over
     its dp devices (``gn.landmark_shards``); the gates are per observation
-    and run on the problem's device."""
+    and run on the problem's device, each a ``ba.gate`` span."""
     problem = gn.optimize(problem, intr, cfg, iters1, robust=True, early_exit=early_exit,
                           mesh=mesh)
     dtype = problem.points.dtype
 
     # gate outliers (g2o_optimization.cc:350-385)
-    pchi2, depth_ok = gn.point_chi2(problem, intr)
-    is_stereo = problem.point_obs[..., 2] >= 0
-    pthr = gn._thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, dtype)
-    p_in = (pchi2 <= pthr) & depth_ok & problem.point_obs_mask
-    lchi2 = gn.line_chi2(problem, intr)
-    lthr = gn._thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
-    l_in = (lchi2 <= lthr) & problem.line_obs_mask
+    with span("ba.gate"):
+        pchi2, depth_ok = gn.point_chi2(problem, intr)
+        is_stereo = problem.point_obs[..., 2] >= 0
+        pthr = gn._thresholds(is_stereo, cfg.stereo_point, cfg.mono_point, dtype)
+        p_in = (pchi2 <= pthr) & depth_ok & problem.point_obs_mask
+        lchi2 = gn.line_chi2(problem, intr)
+        lthr = gn._thresholds(problem.line_obs_stereo, cfg.stereo_line, cfg.mono_line, dtype)
+        l_in = (lchi2 <= lthr) & problem.line_obs_mask
 
     gated = problem._replace(point_obs_mask=p_in, line_obs_mask=l_in)
     gated = gn.optimize(gated, intr, cfg, iters2, robust=False, early_exit=early_exit,
@@ -74,10 +76,11 @@ def local_ba(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BAConfig(),
     # final inlier flags (g2o_optimization.cc:389-407) on the original masks
     final = gated._replace(point_obs_mask=problem.point_obs_mask,
                            line_obs_mask=problem.line_obs_mask)
-    pchi2, depth_ok = gn.point_chi2(final, intr)
-    point_inlier = (pchi2 <= pthr) & depth_ok & problem.point_obs_mask
-    lchi2 = gn.line_chi2(final, intr)
-    line_inlier = (lchi2 <= lthr) & problem.line_obs_mask
+    with span("ba.gate"):
+        pchi2, depth_ok = gn.point_chi2(final, intr)
+        point_inlier = (pchi2 <= pthr) & depth_ok & problem.point_obs_mask
+        lchi2 = gn.line_chi2(final, intr)
+        line_inlier = (lchi2 <= lthr) & problem.line_obs_mask
     return final, point_inlier, line_inlier
 
 

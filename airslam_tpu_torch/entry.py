@@ -30,6 +30,7 @@ from airslam_tpu_torch.frontend.detector import DetectorConfig, FeatureDetector
 from airslam_tpu_torch.frontend.matcher import MatcherConfig, PointMatcher
 from airslam_tpu_torch.ops.remap import remap
 from airslam_tpu_torch.pipelines.map_builder import MapBuilder
+from airslam_tpu_torch.utils.timing import span
 
 
 class FrontendStep(nn.Module):
@@ -75,7 +76,7 @@ class FrontendStep(nn.Module):
             grids = torch.stack([torch.as_tensor(g) for g in grids])
         grids = grids.to(self.device, torch.float32).contiguous()
         images = torch.stack([torch.as_tensor(left), torch.as_tensor(right)])
-        with torch.profiler.record_function("rectify"):
+        with span("rectify"):
             out = remap(images.to(self.device, torch.float32).contiguous(), grids)
         return out[0], out[1]
 

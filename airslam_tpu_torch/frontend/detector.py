@@ -30,6 +30,7 @@ from airslam_tpu_torch.ops import wireframe
 from airslam_tpu_torch.ops.detect import top_k, topk_keypoints
 from airslam_tpu_torch.ops.gather import take_rows, take_values
 from airslam_tpu_torch.ops.gridsample import sample_descriptors
+from airslam_tpu_torch.utils.timing import span
 
 DETECT_SIZE = 512  # network input resolution (plnet.cpp:17-22)
 # the upstream AirSLAM export of the stage-1 head, read when no plnet_s1.npz
@@ -159,7 +160,7 @@ def detect_batch(plnet_out: dict, sp_out: Optional[dict], cfg: DetectorConfig,
         return None if out is None else {k: v[i] for k, v in out.items()}
 
     juncs, cands = zip(*(_line_candidates(view(plnet_out, i), cfg) for i in range(b)))
-    with torch.profiler.record_function("loi"):
+    with span("loi"):
         scores, lines_adj = loi(torch.stack([c.lines for c in cands]),
                                 torch.stack([c.prop_lines for c in cands]),
                                 plnet_out["loi"], plnet_out["loi_thin"], plnet_out["loi_aux"],
@@ -265,13 +266,13 @@ class FeatureDetector:
         unless ``detect_junctions``, as in the JAX ``detect``."""
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         h, w = images.shape[-2:]
-        with torch.profiler.record_function("resize+plnet"):
+        with span("resize+plnet"):
             x = resize_to_detect(images)
             out = self.plnet(x)
         sp_out = None
         if self.superpoint is not None:
-            with torch.profiler.record_function("superpoint"):
+            with span("superpoint"):
                 sp_out = self.superpoint(x)
-        with torch.profiler.record_function("decode+loi"):
+        with span("decode+loi"):
             return detect_batch(out, sp_out, self.config, w / DETECT_SIZE, h / DETECT_SIZE,
                                 self.loi, detect_junctions)

@@ -21,6 +21,7 @@ from airslam_tpu_torch.models import weights as wio
 from airslam_tpu_torch.models.lightglue import LightGlue, normalize_keypoints
 from airslam_tpu_torch.models.superglue import SuperGlue
 from airslam_tpu_torch.ops.match import Matches, mutual_match
+from airslam_tpu_torch.utils.timing import span
 
 
 MATCHER_FILES = {0: "lightglue.npz", 1: "superglue.npz"}  # checkpoint per ``matcher:``
@@ -102,13 +103,13 @@ class PointMatcher:
                                   self.norm_scale)
         m0, m1 = t(mask0, torch.bool), t(mask1, torch.bool)
         if cfg.matcher == 0:
-            with torch.profiler.record_function("lightglue"):
+            with span("lightglue"):
                 scores, _, _ = self.model(nk0, t(desc0), m0, nk1, t(desc1), m1)
         else:
-            with torch.profiler.record_function("superglue"):
+            with span("superglue"):
                 scores = self.model(nk0, t(scores0), t(desc0), m0,
                                     nk1, t(scores1), t(desc1), m1)
-        with torch.profiler.record_function("match"):
+        with span("match"):
             return mutual_match(scores, m0, m1, thr)
 
     @staticmethod

@@ -44,6 +44,7 @@ from airslam_tpu_torch.frontend.lines import frame_relations, match_lines_by_poi
 from airslam_tpu_torch.ops.remap import remap
 from airslam_tpu_torch.slam.frame import Frame
 from airslam_tpu_torch.slam.map import Map, preintegration_information
+from airslam_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -158,7 +159,7 @@ class MapBuilder:
         pair = pair.to(self.device, torch.float32).contiguous()
         if self._maps is None:
             return pair
-        with torch.profiler.record_function("rectify"):
+        with span("rectify"):
             return remap(pair, self._maps)
 
     def add_input(self, timestamp: float, image_left, image_right, imu_batch=None):
@@ -194,7 +195,7 @@ class MapBuilder:
         feats = _as_np_features(feats)
         f0 = type(feats)(*(t[2 * j] for t in feats))
         f1 = type(feats)(*(t[2 * j + 1] for t in feats))
-        with torch.profiler.record_function("stereo+temporal match"):
+        with span("stereo+temporal match"):
             pairs, temporal = self._stereo_and_temporal(f0, f1)
         return f0, f1, pairs, temporal
 
@@ -325,7 +326,7 @@ class MapBuilder:
         return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
 
     def _build_frame(self, timestamp, feats_left, feats_right, stereo_pairs):
-        with torch.profiler.record_function("build_frame"):
+        with span("build_frame"):
             frame = Frame(self.frame_counter, timestamp, feats_left, self.camera)
             self.frame_counter += 1
             pairs = np.asarray(stereo_pairs).reshape(-1, 2)
@@ -436,7 +437,7 @@ class MapBuilder:
                 cur.velocity = vwb1
 
         if not predicted:
-            with torch.profiler.record_function("pnp"):
+            with span("pnp"):
                 Twc, n_pnp = self._solve_pnp(cur, matched)
             if (
                 np.linalg.norm(Twc[:3, 3] - self.last_tracked_frame.Twc[:3, 3]) > 1.0
@@ -448,7 +449,7 @@ class MapBuilder:
 
         if not matched:
             return 0, []
-        with torch.profiler.record_function("pose_only"):
+        with span("pose_only"):
             return self._pose_only(cur, matched, ref if imu_running else None)
 
     def _solve_pnp(self, cur: Frame, matched):

@@ -39,6 +39,7 @@ from airslam_tpu_torch.core import lie
 from airslam_tpu_torch.frontend.lines import endpoint_trim_rows_np
 from airslam_tpu_torch.slam.frame import Frame
 from airslam_tpu_torch.slam.landmarks import LandmarkType, Mapline, Mappoint
+from airslam_tpu_torch.utils.timing import span
 
 WINDOW_SIZE = 5  # map.cc:576 MaxFrameNumber
 MAX_FIXED_FRAMES = 10  # static cap on fixed observer frames (ref: unbounded)
@@ -119,6 +120,10 @@ class Map:
     # ------------------------------------------------------------------
 
     def insert_keyframe(self, frame: Frame):
+        with span("insert_keyframe"):
+            self._insert_keyframe(frame)
+
+    def _insert_keyframe(self, frame: Frame):
         fid = frame.frame_id
         self.keyframes[fid] = frame
         self.keyframe_ids.append(fid)
@@ -153,11 +158,12 @@ class Map:
         line_ids = np.nonzero(frame.line_mask)[0]
         stereo_ends, stereo_ok = None, None
         if len(line_ids) and frame.lines_right_valid.any():
-            ends_all, ok_all = triangulate_stereo_lines_frame(
-                frame, self._intr, self.camera.min_x_diff, self.camera.max_x_diff,
-                self.device, self.dtype)
-            stereo_ends = ends_all.double().cpu().numpy()
-            stereo_ok = ok_all.cpu().numpy()
+            with span("triangulate"):
+                ends_all, ok_all = triangulate_stereo_lines_frame(
+                    frame, self._intr, self.camera.min_x_diff, self.camera.max_x_diff,
+                    self.device, self.dtype)
+                stereo_ends = ends_all.double().cpu().numpy()
+                stereo_ok = ok_all.cpu().numpy()
         need_line_triangulation = []
         for i in line_ids:
             ltid = int(frame.line_track_ids[i])
@@ -224,10 +230,11 @@ class Map:
                 uv[b, k] = kf.keypoints[idx]
                 mask[b, k] = True
         t = self._tensor
-        xs, oks = triangulate.triangulate_points_batch(
-            t(Rcw), t(tcw), t(uv), torch.as_tensor(mask, device=self.device), self._intr)
-        xs = xs.double().cpu().numpy()
-        oks = oks.cpu().numpy()
+        with span("triangulate"):
+            xs, oks = triangulate.triangulate_points_batch(
+                t(Rcw), t(tcw), t(uv), torch.as_tensor(mask, device=self.device), self._intr)
+            xs = xs.double().cpu().numpy()
+            oks = oks.cpu().numpy()
         good = 0
         for b, (mpt, _) in enumerate(cands):
             if oks[b]:
@@ -268,9 +275,10 @@ class Map:
         for b, (_, pts) in enumerate(cands):
             buf[b, : len(pts)] = pts
             mask[b, : len(pts)] = True
-        ends, oks = triangulate.fit_lines_batch(
-            self._tensor(buf), torch.as_tensor(mask, device=self.device))
-        ends, oks = ends.double().cpu().numpy(), oks.cpu().numpy()
+        with span("triangulate"):
+            ends, oks = triangulate.fit_lines_batch(
+                self._tensor(buf), torch.as_tensor(mask, device=self.device))
+            ends, oks = ends.double().cpu().numpy(), oks.cpu().numpy()
         good = 0
         for b, (mpl, _) in enumerate(cands):
             if oks[b]:
@@ -353,55 +361,57 @@ class Map:
         return frames
 
     def local_map_optimization(self, new_frame: Frame):
-        window = self._window_frames(new_frame)
-        window_ids = {f.frame_id for f in window}
-        first_kf_id = self.keyframe_ids[0]
+        with span("local_map.build"):
+            window = self._window_frames(new_frame)
+            window_ids = {f.frame_id for f in window}
+            first_kf_id = self.keyframe_ids[0]
 
-        # landmarks observed by the window
-        mpts: List[Mappoint] = []
-        mpls: List[Mapline] = []
-        fixed_votes: Dict[int, int] = {}
-        seen_p, seen_l = set(), set()
-        for f in window:
-            for tid in f.mappoint_ids[f.mappoint_ids >= 0]:
-                mpt = self.mappoints.get(int(tid))
-                if mpt is None or not mpt.is_valid or int(tid) in seen_p:
-                    continue
-                seen_p.add(int(tid))
-                mpts.append(mpt)
-                for ofid in mpt.observers:
-                    if ofid not in window_ids and ofid in self.keyframes:
-                        fixed_votes[ofid] = fixed_votes.get(ofid, 0) + 1
-            for ltid in f.mapline_ids[f.mapline_ids >= 0]:
-                mpl = self.maplines.get(int(ltid))
-                if mpl is None or not mpl.is_valid or int(ltid) in seen_l:
-                    continue
-                seen_l.add(int(ltid))
-                mpls.append(mpl)
-                for ofid in mpl.observers:
-                    if ofid not in window_ids and ofid in self.keyframes:
-                        fixed_votes[ofid] = fixed_votes.get(ofid, 0) + 1
+            # landmarks observed by the window
+            mpts: List[Mappoint] = []
+            mpls: List[Mapline] = []
+            fixed_votes: Dict[int, int] = {}
+            seen_p, seen_l = set(), set()
+            for f in window:
+                for tid in f.mappoint_ids[f.mappoint_ids >= 0]:
+                    mpt = self.mappoints.get(int(tid))
+                    if mpt is None or not mpt.is_valid or int(tid) in seen_p:
+                        continue
+                    seen_p.add(int(tid))
+                    mpts.append(mpt)
+                    for ofid in mpt.observers:
+                        if ofid not in window_ids and ofid in self.keyframes:
+                            fixed_votes[ofid] = fixed_votes.get(ofid, 0) + 1
+                for ltid in f.mapline_ids[f.mapline_ids >= 0]:
+                    mpl = self.maplines.get(int(ltid))
+                    if mpl is None or not mpl.is_valid or int(ltid) in seen_l:
+                        continue
+                    seen_l.add(int(ltid))
+                    mpls.append(mpl)
+                    for ofid in mpl.observers:
+                        if ofid not in window_ids and ofid in self.keyframes:
+                            fixed_votes[ofid] = fixed_votes.get(ofid, 0) + 1
 
-        fixed_ids = [fid for fid, _ in sorted(fixed_votes.items(), key=lambda kv: -kv[1])]
-        fixed_ids = fixed_ids[:MAX_FIXED_FRAMES]
-        all_frames = window + [self.keyframes[fid] for fid in fixed_ids]
+            fixed_ids = [fid for fid, _ in sorted(fixed_votes.items(), key=lambda kv: -kv[1])]
+            fixed_ids = fixed_ids[:MAX_FIXED_FRAMES]
+            all_frames = window + [self.keyframes[fid] for fid in fixed_ids]
 
-        pose_fixed = np.zeros(len(all_frames), bool)
-        for k, f in enumerate(all_frames):
-            # oldest window frame + first keyframe + observers are fixed
-            if k >= len(window) or f.frame_id == first_kf_id or k == len(window) - 1:
-                pose_fixed[k] = True
+            pose_fixed = np.zeros(len(all_frames), bool)
+            for k, f in enumerate(all_frames):
+                # oldest window frame + first keyframe + observers are fixed
+                if k >= len(window) or f.frame_id == first_kf_id or k == len(window) - 1:
+                    pose_fixed[k] = True
 
-        problem, layout = self._build_problem(
-            all_frames, pose_fixed, mpts, mpls,
-            pad_frames=WINDOW_SIZE + MAX_FIXED_FRAMES,
-        )
+            problem, layout = self._build_problem(
+                all_frames, pose_fixed, mpts, mpls,
+                pad_frames=WINDOW_SIZE + MAX_FIXED_FRAMES,
+            )
         if problem is None:
             return
-        with torch.profiler.record_function("local_ba"):
+        with span("local_ba"):
             out, p_in, l_in = windows.local_ba(problem, self._intr, self.ba_config,
                                                early_exit=self.ba_early_exit)
-        self._write_back(out, p_in, l_in, all_frames, pose_fixed, mpts, mpls, layout)
+        with span("local_map.write_back"):
+            self._write_back(out, p_in, l_in, all_frames, pose_fixed, mpts, mpls, layout)
         if self.on_local_ba is not None:
             self.on_local_ba(new_frame)
 
@@ -958,7 +968,7 @@ class Map:
         preint_t["info"] = t(np.stack([preintegration_information(p.state.cov)[0]
                                        for p in preints]))
         ba0 = t(preints[0].ba)
-        with torch.profiler.record_function("imu_initialization"):
+        with span("imu_initialization"):
             vels_r, bg_r, ba_r, Rwg = windows.imu_initialization(
                 Rwb, twb, vels, t(bg0), ba0, Rwg0, preint_t, self.camera.g_value, t(bg0), ba0)
         vels_r, bg_r, ba_r, Rwg = (a.double().cpu().numpy() for a in (vels_r, bg_r, ba_r, Rwg))

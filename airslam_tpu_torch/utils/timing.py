@@ -5,7 +5,8 @@ the JAX package's summary format (the per-frame timing the reference prints,
 demo/visual_odometry.cpp:49-58) and a ``torch.profiler`` trace context in
 place of ``jax.profiler``'s. A section measures the host's clock; a caller
 that wants the card's time synchronizes inside the section
-(``MapBuilder.stage_timer`` does).
+(``MapBuilder.stage_timer`` does). :func:`span` is the package's one way to
+name a range of work in a profiler's trace.
 """
 
 from __future__ import annotations
@@ -15,6 +16,22 @@ import os
 import time
 from collections import defaultdict
 from typing import Dict, List
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of host work in the trace of an open ``torch.profiler``
+    session (``record_function``, on the profiler's clock, nested by time on
+    the calling thread). With no session open it returns a shared do-nothing
+    context: one flag read, no ``record_function``. It reads nothing back
+    from the card and synchronizes nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 class Timer:

@@ -15,7 +15,7 @@ kernel launches issued inside the ``local_ba`` ranges. ``--use_flash`` sends
 LightGlue's attention through kernel F. It reports from ``torch.profiler``
 over 20 frames (``--vo``: the 8 frames of one pass):
 
-- per stage, the ``record_function`` ranges the port itself opens
+- per stage, the spans the port itself opens (``utils/timing.span``)
   (``rectify``, ``resize+plnet``, ``superpoint``, ``decode+loi`` with the
   stage-1 head's ``loi`` inside it, ``stereo+temporal match`` with
   ``lightglue`` and ``match`` inside it,
@@ -49,6 +49,10 @@ sys.path.insert(0, REPO)
 
 RANGES = ("rectify", "resize+plnet", "superpoint", "decode+loi", "loi", "stereo+temporal match",
           "lightglue", "match", "build_frame", "pnp", "pose_only", "local_ba")
+# the window backend's spans inside a keyframe: on the device's timeline
+# they are ranges, not kernels
+BACKEND_SPANS = ("insert_keyframe", "triangulate", "local_map.build", "local_map.write_back",
+                 "lm.step", "lm.assemble", "lm.solve", "lm.cost", "ba.gate")
 
 
 def main():
@@ -147,7 +151,8 @@ def main():
                                   host_ms_per_call=sum(e.cpu_time_total for e in ba) / 1e3 / len(ba),
                                   device_ms_per_call=sum(e.device_time_total for e in ba) / 1e3
                                   / len(ba))
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in RANGES]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in RANGES + BACKEND_SPANS]
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_frames
     by_name = {}
     for e in kernels:

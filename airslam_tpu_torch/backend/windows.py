@@ -378,7 +378,8 @@ def pose_only_optimization(problem: gn.BAProblem, intr, cfg: gn.BAConfig = gn.BA
         ij = (int(problem.imu.idx_i[0]), int(problem.imu.idx_j[0]))
         vi_tracking = pf[0] and not pf[1] and vf[0] and ij == (0, 1)
     if vi_shape and vi_tracking:
-        return _pose_only_fast_vi(problem, intr, cfg, rounds=rounds, iters=iters)
+        with span("pose_only.vi"):
+            return _pose_only_fast_vi(problem, intr, cfg, rounds=rounds, iters=iters)
     return _pose_only_general(problem, intr, cfg, rounds=rounds, iters=iters)
 
 

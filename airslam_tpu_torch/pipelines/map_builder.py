@@ -235,10 +235,11 @@ class MapBuilder:
         if self.camera_uses_imu() and imu_batch is not None and self.last_keyframe is not None:
             if self.preintegration is None:
                 self.preintegration = self._new_preintegration()
-            self.preintegration.add_batch(
-                imu_batch, self.last_keyframe.timestamp
-                if self.preintegration.start_time < 0 else self.preintegration.end_time,
-                timestamp)
+            with span("imu.preintegrate"):
+                self.preintegration.add_batch(
+                    imu_batch, self.last_keyframe.timestamp
+                    if self.preintegration.start_time < 0 else self.preintegration.end_time,
+                    timestamp)
 
         if not self.init:
             if frame.good_stereo_points >= self.kf_config.min_init_stereo_feature:
@@ -318,12 +319,14 @@ class MapBuilder:
         return bool(getattr(self.camera, "use_imu", False))
 
     def _new_preintegration(self):
+        """The IMU preintegration since the last keyframe, in the map's type:
+        the VI factors are the window backend's."""
         c = self.camera
         return Preintegration(noise=(c.gyr_noise, c.acc_noise, c.gyr_walk, c.acc_walk),
-                              dtype=self.dtype, device=self.device)
+                              dtype=self.map.dtype, device=self.device)
 
-    def _tensor(self, a):
-        return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
+    def _tensor(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype or self.dtype)
 
     def _build_frame(self, timestamp, feats_left, feats_right, stereo_pairs):
         with span("build_frame"):
@@ -428,9 +431,15 @@ class MapBuilder:
                        and self.preintegration.valid())
         Twc = np.eye(4)
         predicted = False
-        if imu_running and self.preintegration.dT < 2.0:
-            Twb0 = ref.imu_pose(self.camera.Tcb)
-            Twb1, vwb1 = self.preintegration.predict(Twb0, ref.velocity, self.camera.g_value)
+        prediction = None
+        if imu_running:
+            # the preintegration folds its rows at the first read of its state
+            with span("imu.preintegrate"):
+                if self.preintegration.dT < 2.0:
+                    prediction = self.preintegration.predict(
+                        ref.imu_pose(self.camera.Tcb), ref.velocity, self.camera.g_value)
+        if prediction is not None:
+            Twb1, vwb1 = prediction
             Twc = Twb1 @ np.linalg.inv(self.camera.Tcb)
             if np.linalg.norm(Twc[:3, 3] - self.last_tracked_frame.Twc[:3, 3]) < 1.0:
                 predicted = True
@@ -516,12 +525,14 @@ class MapBuilder:
         F=1 problem. With ``imu_ref`` the problem holds the IMU factor to the
         last keyframe with that frame's states fixed (map_builder.cc:320-395):
         F=2, frame 0 the fixed reference, frame 1 the current frame (pose,
-        velocity and biases free)."""
+        velocity and biases free), in the map's type, as the window
+        backend's VI problems."""
         f = 2 if imu_ref is not None else 1
         cur_col = f - 1
         p = len(matched)
         P = max(64, 1 << (p - 1).bit_length())
-        dt = np.float64 if self.dtype == torch.float64 else np.float32
+        dtype = self.map.dtype if imu_ref is not None else self.dtype
+        dt = np.float64 if dtype == torch.float64 else np.float32
         points = np.zeros((P, 3), dt)
         obs = np.zeros((P, f, 3), dt)
         obs[..., 2] = -1.0
@@ -538,17 +549,21 @@ class MapBuilder:
             Twbs.insert(0, imu_ref.imu_pose(Tcb))
             states.insert(0, imu_ref)
         Twbs = np.stack(Twbs)
-        t, dev = self._tensor, self.device
+        dev = self.device
+
+        def t(a):
+            return self._tensor(a, dtype)
+
         fstates = gn.FrameStates(
             Rwb=t(Twbs[:, :3, :3]), twb=t(Twbs[:, :3, 3]),
             vel=t(np.stack([s.velocity for s in states])),
             bg=t(np.stack([s.bg for s in states])), ba=t(np.stack([s.ba for s in states])))
         imu_factors = self._tracking_imu_factor() if imu_ref is not None else None
         # every leaf that does not change between frames is put on the device
-        # ONCE per (P, f) and reused via _replace: most of the problem's
+        # ONCE per (P, f, dtype) and reused via _replace: most of the problem's
         # leaves are constants, and per-leaf transfers would dominate the
         # host cost of this per-frame assembly
-        tmpl = self._pose_problem_tmpl.get((P, f))
+        tmpl = self._pose_problem_tmpl.get((P, f, dtype))
         if tmpl is None:
             pose_fixed = np.zeros(f, bool)
             vel_fixed = np.ones(f, bool)
@@ -565,18 +580,18 @@ class MapBuilder:
                 point_obs_mask=torch.as_tensor(mask, device=dev),
                 lines=t([[1.0, 0, 0, 0, 1.0, 0]]),
                 line_fixed=torch.ones(1, dtype=torch.bool, device=dev),
-                line_obs=torch.zeros((1, f, 8), dtype=self.dtype, device=dev),
+                line_obs=torch.zeros((1, f, 8), dtype=dtype, device=dev),
                 line_obs_stereo=torch.zeros((1, f), dtype=torch.bool, device=dev),
                 line_obs_mask=torch.zeros((1, f), dtype=torch.bool, device=dev),
-                line_obs_sigma=torch.full((1, f), 0.5, dtype=self.dtype, device=dev),
+                line_obs_sigma=torch.full((1, f), 0.5, dtype=dtype, device=dev),
                 Rwg=t(self.map.Rwg),
-                gravity_free=torch.zeros((), dtype=self.dtype, device=dev),
+                gravity_free=torch.zeros((), dtype=dtype, device=dev),
                 imu=imu_factors,
                 Rcb=t(Tcb[:3, :3]),
                 tcb=t(Tcb[:3, 3]),
                 g_value=self.map.g_value,
             )
-            self._pose_problem_tmpl[(P, f)] = tmpl
+            self._pose_problem_tmpl[(P, f, dtype)] = tmpl
             problem = tmpl
         else:
             problem = tmpl._replace(
@@ -606,7 +621,11 @@ class MapBuilder:
         pre = self.preintegration
         st = pre.state
         info9, walk = preintegration_information(st.cov)
-        t, dev = self._tensor, self.device
+        dev = self.device
+
+        def t(a):
+            return self._tensor(a, pre.dtype)
+
         return gn.IMUFactors(
             idx_i=torch.zeros(1, dtype=torch.long, device=dev),
             idx_j=torch.ones(1, dtype=torch.long, device=dev),

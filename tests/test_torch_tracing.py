@@ -163,3 +163,104 @@ def test_every_span_is_in_perf_md_and_span_is_the_only_range():
     table = {name for line in perf.splitlines() if line.startswith("| `")
              for name in re.findall(r"`([^`]+)`", line.split("|")[1])}
     assert opened <= table, sorted(opened - table)
+
+
+# -- the stereo-inertial path's spans --------------------------------------------
+
+VI_SPANS = ("imu.preintegrate", "pose_only.vi", "lm.imu")
+
+
+def _framed_stream(builder, seq, frames):
+    """tests/test_torch_vio.py's stream through ``track_features`` under a
+    host-only profiler, each frame inside a test range ``frame<n>``. Returns
+    (spans, the frames whose tracking began with the IMU initialized)."""
+    from airslam_tpu_torch.core.imu import ImuData
+
+    times = seq["times"]
+    rows = [ImuData(times[i], seq["gyr"][i], seq["acc"][i]) for i in range(len(times))]
+    vi_frames = []
+
+    def run():
+        last_i = 0
+        for n, (i, (fl, fr, pairs)) in enumerate(frames):
+            if builder.map.imu_initialized:
+                vi_frames.append(n)
+            with torch.profiler.record_function(f"frame{n}"):
+                builder.track_features(times[i], fl, fr, pairs,
+                                       imu_batch=rows[max(last_i - 1, 0): i + 2] if n else None)
+            last_i = i
+
+    _, spans = _traced(run)
+    return spans, vi_frames
+
+
+def test_vi_tracking_opens_one_pose_only_vi_per_frame_after_the_imu_initializes():
+    """Over tests/test_torch_vio.py's stream (the IMU initializes at its
+    twelfth frame): one ``pose_only.vi`` inside the ``pose_only`` span of
+    each frame tracked after the initialization, none before it; an
+    ``imu.preintegrate`` in every frame after the first keyframe; every
+    ``lm.imu`` inside a ``local_ba``. A vision-only builder over the
+    stream's head opens none of the three."""
+    from airslam_tpu_torch.pipelines.map_builder import KeyframeConfig, MapBuilder
+    from tests.test_torch_map import Camera, Matcher
+    from tests.test_torch_vio import STREAM_KF, _imu_camera, _vio_stream
+
+    seq, frames = _vio_stream()
+    vi = MapBuilder(_imu_camera(Camera()), None, Matcher(), kf_config=KeyframeConfig(**STREAM_KF),
+                    device="cpu", dtype=torch.float64)
+    spans, vi_frames = _framed_stream(vi, seq, frames)
+    assert vi.map.imu_initialized and len(vi_frames) >= 2
+    for n in range(len(frames)):
+        (frame,) = _named(spans, f"frame{n}")
+        inner = [s for s in _named(spans, "pose_only.vi") if _inside(s, frame)]
+        assert len(inner) == (1 if n in vi_frames else 0), n
+        assert all(any(_inside(s, p) for p in _named(spans, "pose_only")) for s in inner)
+        preint = [s for s in _named(spans, "imu.preintegrate") if _inside(s, frame)]
+        assert (len(preint) >= 1) == (n > 0), n
+    assert _named(spans, "lm.imu")
+    assert all(any(_inside(s, b) for b in _named(spans, "local_ba"))
+               for s in _named(spans, "lm.imu"))
+
+    vision = MapBuilder(Camera(), None, Matcher(), kf_config=KeyframeConfig(**STREAM_KF),
+                        device="cpu", dtype=torch.float64)
+    spans, _ = _framed_stream(vision, seq, frames[:5])
+    assert len(vision.map.keyframe_ids) >= 3 and _named(spans, "local_ba")
+    assert not any(_named(spans, name) for name in VI_SPANS)
+
+
+def test_vi_local_ba_opens_lm_imu_inside_every_assembly_and_cost():
+    """A VI local BA (tests/test_torch_vio_reference.py's five-keyframe
+    window): one ``lm.imu`` inside every ``lm.assemble`` and every
+    ``lm.cost``, and one for the cost before the first step; the vision-only
+    local BA opens none."""
+    from tests.test_torch_vio_reference import CFG, INTR, _window_problem
+
+    problem, _, _ = _window_problem(2 ** 31 + 13)
+
+    def run():
+        with span("local_ba"):
+            return windows.local_ba(problem, INTR, CFG, iters1=2, iters2=3)
+
+    _, spans = _traced(run)
+    (outer,) = _named(spans, "local_ba")
+    _assert_lm_steps(spans, outer, 5)
+    imu = _named(spans, "lm.imu")
+    for phase in ("lm.assemble", "lm.cost"):
+        for s in _named(spans, phase):
+            assert sum(_inside(i, s) for i in imu) == 1, phase
+    assert len(imu) == 2 * 5 + 2  # and once before each pass's first step
+    prob, scene = _perturbed(1, 4, 60)
+    _, spans = _traced(lambda: windows.local_ba(_port(prob), _intr(scene["intr"]), iters1=2,
+                                                iters2=2))
+    assert _named(spans, "lm.assemble") and not _named(spans, "lm.imu")
+
+
+def test_the_vi_spans_are_opened_and_in_perf_md():
+    opened = set()
+    for _, src in _package_sources():
+        opened |= set(re.findall(r"\bspan\(\s*\"([^\"]+)\"", src))
+    assert set(VI_SPANS) <= opened
+    with open(os.path.join(REPO, "PERF.md")) as f:
+        rows = [line for line in f.read().splitlines() if line.startswith("| `")]
+    named = {n for line in rows for n in re.findall(r"`([^`]+)`", line.split("|")[1])}
+    assert set(VI_SPANS) <= named
